@@ -1,0 +1,377 @@
+#!/usr/bin/env python3
+"""Drive clarabel_tpu_torch on one CUDA card and check what comes out.
+
+Run from the root of a checkout:  python3 chip_smoke.py [--seed S] [--out FILE]
+
+Phases:
+  0. the card (name and power limit, from nvidia-smi) and the build of the
+     hand-written kernels (clarabel_tpu_torch/kkt/csrc/ldl.cu) into build/;
+  1. each LDLᵀ kernel against its plain PyTorch version on the card, at f64
+     and f32, at the shapes the solver gives it and at batched shapes, with
+     the solve's backward error, the kernel's and the plain version's times
+     and, as yardsticks the port never calls, torch.linalg.ldl_factor
+     (pivoted, so another function) and torch.linalg.lu_factor; plus one
+     case where the dynamic regularization fires;
+  2. the main path at full width: a Markowitz long-only portfolio QP over
+     n = 1000 assets with a k = 50 factor covariance (KKT N = 2001, f64),
+     solved with direct_solve_method="pallas" and with "auto" (pivoted LU);
+  3. a risk-constrained portfolio SOCP (n = 500, k = 50, N = 1552) the same
+     two ways, a small portfolio (N = 201) whose solve runs the unblocked
+     kernel, checked against the same solve on the CPU, and the batched
+     factor-and-solve entry point for each variant (make_ldl_factor, as the
+     JAX package's bench drives its kernels);
+  4. the launch counts of phases 2-3 and one JSON line per kernel.
+
+Every failure raises, so the exit code is not 0 and no result line prints.
+The last line of standard output is {"ok": true, "device": {...}}.  Without
+a CUDA device, or without the clarabel_tpu_torch package beside it, the
+script fails before it prints anything.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA datasheet): FP64 tensor cores, FP32 outside the
+# tensor cores (no TF32 here), HBM3 bandwidth
+PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+
+# kernel-vs-plain tolerances on the card, relative to the plain factor's
+# largest entry: f64 differs only by the trailing update's summation order
+# and FMA contraction; f32 by the same, at f32's eps over N = 2001 pivots
+FACTOR_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
+# backward error ‖Kx − r‖∞ / (‖K‖∞ ‖x‖∞) of a factor-and-solve, a few
+# N·eps for these well-conditioned quasidefinite matrices
+BACKWARD_TOL = {torch.float64: 1e-11, torch.float32: 1e-3}
+
+KERNELS = {
+    "blocked": dict(name="ldl_blocked", replaces="clarabel_tpu/kkt/pallas_ldl.py:106"),
+    "unrolled": dict(name="ldl_unrolled", replaces="clarabel_tpu/kkt/pallas_ldl.py:144"),
+    "fori": dict(name="ldl_fori", replaces="clarabel_tpu/kkt/pallas_ldl.py:191"),
+}
+SOURCE = "clarabel_tpu_torch/kkt/csrc/ldl.cu"
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds of ``fn()`` over ``reps`` calls after one warm-up,
+    timed with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+# -----------------------------------------------------------------
+# problem data, made from the seed
+# -----------------------------------------------------------------
+
+
+def kkt_batch(B, n, m, dtype, seed, device):
+    """Quasidefinite [[P, Aᵀ], [A, -I]] with P = MMᵀ/n + I, as the JAX
+    package's bench builds them (bench.py:275-279)."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(B, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", M, M) + np.eye(n)
+    A = rng.normal(size=(B, m, n))
+    K = np.block([[P, np.transpose(A, (0, 2, 1))], [A, -np.tile(np.eye(m), (B, 1, 1))]])
+    return torch.as_tensor(K, dtype=dtype, device=device)
+
+
+def with_irregular_pivots(K, n):
+    """Rows whose pivots the dynamic regularization must replace: negative
+    and zero pivots in the + block, a positive one in the - block."""
+    K = K.clone()
+    for r, v in ((0, -1.0), (5, 0.0), (n + 2, 0.5)):
+        K[:, r, :] = 0.0
+        K[:, :, r] = 0.0
+        K[:, r, r] = v
+    return K
+
+
+def portfolio_qp(n, k, seed, gamma=1.0):
+    """Markowitz long-only portfolio (Boyd & Vandenberghe §4.4.1; the
+    portfolio class of the OSQP benchmark suite): min ½xᵀ(γΣ)x − μᵀx s.t.
+    1ᵀx = 1, x ≥ 0, with Σ = F Fᵀ + D over k factors."""
+    from clarabel_tpu_torch import NonnegativeConeT, ZeroConeT
+
+    rng = np.random.default_rng(seed)
+    F = rng.normal(size=(n, k)) / np.sqrt(k)
+    D = rng.uniform(0.05, 0.2, size=n)
+    mu = rng.normal(0.05, 0.1, size=n)
+    P = gamma * (F @ F.T + np.diag(D))
+    A = np.vstack([np.ones((1, n)), -np.eye(n)])
+    b = np.concatenate([[1.0], np.zeros(n)])
+    return P, -mu, A, b, [ZeroConeT(1), NonnegativeConeT(n)]
+
+
+def portfolio_socp(n, k, seed, sigma=0.05):
+    """Risk-constrained portfolio: max μᵀx s.t. 1ᵀx = 1, x ≥ 0,
+    ‖[Fᵀx; D^{1/2}x]‖₂ ≤ σ (one SecondOrderConeT(1 + k + n))."""
+    from clarabel_tpu_torch import NonnegativeConeT, SecondOrderConeT, ZeroConeT
+
+    rng = np.random.default_rng(seed)
+    F = rng.normal(size=(n, k)) / np.sqrt(k)
+    D = rng.uniform(0.05, 0.2, size=n)
+    mu = rng.normal(0.05, 0.1, size=n)
+    A = np.vstack([np.ones((1, n)), -np.eye(n), np.zeros((1, n)), -F.T,
+                   -np.diag(np.sqrt(D))])
+    b = np.concatenate([[1.0], np.zeros(n), [sigma], np.zeros(k + n)])
+    cones = [ZeroConeT(1), NonnegativeConeT(n), SecondOrderConeT(1 + k + n)]
+    return np.zeros((n, n)), -mu, A, b, cones
+
+
+# -----------------------------------------------------------------
+# phase 1: kernels against their plain versions
+# -----------------------------------------------------------------
+
+
+def bound_ms(B, N, dtype):
+    """(least milliseconds, "bytes" or "operations") for B factorizations
+    of N x N: N³/3 multiply-adds each against moving K in and the factor
+    out once."""
+    t_ops = B * (2.0 * N**3 / 3.0) / PEAK_FLOPS[dtype]
+    t_bytes = B * 2.0 * N * N * torch.finfo(dtype).bits / 8 / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_kernel(variant, B, n, m, dtype, seed, device, settings, reps):
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+
+    N = n + m
+    K = kkt_batch(B, n, m, dtype, seed, device)
+    sign = torch.ones(N, dtype=dtype, device=device)
+    sign[n:] = -1.0
+    eps, delta = pl._regularization(settings)
+    plain = pl.ldl_blocked_plain if variant == "blocked" else pl.ldl_unblocked_plain
+
+    (kind, (packed, _)), ok = pl.ldl_factor(K, n, m, settings, variant)
+    ref = plain(K, sign, eps, delta)
+    torch.cuda.synchronize()
+    assert bool(ok.all()), f"{variant}: non-finite factor"
+    err = float((packed - ref).abs().max())
+    scale = float(ref.abs().max())
+    assert err <= FACTOR_TOL[dtype] * scale, f"{variant} N={N} {dtype}: factor differs by {err:.3e}"
+
+    rhs = torch.as_tensor(np.random.default_rng(seed + 1).normal(size=(B, N)),
+                          dtype=dtype, device=device)
+    solve = pl.ldl_solve_lower if kind == "pldl_lower" else pl.ldl_solve
+    x = solve(packed, N, rhs)
+    resid = torch.einsum("bij,bj->bi", K, x) - rhs
+    Knorm = K.abs().sum(dim=2).amax(dim=1)
+    backward = float((resid.abs().amax(dim=1) / (Knorm * x.abs().amax(dim=1))).max())
+    assert backward <= BACKWARD_TOL[dtype], f"{variant} N={N}: backward error {backward:.3e}"
+
+    row = dict(variant=variant, B=B, N=N, dtype=str(dtype).replace("torch.", ""),
+               max_abs_err=err, max_abs_ref=scale, backward_error=backward)
+    row["ms"] = cuda_ms(lambda: pl.ldl_factor(K, n, m, settings, variant), reps)
+    row["plain_ms"] = cuda_ms(lambda: plain(K, sign, eps, delta), 1)
+    row["ldl_factor_ms"] = cuda_ms(lambda: torch.linalg.ldl_factor_ex(K), reps)
+    row["lu_factor_ms"] = cuda_ms(lambda: torch.linalg.lu_factor_ex(K), reps)
+    row["bound_ms"], row["bound_by"] = bound_ms(B, N, dtype)
+    log(f"  {variant:8s} B={B} N={N:4d} {row['dtype']}: max|Δ| {err:.2e} (of {scale:.2e}), "
+        f"backward {backward:.2e}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+        f"ldl_factor {row['ldl_factor_ms']:.3f} ms, lu_factor {row['lu_factor_ms']:.3f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def check_regularization(variant, device, settings):
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+
+    n = m = 100
+    K = with_irregular_pivots(kkt_batch(2, n, m, torch.float64, 3, device), n)
+    sign = torch.ones(n + m, dtype=K.dtype, device=device)
+    sign[n:] = -1.0
+    eps, delta = pl._regularization(settings)
+    plain = pl.ldl_blocked_plain if variant == "blocked" else pl.ldl_unblocked_plain
+    (_, (packed, _)), ok = pl.ldl_factor(K, n, m, settings, variant)
+    ref = plain(K, sign, eps, delta)
+    d, d_ref = packed.diagonal(dim1=1, dim2=2), ref.diagonal(dim1=1, dim2=2)
+    fired, fired_ref = d.abs() == delta, d_ref.abs() == delta
+    assert bool(ok.all())
+    assert torch.equal(fired, fired_ref) and int(fired.sum()) == 6, f"{variant}: regularized pivots differ"
+    err = float((packed - ref).abs().max())
+    assert err <= FACTOR_TOL[torch.float64] * float(ref.abs().max())
+    log(f"  {variant:8s} regularization fires on pivots "
+        f"{fired[0].nonzero().flatten().tolist()} in both, max|Δ| {err:.2e}")
+
+
+# -----------------------------------------------------------------
+# phases 2-3: the solver
+# -----------------------------------------------------------------
+
+
+def solve(problem, method, device):
+    import clarabel_tpu_torch as tt
+
+    P, q, A, b, cones = problem
+    settings = tt.DefaultSettings(verbose=False, direct_solve_method=method)
+    solver = tt.DefaultSolver(P, q, A, b, cones, settings, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solver.solve()
+    seconds = time.perf_counter() - t0
+    assert np.all(np.isfinite(sol.x)) and sol.x.shape == (q.shape[0],)
+    return solver, sol, seconds
+
+
+def compare_methods(label, problem, device):
+    """Solve through "pallas" and "auto"; both Solved, the objectives within
+    1e-7 relative, the iteration counts within 1."""
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+
+    before = dict(pl.ldl_factor.launches)
+    solver, sol, secs = solve(problem, "pallas", device)
+    blocked = pl.ldl_factor.launches["blocked"] - before["blocked"]
+    _, sol_lu, secs_lu = solve(problem, "auto", device)
+    N = solver.info.linear_solver.dim
+    for name, s, t in (("pallas", sol, secs), ("auto", sol_lu, secs_lu)):
+        log(f"  {label} N={N} {name}: {s.status.name}, {s.iterations} iterations, "
+            f"obj {s.obj_val:.12e}, {t * 1e3:.1f} ms, {t * 1e3 / max(s.iterations, 1):.2f} ms/iter")
+    assert sol.status.name == "Solved" and sol_lu.status.name == "Solved"
+    assert abs(sol.obj_val - sol_lu.obj_val) <= 1e-7 * max(1.0, abs(sol_lu.obj_val))
+    assert abs(sol.iterations - sol_lu.iterations) <= 1
+    assert blocked >= sol.iterations, f"{label}: {blocked} blocked factors in {sol.iterations} iterations"
+    return dict(N=N, iterations=sol.iterations, iterations_lu=sol_lu.iterations,
+                obj=sol.obj_val, obj_lu=sol_lu.obj_val, ms=secs * 1e3, ms_lu=secs_lu * 1e3,
+                blocked_factors=blocked)
+
+
+def batched_entry(variant, B, n, m, device, settings):
+    """Factor and solve a batch through make_ldl_factor, as the JAX
+    package's bench drives its kernels (bench.py:283-291)."""
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+
+    K = kkt_batch(B, n, m, torch.float64, 11, device)
+    rhs = torch.ones((B, n + m), dtype=K.dtype, device=device)
+    (kind, (packed, N)), ok = pl.make_ldl_factor(n, m, settings, variant=variant)(K)
+    solve = pl.ldl_solve_lower if kind == "pldl_lower" else pl.ldl_solve
+    x = solve(packed, N, rhs)
+    resid = float((torch.einsum("bij,bj->bi", K, x) - rhs).abs().max())
+    assert bool(ok.all()) and resid <= 1e-9, f"batched {variant}: residual {resid:.3e}"
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--out", help="also write every measurement to this JSON file")
+    args = parser.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch.kkt import build, pallas_ldl as pl
+    from clarabel_tpu_torch.solver import full_precision
+
+    device = "cuda"
+    settings = tt.DefaultSettings()
+    report = {"seed": args.seed}
+
+    # ---- phase 0: the card and the build
+    card = card_line()
+    log(f"phase 0: card {card}")
+    path, seconds, output = build.build("ldl.cu")
+    log(f"  built {path.name} in {seconds:.1f} s")
+    for line in output.splitlines():
+        if "Used" in line or "spill" in line:
+            log("  ptxas:", line.strip())
+    report["card"] = card
+    report["build_s"] = seconds
+
+    with full_precision():
+        # ---- phase 1: kernels against their plain versions
+        log("phase 1: kernels against their plain PyTorch versions")
+        rows = []
+        for dtype in (torch.float64, torch.float32):
+            for variant, B, n, m in (
+                ("unrolled", 8, 100, 100), ("fori", 8, 100, 100),
+                ("unrolled", 1, 100, 101),     # the N = 201 solve's shape
+                ("blocked", 1, 1000, 1001),    # the QP's shape
+                ("blocked", 1, 500, 1052),     # the SOCP's shape
+                ("blocked", 4, 500, 501), ("blocked", 2, 1000, 1001),
+            ):
+                rows.append(check_kernel(variant, B, n, m, dtype, seed=args.seed + n + m,
+                                         device=device, settings=settings,
+                                         reps=3 if n + m > 1500 else 10))
+        for variant in ("unrolled", "fori", "blocked"):
+            check_regularization(variant, device, settings)
+        report["kernels_vs_plain"] = rows
+
+        # ---- phases 2-3: the main path, launches counted from zero
+        for v in pl.ldl_factor.launches:
+            pl.ldl_factor.launches[v] = 0
+        log("phase 2: portfolio QP, n = 1000, k = 50")
+        report["qp"] = compare_methods("QP", portfolio_qp(1000, 50, args.seed), device)
+        log("phase 3: portfolio SOCP, n = 500, k = 50; small QP; batched entry")
+        report["socp"] = compare_methods("SOCP", portfolio_socp(500, 50, args.seed + 1), device)
+        small = portfolio_qp(100, 10, args.seed + 2)
+        s_gpu, sol_gpu, _ = solve(small, "pallas", device)
+        _, sol_cpu, _ = solve(small, "pallas", "cpu")
+        log(f"  small QP N={s_gpu.info.linear_solver.dim}: cuda {sol_gpu.status.name} "
+            f"{sol_gpu.iterations} it obj {sol_gpu.obj_val:.12e}; cpu {sol_cpu.status.name} "
+            f"{sol_cpu.iterations} it obj {sol_cpu.obj_val:.12e}")
+        assert sol_gpu.status == sol_cpu.status == tt.SolverStatus.Solved
+        assert abs(sol_gpu.obj_val - sol_cpu.obj_val) <= 1e-8 * max(1.0, abs(sol_cpu.obj_val))
+        for variant in ("unrolled", "fori", "blocked"):
+            batched_entry(variant, 8 if variant != "blocked" else 2, 100, 100, device, settings)
+        torch.cuda.synchronize()
+        launches = dict(pl.ldl_factor.launches)
+
+    # ---- phase 4: launch counts and the kernels line
+    log(f"phase 4: launches on the main path {launches}")
+    main_shape = {"blocked": (1, 1000, 1001), "unrolled": (1, 100, 101), "fori": (8, 100, 100)}
+    kernels = []
+    for variant, meta in KERNELS.items():
+        assert launches[variant] > 0, f"{meta['name']} never launched on the main path"
+        B, n, m = main_shape[variant]
+        row = next(r for r in rows if r["variant"] == variant and r["B"] == B
+                   and r["N"] == n + m and r["dtype"] == "float64")
+        kernels.append(dict(
+            name=meta["name"], route="cuda", source=SOURCE, replaces=meta["replaces"],
+            launches=launches[variant], max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None, shape=[B, n + m, n + m], dtype="float64",
+            yardstick_ldl_factor_ms=row["ldl_factor_ms"],
+            yardstick_lu_factor_ms=row["lu_factor_ms"],
+        ))
+    report["launches"] = launches
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,520 @@
+"""Composite-cone operations for the zero, nonnegative and second-order cones.
+
+PyTorch port of the symmetric branches of ``clarabel_tpu/cones/ops.py``.
+Every operation is a plain function over the full permuted slack vector:
+contiguous group slices handle the per-kind math and heterogeneous
+second-order cones are vectorized with segment sums (``index_add_``), so the
+same code serves one cone or thousands.  Scalars stay 0-d tensors on the
+vector's device and branches are ``torch.where``, as in the JAX package, so
+nothing here waits for the device.
+
+The exponential, power, generalized-power and PSD branches are not ported
+yet; the solver rejects those cones before any of this runs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import api
+from .layout import ConeLayout
+
+# primal/dual cone selector for margins / unit shifts
+PRIMAL = 0
+DUAL = 1
+
+
+def _logsafe(x):
+    """log with -inf for nonpositive arguments.
+
+    reference: src/algebra/scalarmath.rs (logsafe)
+    """
+    return torch.where(x > 0, torch.log(torch.where(x > 0, x, 1.0)), -torch.inf)
+
+
+def _big(v):
+    """The largest finite value of ``v``'s dtype, as a 0-d tensor."""
+    return torch.full((), torch.finfo(v.dtype).max, dtype=v.dtype, device=v.device)
+
+
+def _min_init(v, big):
+    """``jnp.min(v, initial=big)``."""
+    if v.numel() == 0:
+        return big
+    return torch.minimum(v.amin(), big)
+
+
+def _idx(layout: ConeLayout, device):
+    return layout.index_tensors(device)
+
+
+# =================================================================
+# segment helpers over the SOC group
+# =================================================================
+
+
+def _soc_sum(layout, x):
+    seg = _idx(layout, x.device)["soc_seg"]
+    out = torch.zeros(layout.num_soc, dtype=x.dtype, device=x.device)
+    return out.index_add_(0, seg, x)
+
+
+def _heads(layout, x):
+    return x[_idx(layout, x.device)["soc_head_idx"]]
+
+
+def _tail(layout, x):
+    """Zero out the leading (t) component of each cone."""
+    return torch.where(_idx(layout, x.device)["soc_head_mask"], 0.0, x)
+
+
+def _set_heads(layout, x, head):
+    """x with each cone's leading component replaced by ``head``."""
+    ix = _idx(layout, x.device)
+    return torch.where(ix["soc_head_mask"], head[ix["soc_seg"]], x)
+
+
+def _soc_residual(layout, x):
+    """Per-cone residual (x0 - ||x1||)(x0 + ||x1||).
+
+    reference: src/solver/core/cones/socone.rs:388-394
+    """
+    x0 = _heads(layout, x)
+    n1 = torch.sqrt(_soc_sum(layout, _tail(layout, x) ** 2))
+    return (x0 - n1) * (x0 + n1)
+
+
+def _soc_circ(layout, y, z):
+    """Jordan product y ∘ z for the SOC algebra.
+
+    reference: src/solver/core/cones/socone.rs:360-367
+    """
+    seg = _idx(layout, y.device)["soc_seg"]
+    y0 = _heads(layout, y)
+    z0 = _heads(layout, z)
+    head = _soc_sum(layout, y * z)
+    out = y0[seg] * _tail(layout, z) + z0[seg] * _tail(layout, y)
+    return _set_heads(layout, out, head)
+
+
+def _soc_mul_w(layout, w, eta, x, inverse: bool):
+    """Products with the NT scaling point W (ECOS-style fast form).
+
+    reference: src/solver/core/cones/socone.rs:503-530
+    """
+    seg = _idx(layout, x.device)["soc_seg"]
+    w0 = _heads(layout, w)
+    x0 = _heads(layout, x)
+    zeta = _soc_sum(layout, _tail(layout, w) * _tail(layout, x))
+    if not inverse:
+        c = x0 + zeta / (1.0 + w0)
+        head = eta * (w0 * x0 + zeta)
+        tail = (eta[seg]) * (_tail(layout, x) + c[seg] * _tail(layout, w))
+    else:
+        c = -x0 + zeta / (1.0 + w0)
+        head = (w0 * x0 - zeta) / eta
+        tail = (_tail(layout, x) + c[seg] * _tail(layout, w)) / eta[seg]
+    return _set_heads(layout, tail, head)
+
+
+# =================================================================
+# composite cone interface
+# =================================================================
+
+
+def unit_initialization(layout: ConeLayout, dtype, device):
+    """(z, s) unit initial point per cone.
+
+    reference: per-cone ``unit_initialization`` (zerocone.rs:72-75,
+    nonnegativecone.rs:68-71, socone.rs:114-119)
+    """
+    z = torch.zeros(layout.m, dtype=dtype, device=device)
+    nn = layout.slice_of(api.NONNEGATIVE)
+    z[nn] = 1.0
+    if layout.num_soc:
+        z[_idx(layout, device)["soc_head_idx"] + layout.slice_of(api.SOC).start] = 1.0
+    return z, z.clone()
+
+
+def set_identity_scaling(layout: ConeLayout, dtype, device):
+    """Identity NT scalings for the symmetric initial KKT solve.
+
+    reference: per-cone ``set_identity_scaling`` (nonnegativecone.rs:73-75,
+    socone.rs:121-132)
+    """
+    state = {}
+    if layout.n_nn:
+        state["nn_w"] = torch.ones(layout.n_nn, dtype=dtype, device=device)
+        state["nn_lam"] = torch.zeros(layout.n_nn, dtype=dtype, device=device)
+    if layout.num_soc:
+        w = torch.zeros(layout.m_soc, dtype=dtype, device=device)
+        w[_idx(layout, device)["soc_head_idx"]] = 1.0
+        state["soc_w"] = w
+        state["soc_eta"] = torch.ones(layout.num_soc, dtype=dtype, device=device)
+        state["soc_lam"] = torch.zeros(layout.m_soc, dtype=dtype, device=device)
+    return state
+
+
+def update_scaling(layout: ConeLayout, state, s, z, mu, strategy):
+    """Update all scaling-point data from the current (s, z).
+
+    Returns (new_state, ok) with ``ok`` a 0-d bool tensor.  reference:
+    compositecone.rs:226-243 and the per-cone ``update_scaling`` impls.
+    ``mu`` and ``strategy`` only matter to the nonsymmetric cones.
+    """
+    del mu, strategy
+    state = dict(state)
+    ok = torch.ones((), dtype=torch.bool, device=s.device)
+
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        si, zi = s[sl], z[sl]
+        # reference: nonnegativecone.rs:77-90
+        state["nn_lam"] = torch.sqrt(si * zi)
+        state["nn_w"] = torch.sqrt(si / zi)
+
+    if layout.num_soc:
+        sl = layout.slice_of(api.SOC)
+        si, zi = s[sl], z[sl]
+        ix = _idx(layout, s.device)
+        seg = ix["soc_seg"]
+        # reference: socone.rs:134-211
+        zres = _soc_residual(layout, zi)
+        sres = _soc_residual(layout, si)
+        ok = ok & torch.all(zres > 0) & torch.all(sres > 0)
+        zscale = torch.sqrt(torch.clamp(zres, min=1e-300))
+        sscale = torch.sqrt(torch.clamp(sres, min=1e-300))
+
+        eta = torch.sqrt(sscale / zscale)
+
+        sgn = torch.where(ix["soc_head_mask"], 1.0, -1.0).to(s.dtype)
+        w = si / sscale[seg] + sgn * zi / zscale[seg]
+        wres = _soc_residual(layout, w)
+        ok = ok & torch.all(wres > 0)
+        wscale = torch.sqrt(torch.clamp(wres, min=1e-300))
+        w = w / wscale[seg]
+
+        # force w to come out normalized (socone.rs:170-172)
+        w1sq = _soc_sum(layout, _tail(layout, w) ** 2)
+        w = _set_heads(layout, w, torch.sqrt(1.0 + w1sq))
+
+        # scaled point λ satisfying λ = Wz = W^{-T}s (socone.rs:174-184)
+        gamma = 0.5 * wscale
+        z0, s0 = _heads(layout, zi), _heads(layout, si)
+        cs = (gamma + z0 / zscale) / sscale
+        cz = (gamma + s0 / sscale) / zscale
+        den = s0 / sscale + z0 / zscale + 2.0 * gamma
+        lam = (cs[seg] * _tail(layout, si) + cz[seg] * _tail(layout, zi)) / den[seg]
+        lam = _set_heads(layout, lam, gamma)
+        lam = lam * torch.sqrt(sscale * zscale)[seg]
+
+        state["soc_w"] = w
+        state["soc_eta"] = eta
+        state["soc_lam"] = lam
+
+    return state, ok
+
+
+def hs_dense(layout: ConeLayout, state, dtype, device):
+    """Dense [m, m] block-diagonal scaling matrix Hs = WᵀW for KKT
+    assembly (zero cones contribute zero rows).  reference: per-cone
+    ``get_Hs``."""
+    H = torch.zeros((layout.m, layout.m), dtype=dtype, device=device)
+
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        idx = torch.arange(sl.start, sl.stop, device=device)
+        # reference: nonnegativecone.rs:96-101 (diag Hs = w²)
+        H[idx, idx] = state["nn_w"] ** 2
+
+    if layout.num_soc:
+        sl = layout.slice_of(api.SOC)
+        ix = _idx(layout, device)
+        seg = ix["soc_seg"]
+        w, eta = state["soc_w"], state["soc_eta"]
+        # dense form Hs = η²(2wwᵀ - J), J = diag(1, -I)
+        # (reference: socone.rs:227-245)
+        u = eta[seg] * w
+        same = seg[:, None] == seg[None, :]
+        blk = 2.0 * torch.where(same, u[:, None] * u[None, :], 0.0)
+        diag = torch.where(ix["soc_head_mask"], -(eta[seg] ** 2), eta[seg] ** 2)
+        blk = blk + torch.diag(diag)
+        H[sl, sl] = blk
+
+    return H
+
+
+def mul_hs(layout: ConeLayout, state, x):
+    """y = Hs x without materializing Hs.  reference: per-cone ``mul_Hs``."""
+    y = torch.zeros_like(x)
+
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        y[sl] = state["nn_w"] ** 2 * x[sl]
+
+    if layout.num_soc:
+        sl = layout.slice_of(api.SOC)
+        xi = x[sl]
+        ix = _idx(layout, x.device)
+        seg = ix["soc_seg"]
+        w, eta = state["soc_w"], state["soc_eta"]
+        # reference: socone.rs:248-256
+        c = 2.0 * _soc_sum(layout, w * xi)
+        out = torch.where(ix["soc_head_mask"], -xi, xi) + c[seg] * w
+        y[sl] = eta[seg] ** 2 * out
+
+    return y
+
+
+def affine_ds(layout: ConeLayout, state, s):
+    """RHS ds for the affine step: λ∘λ for symmetric cones.  reference:
+    per-cone ``affine_ds``."""
+    ds = torch.zeros_like(s)
+
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        ds[sl] = state["nn_lam"] ** 2
+
+    if layout.num_soc:
+        sl = layout.slice_of(api.SOC)
+        lam = state["soc_lam"]
+        ds[sl] = _soc_circ(layout, lam, lam)
+
+    return ds
+
+
+def combined_ds_shift(layout: ConeLayout, state, step_z, step_s, sigma_mu, z):
+    """Mehrotra shift term for the combined step RHS: W⁻¹Δs ∘ WΔz − σμe
+    (reference: symmetric_common.rs:53-84).  ``z`` only matters to the
+    nonsymmetric cones."""
+    del z
+    shift = torch.zeros_like(step_z)
+
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        w = state["nn_w"]
+        wz = w * step_z[sl]
+        wis = step_s[sl] / w
+        shift[sl] = wis * wz - sigma_mu
+
+    if layout.num_soc:
+        sl = layout.slice_of(api.SOC)
+        w, eta = state["soc_w"], state["soc_eta"]
+        wz = _soc_mul_w(layout, w, eta, step_z[sl], inverse=False)
+        wis = _soc_mul_w(layout, w, eta, step_s[sl], inverse=True)
+        out = _soc_circ(layout, wis, wz)
+        head_mask = _idx(layout, step_z.device)["soc_head_mask"]
+        shift[sl] = torch.where(head_mask, out - sigma_mu, out)
+
+    return shift
+
+
+def ds_from_dz_offset(layout: ConeLayout, state, ds, z):
+    """Constant part of Δs as a function of Δz: Wᵀ(λ \\ ds) for symmetric
+    cones.  reference: per-cone ``Δs_from_Δz_offset``."""
+    out = torch.zeros_like(ds)
+
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        # reference: nonnegativecone.rs:122-126 (out = ds / z)
+        out[sl] = ds[sl] / z[sl]
+
+    if layout.num_soc:
+        sl = layout.slice_of(api.SOC)
+        dsi, zi = ds[sl], z[sl]
+        ix = _idx(layout, ds.device)
+        seg, head_mask = ix["soc_seg"], ix["soc_head_mask"]
+        w, eta, lam = state["soc_w"], state["soc_eta"], state["soc_lam"]
+        # reference: socone.rs:266-287 (stabilized Wᵀ(λ \ ds))
+        resz = _soc_residual(layout, zi)
+        lam0, ds0 = _heads(layout, lam), _heads(layout, dsi)
+        w0 = _heads(layout, w)
+        lam1ds1 = _soc_sum(layout, _tail(layout, lam) * _tail(layout, dsi))
+        w1ds1 = _soc_sum(layout, _tail(layout, w) * _tail(layout, dsi))
+
+        v = torch.where(head_mask, zi, -zi)
+        c = lam0 * ds0 - lam1ds1
+        v = v * (c / resz)[seg]
+        v = torch.where(head_mask, v + (eta * w1ds1)[seg], v)
+        tail_add = eta[seg] * (
+            _tail(layout, dsi) + (w1ds1 / (1.0 + w0))[seg] * _tail(layout, w)
+        )
+        v = v + _tail(layout, tail_add)
+        v = v / lam0[seg]
+        out[sl] = v
+
+    # zero cones contribute zero
+    return out
+
+
+# -----------------------------------------------------------------
+# step length
+# -----------------------------------------------------------------
+
+
+def _nn_step_component(x, dx, big):
+    """max α with x + α dx >= 0 (reference: nonnegativecone.rs:128-153)."""
+    ratios = torch.where(dx < 0, -x / torch.where(dx < 0, dx, -1.0), big)
+    return _min_init(ratios, big)
+
+
+def _soc_step_component(layout, x, dx, big):
+    """max α keeping each SOC slice inside its cone: minimum positive root
+    of the boundary quadratic, with cancellation-safe root selection.
+
+    reference: socone.rs:421-495
+    """
+    x0 = _heads(layout, x)
+    y0 = _heads(layout, dx)
+
+    # scalar-part bound
+    a_lin = torch.where(
+        (x0 >= 0) & (y0 < 0), -x0 / torch.where(y0 < 0, y0, -1.0), big
+    )
+
+    a = _soc_residual(layout, dx)
+    b = 2.0 * (x0 * y0 - _soc_sum(layout, _tail(layout, x) * _tail(layout, dx)))
+    c = torch.clamp(_soc_residual(layout, x), min=0.0)
+    d = b * b - 4.0 * a * c
+
+    sqrt_d = torch.sqrt(torch.clamp(d, min=0.0))
+    t = torch.where(b >= 0, -b - sqrt_d, -b + sqrt_d)
+    safe_t = torch.where(t == 0, 1.0, t)
+    safe_a = torch.where(a == 0, 1.0, a)
+    r1 = (2.0 * c) / safe_t
+    r2 = t / (2.0 * safe_a)
+    r1 = torch.where((r1 < 0) | (t == 0), big, r1)
+    r2 = torch.where((r2 < 0) | (a == 0), big, r2)
+    root = torch.minimum(r1, r2)
+
+    a_quad = torch.where(
+        ((a > 0) & (b > 0)) | (d < 0),
+        big,
+        torch.where(
+            a == 0,
+            big,
+            torch.where(c == 0, torch.where(a >= 0, big, 0.0), root),
+        ),
+    )
+    per_cone = torch.minimum(a_lin, a_quad)
+    return _min_init(per_cone, big)
+
+
+def step_length(layout: ConeLayout, state, dz, ds, z, s, settings, alpha_max):
+    """Composite maximum step length to the cone boundary (closed form for
+    the symmetric cones).  reference: compositecone.rs:300-340"""
+    del state, settings
+    big = _big(z)
+    alpha = alpha_max
+
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        alpha = torch.minimum(alpha, _nn_step_component(z[sl], dz[sl], big))
+        alpha = torch.minimum(alpha, _nn_step_component(s[sl], ds[sl], big))
+
+    if layout.num_soc:
+        sl = layout.slice_of(api.SOC)
+        alpha = torch.minimum(alpha, _soc_step_component(layout, z[sl], dz[sl], big))
+        alpha = torch.minimum(alpha, _soc_step_component(layout, s[sl], ds[sl], big))
+
+    return alpha
+
+
+def compute_barrier(layout: ConeLayout, state, z, s, dz, ds, alpha):
+    """Combined barrier at (z+αdz, s+αds).  reference: per-cone
+    ``compute_barrier``; used by the asymmetric backtracking line search."""
+    del state
+    barrier = torch.zeros((), dtype=z.dtype, device=z.device)
+
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        si = s[sl] + alpha * ds[sl]
+        zi = z[sl] + alpha * dz[sl]
+        barrier = barrier - torch.sum(_logsafe(si * zi))
+
+    if layout.num_soc:
+        sl = layout.slice_of(api.SOC)
+        res_s = _soc_residual(layout, s[sl] + alpha * ds[sl])
+        res_z = _soc_residual(layout, z[sl] + alpha * dz[sl])
+        good = (res_s > 0) & (res_z > 0)
+        term = torch.where(good, -0.5 * _logsafe(res_s * res_z), torch.inf)
+        barrier = barrier + torch.sum(term)
+
+    return barrier
+
+
+# -----------------------------------------------------------------
+# margins and unit shifts (symmetric initialization)
+# -----------------------------------------------------------------
+
+
+def margins(layout: ConeLayout, z, pd):
+    """(minimum margin, total positive margin) over all cones.
+
+    reference: compositecone margins + per-cone impls (zerocone.rs:55-62,
+    nonnegativecone.rs:58-62, socone.rs:104-108)
+    """
+    del pd
+    big = _big(z)
+    mn = big
+    total = torch.zeros((), dtype=z.dtype, device=z.device)
+
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        zi = z[sl]
+        mn = torch.minimum(mn, _min_init(zi, big))
+        total = total + torch.sum(torch.clamp(zi, min=0.0))
+
+    if layout.num_soc:
+        sl = layout.slice_of(api.SOC)
+        zi = z[sl]
+        z0 = _heads(layout, zi)
+        n1 = torch.sqrt(_soc_sum(layout, _tail(layout, zi) ** 2))
+        a = z0 - n1
+        mn = torch.minimum(mn, _min_init(a, big))
+        total = total + torch.sum(torch.clamp(a, min=0.0))
+
+    # zero cones: (+inf, 0) contribution — no-op on (mn, total)
+    return mn, total
+
+
+def scaled_unit_shift(layout: ConeLayout, z, alpha, pd):
+    """z += α·e per cone; zero cones clamp to 0 in the primal case.
+
+    reference: per-cone ``scaled_unit_shift`` (zerocone.rs:64-70,
+    nonnegativecone.rs:64-66, socone.rs:110-112)
+    """
+    z = z.clone()
+    if layout.n_zero and pd == PRIMAL:
+        z[layout.slice_of(api.ZERO)] = 0.0
+
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        z[sl] = z[sl] + alpha
+
+    if layout.num_soc:
+        sl = layout.slice_of(api.SOC)
+        heads = _idx(layout, z.device)["soc_head_idx"] + sl.start
+        z[heads] = z[heads] + alpha
+
+    return z
+
+
+def rectify_equilibration(layout: ConeLayout, e):
+    """Replace per-row scalings by their per-cone mean on cones that only
+    admit a scalar scaling (everything except zero/NN cones).
+
+    reference: per-cone ``rectify_equilibration`` (socone.rs:97-101:
+    δ = mean(e)/e, so e ⊙ δ = mean(e) on the cone).
+    Returns (δ, changed) where changed is a host bool.
+    """
+    if not layout.rectify_mask.any():
+        return torch.ones_like(e), False
+    ix = _idx(layout, e.device)
+    seg = ix["cone_seg"]
+    zeros = torch.zeros(layout.num_cones, dtype=e.dtype, device=e.device)
+    sums = zeros.index_add(0, seg, e)
+    counts = zeros.index_add(0, seg, torch.ones_like(e))
+    mean = sums / torch.clamp(counts, min=1.0)
+    delta = torch.where(ix["rectify_mask"], mean[seg] / e, 1.0)
+    return delta, True

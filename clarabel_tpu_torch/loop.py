@@ -1,0 +1,764 @@
+"""The interior-point iteration as a host loop over device tensors.
+
+PyTorch port of the f64 paths of ``clarabel_tpu/loop.py``: the reference
+predictor-corrector loop and its strategy-checkpoint state machine
+(reference: src/solver/core/solver.rs:242-465, 525-666), the residual/info
+bookkeeping (implementations/default/residuals.rs, info.rs) and the
+homogeneous-embedding KKT reduction (implementations/default/kktsystem.rs).
+
+The JAX package runs the loop as one ``lax.while_loop``.  Here the state is a
+``SolverState`` of tensors on the problem's device, every data-dependent
+choice inside an iteration stays a ``torch.where`` as in the JAX package, and
+the host reads the device twice per iteration: for the loop condition and for
+whether the iteration takes a step.  The iterative refinement inside each KKT
+solve reads one scalar per sweep (``kkt.dense.solve_refined``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import torch
+
+from .cones import ops as cone_ops
+from .kkt import dense as kkt_dense
+from .statuses import SCALING_DUAL, SCALING_PRIMAL_DUAL, SolverStatus
+
+_UNSOLVED = int(SolverStatus.Unsolved)
+
+
+class SolverState(NamedTuple):
+    # variables (x, s, z, τ, κ) and the saved previous iterate
+    x: torch.Tensor
+    s: torch.Tensor
+    z: torch.Tensor
+    tau: torch.Tensor
+    kappa: torch.Tensor
+    px: torch.Tensor
+    ps: torch.Tensor
+    pz: torch.Tensor
+    ptau: torch.Tensor
+    pkappa: torch.Tensor
+
+    # progress scalars (DefaultInfo; info.rs:13-64)
+    mu: torch.Tensor
+    sigma: torch.Tensor
+    step_length: torch.Tensor
+    iterations: torch.Tensor
+    cost_primal: torch.Tensor
+    cost_dual: torch.Tensor
+    res_primal: torch.Tensor
+    res_dual: torch.Tensor
+    res_primal_inf: torch.Tensor
+    res_dual_inf: torch.Tensor
+    gap_abs: torch.Tensor
+    gap_rel: torch.Tensor
+    ktratio: torch.Tensor
+
+    # previous-iteration info scalars
+    prev_cost_primal: torch.Tensor
+    prev_cost_dual: torch.Tensor
+    prev_res_primal: torch.Tensor
+    prev_res_dual: torch.Tensor
+    prev_gap_abs: torch.Tensor
+    prev_gap_rel: torch.Tensor
+
+    # residual inner products needed by infeasibility certificates
+    dot_qx: torch.Tensor
+    dot_bz: torch.Tensor
+
+    status: torch.Tensor
+    scaling: torch.Tensor
+
+    # consecutive iterations the insufficient-progress condition held
+    ip_pending: torch.Tensor
+
+    # per-iteration progress table [max_iter+1, 9]:
+    # (pcost, dcost, gap_abs, gap_rel, pres, dres, k/t, μ, step)
+    history: torch.Tensor
+
+
+class Residuals(NamedTuple):
+    rx: torch.Tensor
+    rz: torch.Tensor
+    rtau: torch.Tensor
+    rx_inf: torch.Tensor
+    rz_inf: torch.Tensor
+    Px: torch.Tensor
+    dot_qx: torch.Tensor
+    dot_bz: torch.Tensor
+    dot_sz: torch.Tensor
+    dot_xPx: torch.Tensor
+
+
+def compute_residuals(P, q, A, b, x, s, z, tau, kappa) -> Residuals:
+    """reference: src/solver/implementations/default/residuals.rs:69-111"""
+    qx = q @ x
+    bz = b @ z
+    sz = s @ z
+    Px = P @ x
+    xPx = x @ Px
+
+    rx_inf = -(A.T @ z)
+    rz_inf = A @ x + s
+
+    rx = rx_inf - Px - tau * q
+    rz = rz_inf - tau * b
+    rtau = qx + bz + kappa + xPx / tau
+
+    return Residuals(rx, rz, rtau, rx_inf, rz_inf, Px, qx, bz, sz, xPx)
+
+
+def _norm_scaled(v, w):
+    """||diag(w) v||_2  (reference: VectorMath::norm_scaled)"""
+    return torch.sqrt(torch.sum((v * w) ** 2))
+
+
+def _max1(v):
+    """``jnp.maximum(1.0, v)`` (NaN propagates)."""
+    return torch.clamp(v, min=1.0)
+
+
+def update_info(st: SolverState, r: Residuals, equil, normq, normb):
+    """Unscaled costs / residual norms / gaps through the equilibration
+    inverses.  reference: info.rs:112-180"""
+    d, e, dinv, einv, cinv = equil
+    tinv = 1.0 / st.tau
+
+    xPx_half = r.dot_xPx * tinv * tinv / 2.0
+    cost_primal = (r.dot_qx * tinv + xPx_half) * cinv
+    cost_dual = (-r.dot_bz * tinv - xPx_half) * cinv
+
+    normx = _norm_scaled(st.x, d)
+    normz = _norm_scaled(st.z, e) * cinv
+    norms = _norm_scaled(st.s, einv)
+
+    res_primal_inf = (_norm_scaled(r.rx_inf, dinv) * cinv) / _max1(normz)
+    res_dual_inf = torch.maximum(
+        _norm_scaled(r.Px, dinv) / _max1(normx),
+        _norm_scaled(r.rz_inf, einv) / _max1(normx + norms),
+    )
+
+    normx = normx * tinv
+    normz = normz * tinv
+    norms = norms * tinv
+
+    res_primal = _norm_scaled(r.rz, einv) * tinv / _max1(normb + normx + norms)
+    res_dual = (
+        _norm_scaled(r.rx, dinv) * tinv * cinv / _max1(normq + normx + normz)
+    )
+
+    gap_abs = torch.abs(cost_primal - cost_dual)
+    gap_rel = gap_abs / _max1(
+        torch.minimum(torch.abs(cost_primal), torch.abs(cost_dual))
+    )
+    ktratio = st.kappa * tinv
+
+    return st._replace(
+        cost_primal=cost_primal,
+        cost_dual=cost_dual,
+        res_primal=res_primal,
+        res_dual=res_dual,
+        res_primal_inf=res_primal_inf,
+        res_dual_inf=res_dual_inf,
+        gap_abs=gap_abs,
+        gap_rel=gap_rel,
+        ktratio=ktratio,
+        dot_qx=r.dot_qx,
+        dot_bz=r.dot_bz,
+    )
+
+
+def _status(cond, status_if_true, otherwise):
+    """int32 status tensor ``where(cond, status_if_true, otherwise)``."""
+    return torch.where(cond, status_if_true, otherwise).to(torch.int32)
+
+
+def check_convergence(st: SolverState, tols, statuses):
+    """Shared convergence check for the full and the reduced ("almost")
+    tolerance tiers.  reference: info.rs:340-389"""
+    (gap_abs, gap_rel, feas, infeas_abs, infeas_rel, ktratio_tol) = tols
+    solved_st, pinf_st, dinf_st = statuses
+
+    solved = (
+        (st.ktratio <= 1.0)
+        & ((st.gap_abs < gap_abs) | (st.gap_rel < gap_rel))
+        & (st.res_primal < feas)
+        & (st.res_dual < feas)
+    )
+    kt_diverged = st.ktratio > (1000.0 / ktratio_tol)
+    primal_inf = (st.dot_bz < -infeas_abs) & (
+        st.res_primal_inf < -infeas_rel * st.dot_bz
+    )
+    dual_inf = (st.dot_qx < -infeas_abs) & (st.res_dual_inf < -infeas_rel * st.dot_qx)
+
+    return _status(
+        solved,
+        solved_st,
+        _status(
+            kt_diverged & primal_inf,
+            pinf_st,
+            _status(kt_diverged & dual_inf, dinf_st, _UNSOLVED),
+        ),
+    )
+
+
+def check_termination(st: SolverState, settings, dtype):
+    """reference: info.rs:182-231"""
+    full_tols = (
+        settings.tol_gap_abs,
+        settings.tol_gap_rel,
+        settings.tol_feas,
+        settings.tol_infeas_abs,
+        settings.tol_infeas_rel,
+        settings.tol_ktratio,
+    )
+    status = check_convergence(
+        st,
+        full_tols,
+        (
+            int(SolverStatus.Solved),
+            int(SolverStatus.PrimalInfeasible),
+            int(SolverStatus.DualInfeasible),
+        ),
+    )
+
+    eps = float(torch.finfo(dtype).eps)
+    going_backwards = (st.res_dual > st.prev_res_dual) | (
+        st.res_primal > st.prev_res_primal
+    )
+    poor_progress_hi = (st.ktratio < eps * 100.0) & (
+        (st.prev_gap_abs < settings.tol_gap_abs)
+        | (st.prev_gap_rel < settings.tol_gap_rel)
+    )
+    diverging = (st.ktratio < 1.0) & (
+        (
+            (st.res_dual > settings.tol_feas * 100.0)
+            & (st.res_dual > st.prev_res_dual * 100.0)
+        )
+        | (
+            (st.res_primal > settings.tol_feas * 100.0)
+            & (st.res_primal > st.prev_res_primal * 100.0)
+        )
+    )
+    insufficient_now = (
+        (status == _UNSOLVED)
+        & (st.iterations > 1)
+        & going_backwards
+        & (poor_progress_hi | diverging)
+    )
+    # f32 requires the condition on two consecutive iterations; f64 keeps
+    # the reference's immediate trigger (solver.rs:586-609)
+    strikes = 2 if dtype == torch.float32 else 1
+    insufficient = insufficient_now & (st.ip_pending >= strikes - 1)
+    status = _status(insufficient, int(SolverStatus.InsufficientProgress), status)
+
+    status = _status(
+        (status == _UNSOLVED) & (st.iterations == settings.max_iter),
+        int(SolverStatus.MaxIterations),
+        status,
+    )
+    ip_pending = torch.where(insufficient_now, st.ip_pending + 1, 0).to(torch.int32)
+    return status, ip_pending
+
+
+def calc_mu(layout, r: Residuals, tau, kappa):
+    """reference: variables.rs:62-65"""
+    return (r.dot_sz + tau * kappa) / (layout.degree + 1)
+
+
+def calc_step_length(layout, state, step, variables, settings, is_combined, scaling):
+    """reference: variables.rs:117-154 + solver.rs:547-584"""
+    x, s, z, tau, kappa = variables
+    dx, ds, dz, dtau, dkappa = step
+
+    big = cone_ops._big(z)
+    a_tau = torch.where(dtau < 0, -tau / torch.where(dtau < 0, dtau, -1.0), big)
+    a_kappa = torch.where(dkappa < 0, -kappa / torch.where(dkappa < 0, dkappa, -1.0), big)
+    alpha_max = torch.clamp(torch.minimum(a_tau, a_kappa), max=1.0)
+
+    alpha = cone_ops.step_length(layout, state, dz, ds, z, s, settings, alpha_max)
+
+    if is_combined:
+        alpha = alpha * settings.max_step_fraction
+
+    # additional barrier limit for asymmetric cones under dual-only scaling
+    # (solver.rs:560-584): a host loop, one device read per backtrack
+    if not layout.is_symmetric and is_combined and bool(scaling == SCALING_DUAL):
+        def barrier_at(a):
+            cur_tau = tau + a * dtau
+            cur_kappa = kappa + a * dkappa
+            sz = (z + a * dz) @ (s + a * ds)
+            mu = (sz + cur_tau * cur_kappa) / (layout.degree + 1)
+            barrier = (
+                (layout.degree + 1) * cone_ops._logsafe(mu)
+                - cone_ops._logsafe(cur_tau)
+                - cone_ops._logsafe(cur_kappa)
+            )
+            return barrier + cone_ops.compute_barrier(layout, state, z, s, dz, ds, a)
+
+        k = 0
+        while k < 50 and bool(barrier_at(alpha) >= 1.0):
+            alpha = alpha * settings.linesearch_backtrack_step
+            k += 1
+    return alpha
+
+
+def kkt_solve_rhs(layout, scaling_state, rhs, variables, is_combined):
+    """Assemble the reduced KKT right-hand side [rx; ds_const - rz].
+
+    reference: kktsystem.rs:127-158.  Returns (stacked_rhs, ds_const)."""
+    x, s, z, tau, kappa = variables
+    rx, rs, rz, rtau, rkappa = rhs
+
+    # constant term c in HₛΔz + Δs = -c (kktsystem.rs:146-158)
+    if is_combined:
+        ds_const = cone_ops.ds_from_dz_offset(layout, scaling_state, rs, z)
+    else:
+        ds_const = s
+
+    return torch.cat([rx, ds_const - rz]), ds_const
+
+
+def kkt_solve_finish(
+    layout, scaling_state, P, q, A, b, x2, z2, sol, ds_const, rhs, variables,
+):
+    """Recover the full direction from the reduced solve: Δτ closed form
+    with P-quadratic terms, then Δx/Δz/Δs/Δκ (kktsystem.rs:160-207)."""
+    n = q.shape[0]
+    m = b.shape[0]
+    x, s, z, tau, kappa = variables
+    rx, rs, rz, rtau, rkappa = rhs
+    x1, z1f = sol[:n], sol[n:]
+
+    # Δτ (kktsystem.rs:168-190)
+    xi = x / tau
+    tau_num = (
+        rtau - rkappa / tau + q @ x1 + b @ z1f[:m] + 2.0 * (xi @ (P @ x1))
+    )
+    xi_m_x2 = xi - x2
+    tau_den = (
+        kappa / tau
+        - q @ x2
+        - b @ z2[:m]
+        + xi_m_x2 @ (P @ xi_m_x2)
+        - x2 @ (P @ x2)
+    )
+    dtau = tau_num / tau_den
+
+    dx = x1 + dtau * x2
+    dzf = z1f + dtau * z2
+    dz = dzf[:m]
+
+    # Δs = -(HₛΔz + c)  (kktsystem.rs:195-199)
+    ds = -(cone_ops.mul_hs(layout, scaling_state, dz) + ds_const)
+
+    # Δκ (kktsystem.rs:202-203)
+    dkappa = -(rkappa + kappa * dtau) / tau
+
+    return (dx, ds, dz, dtau, dkappa)
+
+
+def kkt_solve(
+    layout, scaling_state, factors, K_true, P, q, A, b, x2, z2,
+    rhs, variables, settings, is_combined,
+):
+    """Reduced 2-solve strategy for the homogeneous KKT system.
+
+    reference: kktsystem.rs:127-209 — solve for (x1, z1), recover Δτ from the
+    closed form with P-quadratic terms, then Δx/Δz/Δs/Δκ.
+    """
+    stacked, ds_const = kkt_solve_rhs(
+        layout, scaling_state, rhs, variables, is_combined
+    )
+    (sol, _), ok = kkt_dense.solve_refined(
+        factors, K_true, stacked, settings, want_lo=True
+    )
+    step = kkt_solve_finish(
+        layout, scaling_state, P, q, A, b, x2, z2, sol, ds_const, rhs,
+        variables,
+    )
+    return step, ok
+
+
+def _resolved_kkt_method(layout, settings, dtype, n, use_pallas=False):
+    """Resolve the KKT backend name from settings + problem structure,
+    exactly as the JAX package resolves it (``use_pallas`` means "the
+    device is a CUDA device" here, "a TPU" there)."""
+    method = settings.direct_solve_method
+    is_f32 = dtype == torch.float32
+    if method == "auto":
+        no_nonsym_no_psd = (
+            layout.num_exp == 0
+            and layout.num_pow == 0
+            and layout.num_genpow == 0
+            and layout.num_psd == 0
+        )
+        diag_hs = no_nonsym_no_psd and layout.m_soc == 0
+        if is_f32 and diag_hs:
+            method = "schur_diag"
+        elif is_f32 and no_nonsym_no_psd:
+            method = "schur_lr"
+        elif (
+            is_f32
+            and use_pallas
+            and layout.is_symmetric
+            and layout.num_psd == 0
+            and (n + layout.m) <= 1024
+        ):
+            method = "pallas"
+        else:
+            method = "lu"
+    return method
+
+
+def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state):
+    """Build KKT factors for the current scaling state.
+
+    Returns (factors, K_true, ok) with K_true the dense unregularized KKT
+    matrix for iterative refinement.
+    """
+    method = _resolved_kkt_method(layout, settings, dtype, n, use_pallas)
+    if method not in ("lu", "pallas") or dtype != torch.float64:
+        raise NotImplementedError(
+            f"the {method!r} KKT backend at {dtype} is not ported "
+            "(ROADMAP.md Queue 1 items 5 and 12)"
+        )
+    Hs = cone_ops.hs_dense(layout, scaling_state, dtype, P.device)
+    K, K_reg = kkt_dense.assemble(P, A, Hs, settings)
+    factors, ok = _make_factor_fn(layout, settings, dtype, n, use_pallas, method)(K_reg)
+    return factors, K, ok
+
+
+def _make_factor_fn(layout, settings, dtype, n, use_pallas=False, method=None):
+    """Select the dense factorization backend: the quasidefinite LDLᵀ
+    kernels for "pallas", pivoted LU otherwise."""
+    if method is None:
+        method = _resolved_kkt_method(layout, settings, dtype, n, use_pallas)
+    if method == "pallas":
+        from .kkt import pallas_ldl
+
+        return pallas_ldl.make_ldl_factor(n, layout.m, settings, dtype)
+    return kkt_dense.factor
+
+
+def default_start(layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas=False):
+    """Initial iterate.  reference: solver.rs:525-541, kktsystem.rs:211-259,
+    variables.rs:164-178, 231-256."""
+    n, m = q.shape[0], b.shape[0]
+    kw = dict(dtype=dtype, device=q.device)
+    one = torch.ones((), **kw)
+
+    if not layout.is_symmetric:
+        z, s = cone_ops.unit_initialization(layout, dtype, q.device)
+        return torch.zeros(n, **kw), s, z, one, one.clone()
+
+    # symmetric: solve the KKT system with identity scalings
+    state0 = cone_ops.set_identity_scaling(layout, dtype, q.device)
+    factors, K, _ = _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, state0)
+
+    if p_is_zero:
+        # LP initialization (kktsystem.rs:219-245)
+        rhs1 = torch.cat([torch.zeros(n, **kw), b])
+        rhs2 = torch.cat([-q, torch.zeros(m, **kw)])
+        sol1, _ = kkt_dense.solve_refined(factors, K, rhs1, settings)
+        sol2, _ = kkt_dense.solve_refined(factors, K, rhs2, settings)
+        x = sol1[:n]
+        s = -sol1[n:]
+        z = sol2[n:]
+    else:
+        # QP initialization (kktsystem.rs:246-257)
+        sol, _ = kkt_dense.solve_refined(factors, K, torch.cat([-q, b]), settings)
+        x = sol[:n]
+        z = sol[n:]
+        s = -z
+
+    # shift (s, z) into the cone interior (variables.rs:231-256)
+    s = _shift_to_cone_interior(layout, s, cone_ops.PRIMAL)
+    z = _shift_to_cone_interior(layout, z, cone_ops.DUAL)
+
+    return x, s, z, one, one.clone()
+
+
+def _shift_to_cone_interior(layout, v, pd, floor=1.0):
+    """reference: variables.rs:231-256 (cold start: unit-distance floor)."""
+    mn, pos = cone_ops.margins(layout, v, pd)
+    degree = max(layout.degree, 1)
+    target = torch.clamp(0.1 * pos / degree, min=floor)
+
+    # two-stage shift to avoid catastrophic cancellation for large margins
+    shift1 = torch.where(mn <= 0, -mn, 0.0)
+    shift2 = torch.where(
+        mn <= 0, target, torch.where(mn < target, target - mn, 0.0)
+    )
+    v = cone_ops.scaled_unit_shift(layout, v, shift1, pd)
+    v = cone_ops.scaled_unit_shift(layout, v, shift2, pd)
+    return v
+
+
+def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
+            use_pallas=False):
+    """The main loop.  Returns the final SolverState.
+
+    reference: solver.rs:242-465
+    """
+    n, m = q.shape[0], b.shape[0]
+    asym = not layout.is_symmetric
+    device = q.device
+
+    x, s, z, tau, kappa = default_start(
+        layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas,
+    )
+
+    f = lambda v: torch.full((), v, dtype=dtype, device=device)
+    i32 = lambda v: torch.full((), v, dtype=torch.int32, device=device)
+    init_scaling = (
+        SCALING_PRIMAL_DUAL
+        if layout.allows_primal_dual_scaling
+        else SCALING_DUAL
+    )
+    timed = settings.time_limit != float("inf")
+    time_start = time.monotonic() if timed else None
+
+    st = SolverState(
+        x=x, s=s, z=z, tau=tau, kappa=kappa,
+        px=x, ps=s, pz=z, ptau=tau, pkappa=kappa,
+        mu=f(0.0), sigma=f(1.0), step_length=f(0.0),
+        iterations=i32(0),
+        cost_primal=f(torch.inf), cost_dual=f(-torch.inf),
+        res_primal=f(torch.inf), res_dual=f(torch.inf),
+        res_primal_inf=f(torch.inf), res_dual_inf=f(torch.inf),
+        gap_abs=f(torch.inf), gap_rel=f(torch.inf), ktratio=f(1.0),
+        prev_cost_primal=f(torch.inf), prev_cost_dual=f(-torch.inf),
+        prev_res_primal=f(torch.inf), prev_res_dual=f(torch.inf),
+        prev_gap_abs=f(torch.inf), prev_gap_rel=f(torch.inf),
+        dot_qx=f(0.0), dot_bz=f(0.0),
+        status=i32(_UNSOLVED),
+        scaling=i32(init_scaling),
+        ip_pending=i32(0),
+        history=torch.full((settings.max_iter + 1, 9), torch.nan, dtype=dtype, device=device),
+    )
+
+    def body(st: SolverState):
+        r = compute_residuals(P, q, A, b, st.x, st.s, st.z, st.tau, st.kappa)
+        mu = calc_mu(layout, r, st.tau, st.kappa)
+        st = update_info(st._replace(mu=mu), r, equil, normq, normb)
+
+        # record the progress row for this iterate (info_print.rs per-iter
+        # table); α/σ are the values from the step that produced it
+        row = torch.stack(
+            [
+                st.cost_primal, st.cost_dual, st.gap_abs, st.gap_rel,
+                st.res_primal, st.res_dual, st.ktratio, mu, st.step_length,
+            ]
+        )
+        st.history.index_copy_(0, st.iterations.long().view(1), row.view(1, 9))
+
+        status, ip_pending = check_termination(st, settings, dtype)
+        st = st._replace(ip_pending=ip_pending)
+
+        # wall-clock time limit (info.rs:224-226), read on the host
+        if timed and (time.monotonic() - time_start) > settings.time_limit:
+            status = _status(status == _UNSOLVED, int(SolverStatus.MaxTime), status)
+
+        # --- strategy checkpoint: insufficient progress (solver.rs:586-609)
+        is_ip = status == int(SolverStatus.InsufficientProgress)
+        retry_ip = is_ip & asym & (st.scaling == SCALING_PRIMAL_DUAL)
+
+        restored = dict(
+            x=st.px, s=st.ps, z=st.pz, tau=st.ptau, kappa=st.pkappa,
+            cost_primal=st.prev_cost_primal, cost_dual=st.prev_cost_dual,
+            res_primal=st.prev_res_primal, res_dual=st.prev_res_dual,
+            gap_abs=st.prev_gap_abs, gap_rel=st.prev_gap_rel,
+        )
+        st = st._replace(**{
+            k: torch.where(is_ip, v, getattr(st, k)) for k, v in restored.items()
+        })
+        status = torch.where(retry_ip, _UNSOLVED, status).to(torch.int32)
+        scaling = torch.where(retry_ip, SCALING_DUAL, st.scaling).to(torch.int32)
+        st = st._replace(status=status, scaling=scaling)
+
+        proceed = (status == _UNSOLVED) & ~retry_ip
+        if bool(proceed):
+            st = _step(st, r, mu)
+        return st
+
+    def _step(st: SolverState, r: Residuals, mu):
+        # --- cone scaling update (solver.rs:327-338)
+        scaling_state, ok_scale = cone_ops.update_scaling(
+            layout, cone_ops.set_identity_scaling(layout, dtype, device),
+            st.s, st.z, mu, st.scaling,
+        )
+        # iterations only count successful KKT updates (solver.rs:340-342)
+        st = st._replace(iterations=st.iterations + ok_scale.to(torch.int32))
+
+        # --- KKT update + constant-term solve (kktsystem.rs:108-125)
+        factors, K, ok_f = _kkt_prepare(
+            layout, settings, dtype, n, use_pallas, P, A, scaling_state,
+        )
+        variables = (st.x, st.s, st.z, st.tau, st.kappa)
+
+        # --- affine step rhs (variables.rs:67-78)
+        affine_rhs = (
+            r.rx,
+            cone_ops.affine_ds(layout, scaling_state, st.s),
+            r.rz,
+            r.rtau,
+            st.tau * st.kappa,
+        )
+        rhs_const = torch.cat([-q, b])
+        rhs_aff, dsc_aff = kkt_solve_rhs(
+            layout, scaling_state, affine_rhs, variables, is_combined=False,
+        )
+        (sol_c, _), ok_c = kkt_dense.solve_refined(
+            factors, K, rhs_const, settings, want_lo=True
+        )
+        (sol_a, _), ok_a = kkt_dense.solve_refined(
+            factors, K, rhs_aff, settings, want_lo=True
+        )
+        x2, z2 = sol_c[:n], sol_c[n:]
+        aff = kkt_solve_finish(
+            layout, scaling_state, P, q, A, b, x2, z2, sol_a, dsc_aff,
+            affine_rhs, variables,
+        )
+
+        alpha_aff = calc_step_length(
+            layout, scaling_state, aff, variables, settings,
+            is_combined=False, scaling=st.scaling,
+        )
+        sigma = (1.0 - alpha_aff) ** 3  # solver.rs:543-545
+
+        # reduced Mehrotra correction on the first iteration
+        # (solver.rs:380-382)
+        m_corr = torch.where(st.iterations > 1, 1.0, alpha_aff)
+
+        # --- combined step rhs (variables.rs:80-115)
+        dx_a, ds_a, dz_a, dtau_a, dkappa_a = aff
+        sigma_mu = sigma * mu
+        shift = cone_ops.combined_ds_shift(
+            layout, scaling_state, m_corr * dz_a, ds_a, sigma_mu, st.z
+        )
+        comb_rhs = (
+            (1.0 - sigma) * r.rx,
+            affine_rhs[1] + shift,
+            (1.0 - sigma) * r.rz,
+            (1.0 - sigma) * r.rtau,
+            -sigma_mu + m_corr * dtau_a * dkappa_a + st.tau * st.kappa,
+        )
+        comb, ok_cb = kkt_solve(
+            layout, scaling_state, factors, K, P, q, A, b, x2, z2,
+            comb_rhs, variables, settings, is_combined=True,
+        )
+
+        kkt_ok = ok_scale & ok_f & ok_c & ok_a & ok_cb
+
+        # --- strategy checkpoint: numerical error (solver.rs:611-630)
+        retry_ne = (~kkt_ok) & asym & (st.scaling == SCALING_PRIMAL_DUAL)
+        fail_ne = (~kkt_ok) & (~retry_ne)
+        # scaling failure is always fatal (solver.rs:654-665)
+        fail_ne = fail_ne | (~ok_scale)
+        retry_ne = retry_ne & ok_scale
+
+        alpha = calc_step_length(
+            layout, scaling_state, comb, variables, settings,
+            is_combined=True, scaling=st.scaling,
+        )
+
+        # direction finiteness: a non-finite direction or step length is a
+        # KKT numerical error (reference analog: solver.rs:611-630)
+        dir_ok = torch.isfinite(alpha)
+        for leaf in comb:
+            dir_ok = dir_ok & torch.all(torch.isfinite(leaf))
+        retry_dir = (~dir_ok) & asym & (st.scaling == SCALING_PRIMAL_DUAL)
+        fail_ne = fail_ne | ((~dir_ok) & (~retry_dir))
+        retry_ne = retry_ne | (retry_dir & ok_scale)
+
+        # --- strategy checkpoint: small step (solver.rs:632-652)
+        retry_ss = (
+            asym
+            & (st.scaling == SCALING_PRIMAL_DUAL)
+            & (alpha < settings.min_switch_step_length)
+        )
+        fail_ss = (~retry_ss) & (
+            alpha <= max(0.0, settings.min_terminate_step_length)
+        )
+
+        retry = (retry_ne | retry_ss) & (~fail_ne)
+        fail = fail_ne | (fail_ss & ~retry)
+        take = (~retry) & (~fail)
+
+        status = _status(
+            fail_ne,
+            int(SolverStatus.NumericalError),
+            _status(
+                fail_ss & ~retry_ne,
+                int(SolverStatus.InsufficientProgress),
+                _UNSOLVED,
+            ),
+        )
+        scaling = torch.where(retry, SCALING_DUAL, st.scaling).to(torch.int32)
+
+        dx, ds, dz, dtau, dkappa = comb
+        a = torch.where(take, alpha, 0.0)
+
+        # homogeneous renormalization (variables.rs:219-228)
+        new_tau = st.tau + a * dtau
+        new_kappa = st.kappa + a * dkappa
+        invscale = 1.0 / torch.maximum(new_tau, new_kappa)
+        keep = lambda new, old: torch.where(take, new, old)
+        return st._replace(
+            # save previous iterate before stepping (solver.rs:429-432)
+            px=keep(st.x, st.px),
+            ps=keep(st.s, st.ps),
+            pz=keep(st.z, st.pz),
+            ptau=keep(st.tau, st.ptau),
+            pkappa=keep(st.kappa, st.pkappa),
+            prev_cost_primal=keep(st.cost_primal, st.prev_cost_primal),
+            prev_cost_dual=keep(st.cost_dual, st.prev_cost_dual),
+            prev_res_primal=keep(st.res_primal, st.prev_res_primal),
+            prev_res_dual=keep(st.res_dual, st.prev_res_dual),
+            prev_gap_abs=keep(st.gap_abs, st.prev_gap_abs),
+            prev_gap_rel=keep(st.gap_rel, st.prev_gap_rel),
+            x=(st.x + a * dx) * invscale,
+            s=(st.s + a * ds) * invscale,
+            z=(st.z + a * dz) * invscale,
+            tau=new_tau * invscale,
+            kappa=new_kappa * invscale,
+            sigma=sigma,
+            step_length=a,
+            status=status,
+            scaling=scaling,
+        )
+
+    while bool(st.status == _UNSOLVED):
+        st = body(st)
+
+    # "almost solved" tier on error / iteration-limit exits
+    # (info.rs:95-105, 308-337)
+    errored = (
+        (st.status == int(SolverStatus.NumericalError))
+        | (st.status == int(SolverStatus.InsufficientProgress))
+        | (st.status == int(SolverStatus.MaxIterations))
+        | (st.status == int(SolverStatus.MaxTime))
+    )
+    reduced_tols = (
+        settings.reduced_tol_gap_abs,
+        settings.reduced_tol_gap_rel,
+        settings.reduced_tol_feas,
+        settings.reduced_tol_infeas_abs,
+        settings.reduced_tol_infeas_rel,
+        settings.reduced_tol_ktratio,
+    )
+    almost = check_convergence(
+        st,
+        reduced_tols,
+        (
+            int(SolverStatus.AlmostSolved),
+            int(SolverStatus.AlmostPrimalInfeasible),
+            int(SolverStatus.AlmostDualInfeasible),
+        ),
+    )
+    return st._replace(
+        status=_status(errored & (almost != _UNSOLVED), almost, st.status)
+    )

@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Where the time of one clarabel_tpu_torch solve goes on a CUDA card.
+
+Solves the portfolio problems of chip_smoke.py (QP: n = 1000, k = 50,
+N = 2001; SOCP: n = 500, k = 50, N = 1552) once through each KKT backend
+("pallas" and "auto") under torch.profiler, after one untraced warm-up
+solve, and prints for each: the wall time, the summed device time of the
+kernels, the device's idle share (1 - device time / wall time; the kernels
+of one stream do not overlap), and the kernels that take the most device
+time.
+
+    python3 scripts/profile_torch_solve.py [--seed S] [--top K] [--out FILE]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402  (the problem builders)
+import clarabel_tpu_torch as tt  # noqa: E402
+from clarabel_tpu_torch.solver import full_precision  # noqa: E402
+
+
+def profile_solve(problem, method, top):
+    P, q, A, b, cones = problem
+    settings = tt.DefaultSettings(verbose=False, direct_solve_method=method)
+    tt.DefaultSolver(P, q, A, b, cones, settings, device="cuda").solve()  # warm-up
+    solver = tt.DefaultSolver(P, q, A, b, cones, settings, device="cuda")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sol = solver.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_us = sum(e.self_device_time_total for e in events)
+    kernels = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    return dict(
+        method=method, status=sol.status.name, iterations=sol.iterations,
+        wall_ms=wall * 1e3, device_ms=device_us / 1e3,
+        idle_share=1.0 - device_us / 1e6 / wall,
+        kernels=[dict(name=e.key[:90], calls=e.count,
+                      device_ms=e.self_device_time_total / 1e3) for e in kernels],
+    )
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--top", type=int, default=12)
+    parser.add_argument("--out")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_solve: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(f"card: {card}")
+    problems = {
+        "qp_n1000": chip_smoke.portfolio_qp(1000, 50, args.seed),
+        "socp_n500": chip_smoke.portfolio_socp(500, 50, args.seed + 1),
+    }
+    report = dict(card=card, runs=[])
+    with full_precision():
+        for label, problem in problems.items():
+            for method in ("pallas", "auto"):
+                r = profile_solve(problem, method, args.top)
+                r["problem"] = label
+                report["runs"].append(r)
+                print(f"{label} {method}: {r['status']} in {r['iterations']} iterations, "
+                      f"wall {r['wall_ms']:.1f} ms, device {r['device_ms']:.1f} ms, "
+                      f"idle {100 * r['idle_share']:.1f}%")
+                for k in r["kernels"]:
+                    print(f"    {k['device_ms']:9.3f} ms  {k['calls']:6d}x  {k['name']}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

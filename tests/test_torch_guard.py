@@ -1,0 +1,130 @@
+"""Boundaries of clarabel_tpu_torch: it never imports JAX or the JAX
+package, it runs on CUDA unless told otherwise, and what it does not port
+yet raises instead of taking another path."""
+
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import clarabel_tpu as ct
+import clarabel_tpu_torch as tt
+from clarabel_tpu_torch import convert
+from clarabel_tpu_torch.cones import api
+from clarabel_tpu_torch.kkt import pallas_ldl
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "clarabel_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _tiny_qp():
+    P = np.array([[4.0, 1.0], [1.0, 2.0]])
+    A = np.vstack([np.ones((1, 2)), np.eye(2), -np.eye(2)])
+    b = np.array([1.0, 0.7, 0.7, 0.0, 0.0])
+    return P, np.array([1.0, 1.0]), A, b, [tt.ZeroConeT(1), tt.NonnegativeConeT(4)]
+
+
+def test_solve_imports_no_jax():
+    code = (
+        "import sys, numpy as np\n"
+        "import clarabel_tpu_torch as tt\n"
+        "P = np.array([[4.0, 1.0], [1.0, 2.0]])\n"
+        "A = np.vstack([np.ones((1, 2)), np.eye(2), -np.eye(2)])\n"
+        "b = np.array([1.0, 0.7, 0.7, 0.0, 0.0])\n"
+        "for method in ('auto', 'pallas'):\n"
+        "    s = tt.DefaultSolver(P, np.ones(2), A, b, [tt.ZeroConeT(1), tt.NonnegativeConeT(4)],\n"
+        "        tt.DefaultSettings(verbose=False, direct_solve_method=method), device='cpu')\n"
+        "    assert s.solve().status == tt.SolverStatus.Solved\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'clarabel_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_imports_jax(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "clarabel_tpu"), f"{path}: import {name}"
+
+
+def test_device_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    P, q, A, b, cones = _tiny_qp()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(verbose=False))
+
+
+@pytest.mark.parametrize("kwargs, item", [
+    (dict(dtype="float32"), "item 12"),
+    (dict(settings=tt.DefaultSettings(direct_solve_method="schur_lr")), "item 5"),
+    (dict(settings=tt.DefaultSettings(direct_solve_method="multifrontal")), "item 14"),
+])
+def test_unported_options_raise(kwargs, item):
+    P, q, A, b, cones = _tiny_qp()
+    kwargs.setdefault("settings", tt.DefaultSettings(verbose=False))
+    with pytest.raises(NotImplementedError, match=item):
+        tt.DefaultSolver(P, q, A, b, cones, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("cone, item", [
+    (api.PSDTriangleConeT(2), "item 11"),
+    (api.ExponentialConeT(), "item 10"),
+    (api.PowerConeT(0.3), "item 10"),
+])
+def test_unported_cones_raise(cone, item):
+    m = cone.nvars
+    with pytest.raises(NotImplementedError, match=item):
+        tt.DefaultSolver(np.eye(2), np.ones(2), np.ones((m, 2)), np.ones(m), [cone],
+                         tt.DefaultSettings(verbose=False), device="cpu")
+
+
+def test_sparse_auto_route_raises():
+    n = 3000
+    eye = sp.eye(n, format="csc")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tt.DefaultSolver(eye, np.ones(n), eye, np.ones(n), [tt.NonnegativeConeT(n)],
+                         tt.DefaultSettings(verbose=False), device="cpu")
+
+
+def test_convert_round_trips_settings_and_cones():
+    s = ct.DefaultSettings(max_iter=17, direct_solve_method="pallas",
+                           dynamic_regularization_enable=False)
+    ported = convert.settings_from_dict(dataclasses.asdict(s))
+    assert dataclasses.asdict(ported) == dataclasses.asdict(s)
+    with pytest.raises(ValueError):
+        convert.settings_from_dict({"no_such_setting": 1})
+    cones = [ct.ZeroConeT(1), ct.SecondOrderConeT(3), ct.PowerConeT(0.25),
+             ct.GenPowerConeT([0.5, 0.5], 2)]
+    got = convert.cones_from_specs(convert.cone_specs(cones))
+    assert [(c.kind, c.dim, c.alpha, c.dim2) for c in got] == \
+        [(c.kind, c.dim, c.alpha, c.dim2) for c in cones]
+
+
+def test_ldl_factor_counts_only_kernel_launches():
+    before = dict(pallas_ldl.ldl_factor.launches)
+    K = torch.eye(4, dtype=torch.float64)
+    (kind, (packed, N)), ok = pallas_ldl.ldl_factor(K, 2, 2, tt.DefaultSettings())
+    assert kind == "pldl" and N == 4 and bool(ok)
+    assert pallas_ldl.ldl_factor.launches == before  # the CPU takes the plain version
+    with pytest.raises(ValueError):
+        pallas_ldl.ldl_factor(K, 2, 2, tt.DefaultSettings(), variant="no_such_variant")
+    with pytest.raises(RuntimeError, match="no LDL kernel"):
+        pallas_ldl.ldl_factor(K.to("meta"), 2, 2, tt.DefaultSettings())

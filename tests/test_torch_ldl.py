@@ -1,0 +1,158 @@
+"""The plain PyTorch versions of the three LDLᵀ kernels
+(clarabel_tpu_torch/kkt/pallas_ldl.py) against the JAX package's Pallas
+kernels, run in interpret mode on the CPU.
+
+Inputs are batches of quasidefinite KKT matrices built as bench.py builds
+them, from a numpy seed.  D is compared on the diagonal and L on the strict
+triangle that the solve reads (above the diagonal for the unblocked K2/K3,
+below it for the blocked K1), then the solves themselves.  Tolerances:
+1e-12·max|K| at f64 and 1e-4 of the reference's largest entry at f32 --
+the arithmetic is the same, only the order of summation differs (the
+blocked variant also uses 32-column panels where the TPU kernel uses 128).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import clarabel_tpu.kkt.pallas_ldl as jl
+from clarabel_tpu.settings import DefaultSettings as JaxSettings
+from clarabel_tpu_torch import convert
+from clarabel_tpu_torch.kkt import pallas_ldl as tl
+
+
+def _kkt_batch(B, n, m, dtype, seed):
+    """Quasidefinite [[P, Aᵀ], [A, -I]] with P = MMᵀ/n + I (bench.py:275-279)."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(B, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", M, M) + np.eye(n)
+    A = rng.normal(size=(B, m, n))
+    H = np.tile(np.eye(m), (B, 1, 1))
+    K = np.block([[P, np.transpose(A, (0, 2, 1))], [A, -H]])
+    return K.astype(dtype)
+
+
+def _with_irregular_pivots(K, n):
+    """Decouple three rows whose pivots the regularization must catch: a
+    negative pivot (row 0) and a zero pivot (row 5) in the + block, and a
+    positive pivot in the - block (row n + 2)."""
+    K = K.copy()
+    for r, v in ((0, -1.0), (5, 0.0), (n + 2, 0.5)):
+        K[:, r, :] = 0.0
+        K[:, :, r] = 0.0
+        K[:, r, r] = v
+    return K
+
+
+def _reference(K, n, m, settings, variant):
+    """The JAX kernel on each matrix of the batch: packed [B, N, N], ok [B]."""
+    factor = jl.make_ldl_factor(n, m, settings, jnp.dtype(K.dtype),
+                                interpret=True, variant=variant)
+
+    def one(Kb):
+        (_, (packed, _)), ok = factor(Kb)
+        return packed, ok
+
+    packed, ok = jax.jit(jax.vmap(one))(jnp.asarray(K))
+    N = n + m
+    return np.asarray(packed)[:, :N, :N], np.asarray(ok)
+
+
+def _port(K, n, m, settings, variant):
+    port_settings = convert.settings_from_dict(dataclasses.asdict(settings))
+    (kind, (packed, N)), ok = tl.ldl_factor(
+        torch.as_tensor(K), n, m, port_settings, variant
+    )
+    return kind, packed, ok.numpy()
+
+
+def _triangle(packed, kind):
+    return np.tril(packed, -1) if kind == "pldl_lower" else np.triu(packed, 1)
+
+
+def _tol(K, ref, dtype):
+    if dtype == np.float64:
+        return 1e-12 * np.abs(K).max()
+    return 1e-4 * np.abs(ref).max()
+
+
+CASES = [(20, 20, "unrolled"), (80, 80, "unrolled"), (20, 20, "fori"),
+         (80, 80, "fori"), (80, 80, "blocked")]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n,m,variant", CASES)
+def test_factor_and_solve_match_pallas(n, m, variant, dtype):
+    settings = JaxSettings()
+    K = _kkt_batch(2, n, m, dtype, seed=n + m)
+    ref, ref_ok = _reference(K, n, m, settings, variant)
+    kind, packed, ok = _port(K, n, m, settings, variant)
+    assert kind == ("pldl_lower" if variant == "blocked" else "pldl")
+    assert ok.all() and ref_ok.all()
+    got = packed.numpy()
+    tol = _tol(K, ref, dtype)
+    d_got = np.diagonal(got, axis1=1, axis2=2)
+    d_ref = np.diagonal(ref, axis1=1, axis2=2)
+    assert np.abs(d_got - d_ref).max() <= tol
+    for b in range(K.shape[0]):
+        assert np.abs(_triangle(got[b], kind) - _triangle(ref[b], kind)).max() <= tol
+
+    rhs = np.random.default_rng(7).normal(size=n + m).astype(dtype)
+    solve_ref = jl.ldl_solve_lower if kind == "pldl_lower" else jl.ldl_solve
+    solve_port = tl.ldl_solve_lower if kind == "pldl_lower" else tl.ldl_solve
+    x_ref = np.asarray(solve_ref(jnp.asarray(ref[0]), n + m, jnp.asarray(rhs)))
+    x_got = solve_port(packed[0], n + m, torch.as_tensor(rhs)).numpy()
+    scale = np.abs(x_ref).max()
+    assert np.abs(x_got - x_ref).max() <= (1e-12 if dtype == np.float64 else 1e-4) * scale
+    # and the factors solve the system they factor
+    resid = K[0].astype(np.float64) @ x_got - rhs
+    assert np.abs(resid).max() <= (1e-10 if dtype == np.float64 else 1e-3) * scale
+
+
+@pytest.mark.parametrize("variant", ["unrolled", "fori", "blocked"])
+def test_dynamic_regularization_fires_on_the_same_pivots(variant):
+    n = m = 20
+    settings = JaxSettings()
+    K = _with_irregular_pivots(_kkt_batch(2, n, m, np.float64, seed=3), n)
+    ref, ref_ok = _reference(K, n, m, settings, variant)
+    kind, packed, ok = _port(K, n, m, settings, variant)
+    assert ok.all() and ref_ok.all()
+    delta = settings.dynamic_regularization_delta
+    d_ref = np.diagonal(ref, axis1=1, axis2=2)
+    d_got = np.diagonal(packed.numpy(), axis1=1, axis2=2)
+    fired_ref = np.abs(d_ref) == delta
+    fired_got = np.abs(d_got) == delta
+    assert np.array_equal(fired_got, fired_ref)
+    assert fired_ref[:, [0, 5, n + 2]].all() and fired_ref.sum() == 2 * 3
+    # the + block takes +delta, the - block -delta
+    assert (d_got[:, [0, 5]] == delta).all() and (d_got[:, n + 2] == -delta).all()
+    tol = _tol(K, ref, np.float64)
+    assert np.abs(d_got - d_ref).max() <= tol
+    for b in range(2):
+        assert np.abs(_triangle(packed.numpy()[b], kind) - _triangle(ref[b], kind)).max() <= tol
+
+
+@pytest.mark.parametrize("variant", ["unrolled", "fori", "blocked"])
+def test_regularization_disabled_keeps_every_pivot(variant):
+    n = m = 20
+    settings = JaxSettings(dynamic_regularization_enable=False)
+    K = _kkt_batch(2, n, m, np.float64, seed=4)
+    K[:, 0, :] = K[:, :, 0] = 0.0
+    K[:, 0, 0] = -1.0  # a wrong-signed pivot, kept as it is
+    ref, ref_ok = _reference(K, n, m, settings, variant)
+    kind, packed, ok = _port(K, n, m, settings, variant)
+    assert ok.all() and ref_ok.all()
+    d_got = np.diagonal(packed.numpy(), axis1=1, axis2=2)
+    assert (d_got[:, 0] == -1.0).all()
+    tol = _tol(K, ref, np.float64)
+    assert np.abs(d_got - np.diagonal(ref, axis1=1, axis2=2)).max() <= tol
+
+    # a zero pivot, unregularized, poisons the factor in both packages
+    K[:, 0, 0] = 0.0
+    _, ref_ok = _reference(K, n, m, settings, variant)
+    _, _, ok = _port(K, n, m, settings, variant)
+    assert not ok.any() and not ref_ok.any()
