@@ -10,8 +10,10 @@ Phases:
      and f32, at the shapes the solver gives it and at batched shapes, with
      the solve's backward error, the kernel's and the plain version's times
      and, as yardsticks the port never calls, torch.linalg.ldl_factor
-     (pivoted, so another function) and torch.linalg.lu_factor; plus one
-     case where the dynamic regularization fires;
+     (pivoted, so another function) and torch.linalg.lu_factor; the blocked
+     kernel also at edge shapes (N = 1, 32, 33, 100: one panel, one row
+     below it, a ragged last panel); plus one case where the dynamic
+     regularization fires, also on the blocked kernel's panel edges;
   2. the main path at full width: a Markowitz long-only portfolio QP over
      n = 1000 assets with a k = 50 factor covariance (KKT N = 2001, f64),
      solved with direct_solve_method="pallas" and with "auto" (pivoted LU);
@@ -102,11 +104,11 @@ def kkt_batch(B, n, m, dtype, seed, device):
     return torch.as_tensor(K, dtype=dtype, device=device)
 
 
-def with_irregular_pivots(K, n):
-    """Rows whose pivots the dynamic regularization must replace: negative
-    and zero pivots in the + block, a positive one in the - block."""
+def with_irregular_pivots(K, pivots):
+    """K with each row and column of ``pivots`` decoupled, leaving the
+    given pivot on its diagonal."""
     K = K.clone()
-    for r, v in ((0, -1.0), (5, 0.0), (n + 2, 0.5)):
+    for r, v in pivots:
         K[:, r, :] = 0.0
         K[:, :, r] = 0.0
         K[:, r, r] = v
@@ -152,9 +154,9 @@ def portfolio_socp(n, k, seed, sigma=0.05):
 
 def bound_ms(B, N, dtype):
     """(least milliseconds, "bytes" or "operations") for B factorizations
-    of N x N: N³/3 multiply-adds each against moving K in and the factor
-    out once."""
-    t_ops = B * (2.0 * N**3 / 3.0) / PEAK_FLOPS[dtype]
+    of N x N: N³/3 flops each (N³/6 multiply-adds, as a Cholesky
+    factorization) against moving K in and the factor out once."""
+    t_ops = B * (N**3 / 3.0) / PEAK_FLOPS[dtype]
     t_bytes = B * 2.0 * N * N * torch.finfo(dtype).bits / 8 / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -204,7 +206,12 @@ def check_regularization(variant, device, settings):
     from clarabel_tpu_torch.kkt import pallas_ldl as pl
 
     n = m = 100
-    K = with_irregular_pivots(kkt_batch(2, n, m, torch.float64, 3, device), n)
+    # (row, pivot) pairs the regularization must replace: negative and zero
+    # pivots in the + block (rows < n), positive and zero ones in the - block;
+    # rows 31, 32, 63, 127 and 128 sit on the blocked kernel's panel edges
+    pivots = [(0, -1.0), (5, 0.0), (31, -1.0), (32, 0.0), (63, -1.0),
+              (n + 2, 0.5), (127, 0.5), (128, 0.0)]
+    K = with_irregular_pivots(kkt_batch(2, n, m, torch.float64, 3, device), pivots)
     sign = torch.ones(n + m, dtype=K.dtype, device=device)
     sign[n:] = -1.0
     eps, delta = pl._regularization(settings)
@@ -214,7 +221,10 @@ def check_regularization(variant, device, settings):
     d, d_ref = packed.diagonal(dim1=1, dim2=2), ref.diagonal(dim1=1, dim2=2)
     fired, fired_ref = d.abs() == delta, d_ref.abs() == delta
     assert bool(ok.all())
-    assert torch.equal(fired, fired_ref) and int(fired.sum()) == 6, f"{variant}: regularized pivots differ"
+    expected = torch.zeros_like(fired)
+    expected[:, [r for r, _ in pivots]] = True
+    assert torch.equal(fired, fired_ref) and torch.equal(fired, expected), \
+        f"{variant}: regularized pivots differ"
     err = float((packed - ref).abs().max())
     assert err <= FACTOR_TOL[torch.float64] * float(ref.abs().max())
     log(f"  {variant:8s} regularization fires on pivots "
@@ -316,6 +326,10 @@ def main(argv=None) -> int:
                 ("blocked", 1, 1000, 1001),    # the QP's shape
                 ("blocked", 1, 500, 1052),     # the SOCP's shape
                 ("blocked", 4, 500, 501), ("blocked", 2, 1000, 1001),
+                # edge shapes: one pivot; one panel and no rows below it; one
+                # row below the first panel; a ragged last panel
+                ("blocked", 2, 1, 0), ("blocked", 2, 16, 16), ("blocked", 2, 17, 16),
+                ("blocked", 3, 50, 50),
             ):
                 rows.append(check_kernel(variant, B, n, m, dtype, seed=args.seed + n + m,
                                          device=device, settings=settings,

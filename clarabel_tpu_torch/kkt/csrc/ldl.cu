@@ -20,16 +20,16 @@
 // So the designs below are the simple ones: the matrix stays in device
 // memory (L2-resident at these sizes) and the arithmetic is FP64/FP32 FMA.
 //
-// Bound on the H100 SXM (NVIDIA datasheet): the factorization is N³/3
-// multiply-adds (2N³/3 flops) and moves at least 2·N²·sizeof(T) bytes.  At
-// N = 2001, f64: 5.3 GFLOP, which is 79 µs at the 67 TFLOP/s FP64 tensor-core
-// peak and 157 µs at the 34 TFLOP/s FP64 FMA peak, against 19 µs for the
-// 64 MB at 3.35 TB/s: compute bounds it.  What keeps these kernels far from
-// that bound: the panel factorization runs on one SM per matrix, one column
-// at a time with two block-wide barriers per column, and the trailing update
-// uses scalar FMAs on 64 x 64 tiles staged through shared memory.  DMMA
-// (mma.sync f64) tiles for the trailing update, a panel spread over several
-// SMs, and TMA loads are the work of a later change.
+// Bound on the H100 SXM (NVIDIA datasheet): an LDLᵀ, like a Cholesky
+// factorization, is N³/6 multiply-adds (N³/3 flops; LU's 2N³/3 does twice
+// the work) and moves at least 2·N²·sizeof(T) bytes.  At N = 2001, f64:
+// 2.67 GFLOP, which is 40 µs at the 67 TFLOP/s FP64 tensor-core peak and
+// 79 µs at the 34 TFLOP/s FP64 FMA peak, against 19 µs for the 64 MB at
+// 3.35 TB/s: compute bounds it.  What keeps these kernels far from that
+// bound: the blocked factor walks its panels in order, three launches each,
+// and its trailing update uses scalar FMAs on 64 x 64 tiles staged through
+// shared memory.  DMMA (mma.sync f64) tiles for the trailing update with a
+// wider panel, and TMA loads, are the work of a later change.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,8 +52,8 @@ __device__ __forceinline__ T regularize(T d, T sign, T eps, T delta) {
 }
 
 constexpr int UNBLOCKED_THREADS = 256;
-constexpr int PANEL_THREADS = 1024;
 constexpr int PANEL_WIDTH = 32;  // columns per panel of the blocked kernel
+constexpr int ROW_THREADS = 64;  // rows below the panel's diagonal block per block
 constexpr int TILE = 64;         // trailing-update tile edge
 constexpr int TRAILING_THREADS = 256;
 
@@ -73,9 +73,9 @@ constexpr int TRAILING_THREADS = 256;
 // this kernel is for N <= 256, where the whole matrix is L1/L2-resident.
 //
 // Bound: at N = 200 the 2·N²·sizeof(T) bytes (0.64 MB at f64, 0.19 µs at
-// 3.35 TB/s per matrix) outweigh the N³/3 multiply-adds (0.08 µs at
-// 67 TFLOP/s).  The kernel is far from either: its 200 columns are 200
-// dependent steps of one block, each a barrier and an L1/L2 round trip.
+// 3.35 TB/s per matrix) outweigh the N³/3 flops (0.04 µs at 67 TFLOP/s).
+// The kernel is far from either: its 200 columns are 200 dependent steps of
+// one block, each a barrier and an L1/L2 round trip.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(UNBLOCKED_THREADS)
@@ -118,52 +118,108 @@ ldl_unblocked_kernel(T* __restrict__ K, const T* __restrict__ sign, int N,
 // triangle and zeros the rest.
 // ---------------------------------------------------------------------------
 
-// Bound: N³/3 multiply-adds; at N = 2001, f64, 0.080 ms at the 67 TFLOP/s
-// FP64 tensor-core peak (the header gives the rest).  The panel kernel's
-// serial column steps take most of the time; the trailing update, the N³/3
-// work itself, is the smaller part at these sizes.
+// Bound: N³/6 multiply-adds (N³/3 flops); at N = 2001, f64, 0.040 ms at the
+// 67 TFLOP/s FP64 tensor-core peak (the header gives the rest).
 //
-// (a) Panel: one block per matrix factors columns [p0, pe) over rows [p0, N).
-// Column j: thread 0 regularizes the pivot; the panel rows of column j are
-// staged in shared memory; each thread takes rows r > j, forms
-// l = A(r, j) / d, updates A(r, c) -= l * A(c, j) for c in (j, min(r, pe-1)]
-// and stores l as L(r, j).  d goes to dbuf for the trailing update.
+// A panel [A11; A21] -- columns [p0, pe), rows [p0, N) -- is factored by two
+// kernels, the right-looking split of a panel: (a) factors the diagonal block
+// A11 and is the only place where pivots are formed and regularized; (b)
+// solves the rows below it, which are independent of one another, on a grid
+// of row slabs.  Both keep the rounding of the panel's rank-1 steps
+// (mul_rn/sub_rn, no FMA contraction): row r >= pe at step j computes
+//
+//     l = A(r, j) / d_j;   A(r, c) -= l * u(c, j) for j < c < pe;   L(r, j) = l
+//
+// with u(c, j) = A(c, j) as it stands when column j is eliminated.  The
+// pitfalls, and what the design does about them:
+//   - Read after write on A11: (a) writes the packed L11/D in place, so (b)
+//     never reads A11; it reads u from the scratch ubuf [B, PW, PW] and d
+//     from dbuf, both written by (a) and read after it in stream order.
+//   - Empty grids: (b) and the trailing update launch only when rows remain
+//     below the panel (not for N <= PW, nor for the last panel); a grid
+//     dimension of 0 is an invalid launch.  The host checks every launch.
+//   - Only the last panel can be narrower than PW, and it has no rows below
+//     it, so (b) always sees a full panel and keeps its row in registers.
+//
+// (a) Diagonal block: one block of PW x PW threads per matrix, thread
+// (x, y) = (r, c) holding A11(r, c), c <= r < pw, in a register for the whole
+// factorization.  Step j: column j's threads publish their values (u(c, j)
+// below the pivot) in shared memory, double-buffered so one barrier per step
+// suffices; every thread regularizes the same pivot; thread (r, c),
+// j < c <= r, subtracts (A(r, j) / d) * u(c, j); column j's threads store u
+// to ubuf and become L(r, j), the pivot's thread d + 0·pivot.  Loads and
+// stores run along rows, K being column-major, so they coalesce.
 template <typename T>
-__global__ void __launch_bounds__(PANEL_THREADS)
-ldl_panel_kernel(T* __restrict__ K, T* __restrict__ dbuf,
-                 const T* __restrict__ sign, int N, int p0, int pe, T eps,
-                 T delta) {
+__global__ void __launch_bounds__(PANEL_WIDTH * PANEL_WIDTH)
+ldl_diag_kernel(T* __restrict__ K, T* __restrict__ dbuf, T* __restrict__ ubuf,
+                const T* __restrict__ sign, int N, int p0, int pe, T eps,
+                T delta) {
   T* a = K + (size_t)blockIdx.x * N * N;
-  T* dv = dbuf + (size_t)blockIdx.x * N;
-  __shared__ T s_col[PANEL_WIDTH];
-  __shared__ T s_d;
-  for (int j = p0; j < pe; ++j) {
-    T* colj = a + (size_t)j * N;  // colj[r] = A(r, j)
-    if (threadIdx.x == 0) {
-      const T piv = colj[j];
-      const T d = regularize(piv, sign[j], eps, delta);
-      s_d = d;
+  T* dv = dbuf + (size_t)blockIdx.x * N + p0;
+  T* u = ubuf + (size_t)blockIdx.x * PANEL_WIDTH * PANEL_WIDTH;
+  const int pw = pe - p0;
+  const int r = threadIdx.x, c = threadIdx.y;
+  const bool mine = c <= r && r < pw;
+  T* x = a + (size_t)(p0 + c) * N + (p0 + r);  // A(p0 + r, p0 + c)
+  T v = mine ? *x : T(0);
+  __shared__ T s_col[2][PANEL_WIDTH];
+  for (int j = 0; j < pw; ++j) {
+    T* col = s_col[j & 1];  // col[i] = A(p0 + i, p0 + j), i >= j
+    if (mine && c == j) col[r] = v;
+    __syncthreads();
+    const T piv = col[j];
+    const T d = regularize(piv, sign[p0 + j], eps, delta);
+    if (!mine || c < j) continue;
+    if (c > j) {
+      v = sub_rn(v, mul_rn(col[r] / d, col[c]));
+    } else if (r > j) {
+      u[j * PANEL_WIDTH + r] = v;
+      v = v / d;
+    } else {
       dv[j] = d;
-      colj[j] = add_rn(d, mul_rn(T(0), piv));
+      v = add_rn(d, mul_rn(T(0), piv));
     }
-    for (int c = j + 1 + threadIdx.x; c < pe; c += blockDim.x)
-      s_col[c - p0] = colj[c];
-    __syncthreads();
-    const T d = s_d;
-    for (int r = j + 1 + threadIdx.x; r < N; r += blockDim.x) {
-      const T l = colj[r] / d;
-      const int cend = min(r, pe - 1);
-      for (int c = j + 1; c <= cend; ++c) {
-        T* x = a + (size_t)c * N + r;
-        *x = sub_rn(*x, mul_rn(l, s_col[c - p0]));
-      }
-      colj[r] = l;
-    }
-    __syncthreads();
   }
+  if (mine) *x = v;
 }
 
-// (b) Trailing update: A(r, c) -= sum_k (L(r, k) * d_k) * L(c, k) over the
+// (b) Rows below the diagonal block: grid (row slabs of ROW_THREADS) x batch;
+// one thread per row r >= pe runs the PW steps above on its 32 panel values
+// in registers, with u and d staged in shared memory (a broadcast read: every
+// thread of a step reads the same address).  Row r's panel values are
+// A(r, p0 + k) = a[(p0 + k) * N + r]: neighbouring threads, neighbouring
+// addresses.  At N = 2001 the first panel's 1969 rows are 31 blocks.
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+ldl_rows_kernel(T* __restrict__ K, const T* __restrict__ dbuf,
+                const T* __restrict__ ubuf, int N, int p0, int pe) {
+  T* a = K + (size_t)blockIdx.y * N * N;
+  const T* dv = dbuf + (size_t)blockIdx.y * N + p0;
+  const T* u = ubuf + (size_t)blockIdx.y * PANEL_WIDTH * PANEL_WIDTH;
+  __shared__ T s_u[PANEL_WIDTH * PANEL_WIDTH];  // s_u[j * PW + c] = u(p0 + c, p0 + j)
+  __shared__ T s_d[PANEL_WIDTH];
+  for (int i = threadIdx.x; i < PANEL_WIDTH * PANEL_WIDTH; i += blockDim.x) s_u[i] = u[i];
+  for (int i = threadIdx.x; i < PANEL_WIDTH; i += blockDim.x) s_d[i] = dv[i];
+  __syncthreads();
+  const int r = pe + blockIdx.x * ROW_THREADS + threadIdx.x;
+  if (r >= N) return;
+  T* row = a + (size_t)p0 * N + r;  // row[k * N] = A(r, p0 + k)
+  T x[PANEL_WIDTH];
+#pragma unroll
+  for (int k = 0; k < PANEL_WIDTH; ++k) x[k] = row[(size_t)k * N];
+#pragma unroll
+  for (int j = 0; j < PANEL_WIDTH; ++j) {
+    const T l = x[j] / s_d[j];
+#pragma unroll
+    for (int k = j + 1; k < PANEL_WIDTH; ++k)
+      x[k] = sub_rn(x[k], mul_rn(l, s_u[j * PANEL_WIDTH + k]));
+    x[j] = l;
+  }
+#pragma unroll
+  for (int k = 0; k < PANEL_WIDTH; ++k) row[(size_t)k * N] = x[k];
+}
+
+// (c) Trailing update: A(r, c) -= sum_k (L(r, k) * d_k) * L(c, k) over the
 // panel's columns k, for pe <= c <= r < N.  Grid: (lower-triangle tiles of
 // K22) x batch.  Each block stages the two [PANEL_WIDTH x TILE] slices of L21
 // in shared memory (one scaled by D, as the TPU kernel scales B by dvec) and
@@ -233,7 +289,7 @@ ldl_trailing_kernel(T* __restrict__ K, const T* __restrict__ dbuf, int N,
   }
 }
 
-// (c) Finalize: row-major lower triangle <- L, row-major upper triangle <- 0.
+// (d) Finalize: row-major lower triangle <- L, row-major upper triangle <- 0.
 // In memory, L(r, c) for r > c sits at a[c * N + r], the row-major upper
 // triangle, so this is an in-place transpose of the strict upper triangle into
 // the strict lower one.  Grid: (32 x 32 tiles) x (32 x 32 tiles) x batch;
@@ -271,16 +327,21 @@ int ldl_unblocked(T* K, const T* sign, int B, int N, T eps, T delta,
 }
 
 template <typename T>
-int ldl_blocked(T* K, T* dbuf, const T* sign, int B, int N, T eps, T delta,
-                cudaStream_t stream) {
+int ldl_blocked(T* K, T* dbuf, T* ubuf, const T* sign, int B, int N, T eps,
+                T delta, cudaStream_t stream) {
   if (B <= 0 || N <= 0) return 0;
   for (int p0 = 0; p0 < N; p0 += PANEL_WIDTH) {
     const int pe = (p0 + PANEL_WIDTH < N) ? p0 + PANEL_WIDTH : N;
-    ldl_panel_kernel<T><<<B, PANEL_THREADS, 0, stream>>>(K, dbuf, sign, N, p0, pe, eps, delta);
+    ldl_diag_kernel<T><<<B, dim3(PANEL_WIDTH, PANEL_WIDTH), 0, stream>>>(
+        K, dbuf, ubuf, sign, N, p0, pe, eps, delta);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int M = N - pe;
-    if (M > 0) {
+    if (M > 0) {  // then pe - p0 == PANEL_WIDTH
+      const dim3 slabs((unsigned)((M + ROW_THREADS - 1) / ROW_THREADS), (unsigned)B);
+      ldl_rows_kernel<T><<<slabs, ROW_THREADS, 0, stream>>>(K, dbuf, ubuf, N, p0, pe);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
       const long long tiles = (M + TILE - 1) / TILE;
       const dim3 grid((unsigned)(tiles * (tiles + 1) / 2), (unsigned)B);
       ldl_trailing_kernel<T><<<grid, TRAILING_THREADS, 0, stream>>>(K, dbuf, N, p0, pe);
@@ -307,14 +368,15 @@ int ldl_unblocked_f32(float* K, const float* sign, int B, int N, float eps,
   return ldl_unblocked<float>(K, sign, B, N, eps, delta, (cudaStream_t)stream);
 }
 
-int ldl_blocked_f64(double* K, double* dbuf, const double* sign, int B, int N,
-                    double eps, double delta, void* stream) {
-  return ldl_blocked<double>(K, dbuf, sign, B, N, eps, delta, (cudaStream_t)stream);
+// dbuf [B, N] and ubuf [B, PANEL_WIDTH, PANEL_WIDTH] are scratch of K's type.
+int ldl_blocked_f64(double* K, double* dbuf, double* ubuf, const double* sign,
+                    int B, int N, double eps, double delta, void* stream) {
+  return ldl_blocked<double>(K, dbuf, ubuf, sign, B, N, eps, delta, (cudaStream_t)stream);
 }
 
-int ldl_blocked_f32(float* K, float* dbuf, const float* sign, int B, int N,
-                    float eps, float delta, void* stream) {
-  return ldl_blocked<float>(K, dbuf, sign, B, N, eps, delta, (cudaStream_t)stream);
+int ldl_blocked_f32(float* K, float* dbuf, float* ubuf, const float* sign,
+                    int B, int N, float eps, float delta, void* stream) {
+  return ldl_blocked<float>(K, dbuf, ubuf, sign, B, N, eps, delta, (cudaStream_t)stream);
 }
 
 int ldl_panel_width(void) { return PANEL_WIDTH; }

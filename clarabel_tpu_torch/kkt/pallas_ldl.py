@@ -139,10 +139,12 @@ def _launch(variant, K, sign, eps, delta):
         if variant == "blocked":
             # the kernel works on K column-major (see csrc/ldl.cu)
             out = K.mT.contiguous()
+            # scratch: the pivots, and one panel's diagonal-block columns
             dbuf = torch.empty((B, N), dtype=K.dtype, device=K.device)
+            ubuf = torch.empty((B, PANEL_WIDTH, PANEL_WIDTH), dtype=K.dtype, device=K.device)
             fn = lib.ldl_blocked_f64 if f64 else lib.ldl_blocked_f32
-            err = fn(out.data_ptr(), dbuf.data_ptr(), sign.data_ptr(), B, N,
-                     eps, delta, stream)
+            err = fn(out.data_ptr(), dbuf.data_ptr(), ubuf.data_ptr(), sign.data_ptr(),
+                     B, N, eps, delta, stream)
         else:
             out = K.clone(memory_format=torch.contiguous_format)
             fn = lib.ldl_unblocked_f64 if f64 else lib.ldl_unblocked_f32

@@ -7,7 +7,9 @@ N = 2001; SOCP: n = 500, k = 50, N = 1552) once through each KKT backend
 solve, and prints for each: the wall time, the summed device time of the
 kernels, the device's idle share (1 - device time / wall time; the kernels
 of one stream do not overlap), and the kernels that take the most device
-time.
+time.  Then it profiles the blocked LDLᵀ factor alone at the two problems'
+KKT shapes (1 x 2001² and 1 x 1552², f64) and prints each of its kernels'
+device time and launches per factor.
 
     python3 scripts/profile_torch_solve.py [--seed S] [--top K] [--out FILE]
 """
@@ -54,6 +56,28 @@ def profile_solve(problem, method, top):
     )
 
 
+def profile_factor(n, m, seed, reps=5):
+    """Device time and launches per factor of each kernel of the blocked
+    LDLᵀ on one (n + m)² f64 KKT matrix."""
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+
+    settings = tt.DefaultSettings()
+    K = chip_smoke.kkt_batch(1, n, m, torch.float64, seed, "cuda")
+    pl.ldl_factor(K, n, m, settings, "blocked")  # warm-up, and the build
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            pl.ldl_factor(K, n, m, settings, "blocked")
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernels = sorted(events, key=lambda e: -e.self_device_time_total)
+    return dict(N=n + m, factors=reps, kernels=[
+        dict(name=e.key[:90], launches_per_factor=e.count / reps,
+             device_ms_per_factor=e.self_device_time_total / 1e3 / reps,
+             us_per_launch=e.self_device_time_total / e.count) for e in kernels])
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -84,6 +108,14 @@ def main():
                       f"idle {100 * r['idle_share']:.1f}%")
                 for k in r["kernels"]:
                     print(f"    {k['device_ms']:9.3f} ms  {k['calls']:6d}x  {k['name']}")
+        report["factors"] = []
+        for n, m in ((1000, 1001), (500, 1052)):
+            r = profile_factor(n, m, args.seed)
+            report["factors"].append(r)
+            print(f"blocked factor 1x{r['N']}² f64, per factor:")
+            for k in r["kernels"]:
+                print(f"    {k['device_ms_per_factor']:9.3f} ms  {k['launches_per_factor']:6.1f}x  "
+                      f"{k['us_per_launch']:8.2f} us/launch  {k['name']}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

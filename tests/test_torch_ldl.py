@@ -11,6 +11,7 @@ the arithmetic is the same, only the order of summation differs (the
 blocked variant also uses 32-column panels where the TPU kernel uses 128).
 """
 
+import ctypes
 import dataclasses
 
 import jax
@@ -36,12 +37,21 @@ def _kkt_batch(B, n, m, dtype, seed):
     return K.astype(dtype)
 
 
-def _with_irregular_pivots(K, n):
-    """Decouple three rows whose pivots the regularization must catch: a
-    negative pivot (row 0) and a zero pivot (row 5) in the + block, and a
-    positive pivot in the - block (row n + 2)."""
+# (row, pivot) pairs the regularization must catch at n = m = 20: a negative
+# pivot (row 0) and a zero pivot (row 5) in the + block, and a positive pivot
+# in the - block (row n + 2).
+PIVOTS = [(0, -1.0), (5, 0.0), (22, 0.5)]
+# At n = m = 80: rows 0, 31, 32 and 63 (+ block) sit on the edges of the
+# port's 32-column panels, rows 127 and 128 (- block) on the edge of the
+# TPU kernel's 128-column panel too.
+PANEL_EDGE_PIVOTS = [(0, -1.0), (31, 0.0), (32, -1.0), (63, 0.0), (127, 0.5), (128, 0.0)]
+
+
+def _with_irregular_pivots(K, pivots):
+    """Decouple the rows of ``pivots``, leaving the given pivot on each
+    one's diagonal."""
     K = K.copy()
-    for r, v in ((0, -1.0), (5, 0.0), (n + 2, 0.5)):
+    for r, v in pivots:
         K[:, r, :] = 0.0
         K[:, :, r] = 0.0
         K[:, r, r] = v
@@ -113,11 +123,16 @@ def test_factor_and_solve_match_pallas(n, m, variant, dtype):
     assert np.abs(resid).max() <= (1e-10 if dtype == np.float64 else 1e-3) * scale
 
 
-@pytest.mark.parametrize("variant", ["unrolled", "fori", "blocked"])
-def test_dynamic_regularization_fires_on_the_same_pivots(variant):
-    n = m = 20
+@pytest.mark.parametrize("variant,n,pivots", [
+    pytest.param("unrolled", 20, PIVOTS, id="unrolled"),
+    pytest.param("fori", 20, PIVOTS, id="fori"),
+    pytest.param("blocked", 20, PIVOTS, id="blocked"),
+    pytest.param("blocked", 80, PANEL_EDGE_PIVOTS, id="blocked-panel-edges"),
+])
+def test_dynamic_regularization_fires_on_the_same_pivots(variant, n, pivots):
+    m = n
     settings = JaxSettings()
-    K = _with_irregular_pivots(_kkt_batch(2, n, m, np.float64, seed=3), n)
+    K = _with_irregular_pivots(_kkt_batch(2, n, m, np.float64, seed=3), pivots)
     ref, ref_ok = _reference(K, n, m, settings, variant)
     kind, packed, ok = _port(K, n, m, settings, variant)
     assert ok.all() and ref_ok.all()
@@ -127,9 +142,11 @@ def test_dynamic_regularization_fires_on_the_same_pivots(variant):
     fired_ref = np.abs(d_ref) == delta
     fired_got = np.abs(d_got) == delta
     assert np.array_equal(fired_got, fired_ref)
-    assert fired_ref[:, [0, 5, n + 2]].all() and fired_ref.sum() == 2 * 3
+    rows = [r for r, _ in pivots]
+    assert fired_ref[:, rows].all() and fired_ref.sum() == 2 * len(rows)
     # the + block takes +delta, the - block -delta
-    assert (d_got[:, [0, 5]] == delta).all() and (d_got[:, n + 2] == -delta).all()
+    for r in rows:
+        assert (d_got[:, r] == (delta if r < n else -delta)).all()
     tol = _tol(K, ref, np.float64)
     assert np.abs(d_got - d_ref).max() <= tol
     for b in range(2):
@@ -156,3 +173,26 @@ def test_regularization_disabled_keeps_every_pivot(variant):
     _, ref_ok = _reference(K, n, m, settings, variant)
     _, _, ok = _port(K, n, m, settings, variant)
     assert not ok.any() and not ref_ok.any()
+
+
+def test_ctypes_signatures_match_the_cuda_source():
+    """Every C entry point of csrc/ldl.cu is declared in build.py with one
+    ctypes type per parameter: a pointer left undeclared would be passed as
+    a 32-bit int and cut."""
+    import re
+
+    from clarabel_tpu_torch.kkt import build
+
+    source = (build.CSRC / "ldl.cu").read_text()
+    extern_c = source[source.index('extern "C" {'):]
+    ctype = {"double": ctypes.c_double, "float": ctypes.c_float, "int": ctypes.c_int}
+    found = {}
+    for name, params in re.findall(r"^int (\w+)\(([^)]*)\)", extern_c, flags=re.M):
+        types = []
+        for param in params.split(","):
+            param = " ".join(param.split())
+            if param in ("", "void"):
+                continue
+            types.append(ctypes.c_void_p if "*" in param else ctype[param.split()[-2]])
+        found[name] = tuple(types)
+    assert found == build._SIGNATURES
