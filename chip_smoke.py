@@ -10,10 +10,15 @@ Phases:
      and f32, at the shapes the solver gives it and at batched shapes, with
      the solve's backward error, the kernel's and the plain version's times
      and, as yardsticks the port never calls, torch.linalg.ldl_factor
-     (pivoted, so another function) and torch.linalg.lu_factor; the blocked
-     kernel also at edge shapes (N = 1, 32, 33, 100: one panel, one row
-     below it, a ragged last panel); plus one case where the dynamic
-     regularization fires, also on the blocked kernel's panel edges;
+     (pivoted, so another function) and torch.linalg.lu_factor; the
+     unblocked kernel (K2/K3) bit for bit equal to its twin, also at the
+     edges of its shared-memory design (N = 1, 2; N = 240, the widest f64
+     triangle that fits; N = 241 and 256, which start in device memory; 264
+     matrices of N = 64, more than the card's SMs; f32 N = 256, B = 8); the
+     blocked kernel also at edge shapes (N = 1, 32, 33, 100: one panel, one
+     row below it, a ragged last panel); plus cases where the dynamic
+     regularization fires, on the blocked kernel's panel edges and around
+     the unblocked kernel's switch into shared memory;
   2. the main path at full width: a Markowitz long-only portfolio QP over
      n = 1000 assets with a k = 50 factor covariance (KKT N = 2001, f64),
      solved with direct_solve_method="pallas" and with "auto" (pivoted LU);
@@ -45,10 +50,15 @@ import torch
 # tensor cores (no TF32 here), HBM3 bandwidth
 PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# one H100 SM's FP64 and FP32 lanes: each does one operation, or one
+# multiply-add, a clock
+SM_LANES = {torch.float64: 64, torch.float32: 128}
 
-# kernel-vs-plain tolerances on the card, relative to the plain factor's
-# largest entry: f64 differs only by the trailing update's summation order
-# and FMA contraction; f32 by the same, at f32's eps over N = 2001 pivots
+# kernel-vs-plain tolerances of the blocked kernel on the card, relative to
+# the plain factor's largest entry: f64 differs only by the trailing
+# update's summation order and FMA contraction; f32 by the same, at f32's
+# eps over N = 2001 pivots.  The unblocked kernel rounds as its twin does
+# and must equal it bit for bit.
 FACTOR_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
 # backward error ‖Kx − r‖∞ / (‖K‖∞ ‖x‖∞) of a factor-and-solve, a few
 # N·eps for these well-conditioned quasidefinite matrices
@@ -72,6 +82,15 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def cuda_ms(fn, reps):
@@ -161,7 +180,21 @@ def bound_ms(B, N, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_kernel(variant, B, n, m, dtype, seed, device, settings, reps):
+def one_sm_ms(B, N, dtype, sm_hz):
+    """Two floors of a kernel that factors each matrix on one SM, for the
+    N³/3 flops of the matrices that share the busiest SM: the unblocked
+    design's, whose multiplies and subtractions stay separate operations
+    (its twin rounds each, and bitwise equality forbids an FMA), one a lane
+    a clock at the card's maximum SM clock; and the SM's own peak, its share
+    of the card's PEAK_FLOPS (at f64 the tensor cores' rate, 4x the
+    design's)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    flops = -(-B // sms) * N**3 / 3.0
+    return dict(one_sm_nonfma_floor_ms=flops / (SM_LANES[dtype] * sm_hz) * 1e3,
+                one_sm_peak_ms=flops / (PEAK_FLOPS[dtype] / sms) * 1e3)
+
+
+def check_kernel(variant, B, n, m, dtype, seed, device, settings, reps, sm_hz):
     from clarabel_tpu_torch.kkt import pallas_ldl as pl
 
     N = n + m
@@ -177,7 +210,10 @@ def check_kernel(variant, B, n, m, dtype, seed, device, settings, reps):
     assert bool(ok.all()), f"{variant}: non-finite factor"
     err = float((packed - ref).abs().max())
     scale = float(ref.abs().max())
-    assert err <= FACTOR_TOL[dtype] * scale, f"{variant} N={N} {dtype}: factor differs by {err:.3e}"
+    if variant == "blocked":
+        assert err <= FACTOR_TOL[dtype] * scale, f"{variant} N={N} {dtype}: factor differs by {err:.3e}"
+    else:
+        assert torch.equal(packed, ref), f"{variant} B={B} N={N} {dtype}: not bitwise equal, max|Δ| {err:.3e}"
 
     rhs = torch.as_tensor(np.random.default_rng(seed + 1).normal(size=(B, N)),
                           dtype=dtype, device=device)
@@ -195,22 +231,25 @@ def check_kernel(variant, B, n, m, dtype, seed, device, settings, reps):
     row["ldl_factor_ms"] = cuda_ms(lambda: torch.linalg.ldl_factor_ex(K), reps)
     row["lu_factor_ms"] = cuda_ms(lambda: torch.linalg.lu_factor_ex(K), reps)
     row["bound_ms"], row["bound_by"] = bound_ms(B, N, dtype)
+    if variant != "blocked":
+        row["switch_column"], _ = pl.unblocked_plan(N, K.element_size(), pl._smem_capacity())
+        row.update(one_sm_ms(B, N, dtype, sm_hz))
     log(f"  {variant:8s} B={B} N={N:4d} {row['dtype']}: max|Δ| {err:.2e} (of {scale:.2e}), "
         f"backward {backward:.2e}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
         f"ldl_factor {row['ldl_factor_ms']:.3f} ms, lu_factor {row['lu_factor_ms']:.3f} ms, "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+        + (f", one SM: non-FMA floor {row['one_sm_nonfma_floor_ms']:.4f} ms, peak "
+           f"{row['one_sm_peak_ms']:.4f} ms; switch column {row['switch_column']}"
+           if variant != "blocked" else ""))
     return row
 
 
-def check_regularization(variant, device, settings):
+def check_regularization(variant, n, pivots, device, settings):
+    """The regularization replaces exactly the (row, pivot) pairs of
+    ``pivots`` at n = m, in the kernel as in its twin."""
     from clarabel_tpu_torch.kkt import pallas_ldl as pl
 
-    n = m = 100
-    # (row, pivot) pairs the regularization must replace: negative and zero
-    # pivots in the + block (rows < n), positive and zero ones in the - block;
-    # rows 31, 32, 63, 127 and 128 sit on the blocked kernel's panel edges
-    pivots = [(0, -1.0), (5, 0.0), (31, -1.0), (32, 0.0), (63, -1.0),
-              (n + 2, 0.5), (127, 0.5), (128, 0.0)]
+    m = n
     K = with_irregular_pivots(kkt_batch(2, n, m, torch.float64, 3, device), pivots)
     sign = torch.ones(n + m, dtype=K.dtype, device=device)
     sign[n:] = -1.0
@@ -226,8 +265,11 @@ def check_regularization(variant, device, settings):
     assert torch.equal(fired, fired_ref) and torch.equal(fired, expected), \
         f"{variant}: regularized pivots differ"
     err = float((packed - ref).abs().max())
-    assert err <= FACTOR_TOL[torch.float64] * float(ref.abs().max())
-    log(f"  {variant:8s} regularization fires on pivots "
+    if variant == "blocked":
+        assert err <= FACTOR_TOL[torch.float64] * float(ref.abs().max())
+    else:
+        assert torch.equal(packed, ref), f"{variant}: not bitwise equal, max|Δ| {err:.3e}"
+    log(f"  {variant:8s} N={n + m} regularization fires on pivots "
         f"{fired[0].nonzero().flatten().tolist()} in both, max|Δ| {err:.2e}")
 
 
@@ -306,11 +348,12 @@ def main(argv=None) -> int:
 
     # ---- phase 0: the card and the build
     card = card_line()
-    log(f"phase 0: card {card}")
+    sm_hz = sm_clock_hz()
+    log(f"phase 0: card {card}, SM clock up to {sm_hz / 1e6:.0f} MHz")
     path, seconds, output = build.build("ldl.cu")
     log(f"  built {path.name} in {seconds:.1f} s")
     for line in output.splitlines():
-        if "Used" in line or "spill" in line:
+        if "Used" in line or "spill" in line or "entry function" in line:
             log("  ptxas:", line.strip())
     report["card"] = card
     report["build_s"] = seconds
@@ -318,24 +361,50 @@ def main(argv=None) -> int:
     with full_precision():
         # ---- phase 1: kernels against their plain versions
         log("phase 1: kernels against their plain PyTorch versions")
+        unblocked = ("unrolled", "fori")
+        shapes = {dtype: [
+            ("unrolled", 8, 100, 100), ("fori", 8, 100, 100),
+            ("unrolled", 1, 100, 101),     # the N = 201 solve's shape
+            ("blocked", 1, 1000, 1001),    # the QP's shape
+            ("blocked", 1, 500, 1052),     # the SOCP's shape
+            ("blocked", 4, 500, 501), ("blocked", 2, 1000, 1001),
+            # edge shapes: one pivot; one panel and no rows below it; one
+            # row below the first panel; a ragged last panel
+            ("blocked", 2, 1, 0), ("blocked", 2, 16, 16), ("blocked", 2, 17, 16),
+            ("blocked", 3, 50, 50),
+        ] for dtype in (torch.float64, torch.float32)}
+        # the unblocked kernel's edges: one and two pivots; the widest f64
+        # triangle that fits shared memory (N = 240) and the first two
+        # shapes that start in device memory; more matrices than SMs
+        shapes[torch.float64] += [(v, B, n, m) for v in unblocked for B, n, m in (
+            (1, 1, 0), (1, 1, 1), (1, 120, 120), (1, 120, 121), (1, 128, 128), (264, 32, 32))]
+        # the JAX bench's bench_pallas_ldl shape (bench.py:271-273)
+        shapes[torch.float32] += [(v, 8, 128, 128) for v in unblocked]
         rows = []
-        for dtype in (torch.float64, torch.float32):
-            for variant, B, n, m in (
-                ("unrolled", 8, 100, 100), ("fori", 8, 100, 100),
-                ("unrolled", 1, 100, 101),     # the N = 201 solve's shape
-                ("blocked", 1, 1000, 1001),    # the QP's shape
-                ("blocked", 1, 500, 1052),     # the SOCP's shape
-                ("blocked", 4, 500, 501), ("blocked", 2, 1000, 1001),
-                # edge shapes: one pivot; one panel and no rows below it; one
-                # row below the first panel; a ragged last panel
-                ("blocked", 2, 1, 0), ("blocked", 2, 16, 16), ("blocked", 2, 17, 16),
-                ("blocked", 3, 50, 50),
-            ):
+        for dtype, cases in shapes.items():
+            for variant, B, n, m in cases:
                 rows.append(check_kernel(variant, B, n, m, dtype, seed=args.seed + n + m,
                                          device=device, settings=settings,
-                                         reps=3 if n + m > 1500 else 10))
-        for variant in ("unrolled", "fori", "blocked"):
-            check_regularization(variant, device, settings)
+                                         reps=3 if n + m > 1500 or B > 100 else 10, sm_hz=sm_hz))
+        # (row, pivot) pairs the regularization must replace: negative and
+        # zero pivots in the + block (rows < n), positive and zero ones in
+        # the - block; rows 31, 32, 63, 127 and 128 sit on the blocked
+        # kernel's panel edges
+        edges = [(0, -1.0), (5, 0.0), (31, -1.0), (32, 0.0), (63, -1.0),
+                 (102, 0.5), (127, 0.5), (128, 0.0)]
+        check_regularization("blocked", 100, edges, device, settings)
+        # at the first even N at least 16 columns wider than the widest f64
+        # triangle this card's shared memory holds (N = 256 on the H100), the
+        # unblocked kernel switches into shared memory at column j0 = 16 or
+        # 17: irregular pivots just before, at and after it (+ block), and
+        # two in the - block
+        widest = 4096 - pl.unblocked_plan(4096, 8, pl._smem_capacity())[0]
+        half = (widest + 17) // 2
+        j0, _ = pl.unblocked_plan(2 * half, 8, pl._smem_capacity())
+        around = [(j0 - 1, -1.0), (j0, 0.0), (j0 + 1, -1.0), (half + 2, 0.5), (half + half // 2, 0.0)]
+        for variant in unblocked:
+            check_regularization(variant, 100, edges, device, settings)
+            check_regularization(variant, half, around, device, settings)
         report["kernels_vs_plain"] = rows
 
         # ---- phases 2-3: the main path, launches counted from zero

@@ -17,8 +17,9 @@
 // The TPU kernels keep the whole padded matrix in VMEM and work in 128-column
 // panels, the MXU's width.  Neither fits Hopper: a 256 x 256 f64 matrix is
 // 512 KB, a block has at most 227 KB of shared memory, and f64 has no wgmma.
-// So the designs below are the simple ones: the matrix stays in device
-// memory (L2-resident at these sizes) and the arithmetic is FP64/FP32 FMA.
+// So the blocked factor keeps the matrix in device memory (L2-resident at
+// these sizes); the unblocked one keeps the trailing upper triangle, which
+// fits up to N = 240 at f64, in shared memory.  The arithmetic is FP64/FP32.
 //
 // Bound on the H100 SXM (NVIDIA datasheet): an LDLᵀ, like a Cholesky
 // factorization, is N³/6 multiply-adds (N³/3 flops; LU's 2N³/3 does twice
@@ -51,7 +52,10 @@ __device__ __forceinline__ T regularize(T d, T sign, T eps, T delta) {
   return (mul_rn(d, sign) < eps) ? mul_rn(delta, sign) : d;
 }
 
-constexpr int UNBLOCKED_THREADS = 256;
+// widest trailing triangle the unblocked kernel takes in shared memory: the
+// widest the H100's 227 KB hold (340 columns at f32), in whole 32-column chunks
+constexpr int SMEM_MAX_COLS = 352;
+constexpr int SMEM_CHUNKS = SMEM_MAX_COLS / 32;  // a lane's columns of the pivot row, in registers
 constexpr int PANEL_WIDTH = 32;  // columns per panel of the blocked kernel
 constexpr int ROW_THREADS = 64;  // rows below the panel's diagonal block per block
 constexpr int TILE = 64;         // trailing-update tile edge
@@ -65,34 +69,118 @@ constexpr int TRAILING_THREADS = 256;
 // Output layout (theirs): Lᵀ strictly above the diagonal, D on it, and row
 // j's entries left of the diagonal written as 0/d_j.
 //
-// Grid: one block per matrix.  Column j: every thread reads and regularizes
-// the pivot; warps take rows r > j, lanes take columns c >= r, and update the
-// upper triangle K[r][c] -= (K[j][r] / d) * K[j][c]; a barrier; then row j is
-// overwritten with its packed form.  Row j is never read again, so one
-// barrier per column suffices.  The N³/6 updates run on one SM per matrix:
-// this kernel is for N <= 256, where the whole matrix is L1/L2-resident.
+// Grid: one block per matrix.  Bound: at N = 201 the 2·N²·sizeof(T) bytes
+// (0.65 MB at f64, 0.19 µs at 3.35 TB/s) outweigh the N³/3 flops (0.04 µs at
+// 67 TFLOP/s), but one block runs on one SM.  There the design's floor is
+// its N³/3 multiplies and subtractions, separate operations (the twin rounds
+// each, so no FMA), at the SM's 64 FP64 lanes: about 21 µs at N = 201 and
+// 1.98 GHz (the SM's FP64 peak, its tensor cores, is 4x that).  What holds
+// the kernel above it is shared-memory traffic (an update loads and stores
+// its entry) and each step's chain of pivot, division and barrier.  What the
+// design does:
 //
-// Bound: at N = 200 the 2·N²·sizeof(T) bytes (0.64 MB at f64, 0.19 µs at
-// 3.35 TB/s per matrix) outweigh the N³/3 flops (0.04 µs at 67 TFLOP/s).
-// The kernel is far from either: its 200 columns are 200 dependent steps of
-// one block, each a barrier and an L1/L2 round trip.
+//   - The trailing upper triangle lives in dynamic shared memory, packed by
+//     rows: local row i (matrix row j0 + i) holds columns j0 + i .. N - 1,
+//     so M(M+1)/2 entries for M = N - j0.  It is read from K once, all
+//     column steps run on it, and the N x N output is written once.  The
+//     f64 triangle fits up to N = 240 in the H100's 227 KB.
+//   - Beyond that (or beyond SMEM_MAX_COLS), the first j0 steps run on K in
+//     device memory (L1/L2-resident), each ending with row j written in its
+//     packed form; then the trailing triangle of rows j0 .. N - 1, which
+//     then fits, moves into shared memory.  The host picks j0 and the bytes
+//     (pallas_ldl.unblocked_plan).
+//   - Two steps per pass, one barrier per pass.  Pass (j, j + 1): every
+//     warp regularizes d_j, forms l = K[j][j+1] / d_j and takes row j + 1
+//     through step j in registers (its lane's columns), which gives d_{j+1};
+//     lane i of each warp forms both l of the warp's i-th row r (warps take
+//     rows round robin), true divisions; the warp walks its rows, taking the
+//     l by shuffle, and loads each entry once for both updates
+//     K[r][c] -= l_j * K[j][c], then -= l_{j+1} * K'[j+1][c] (mul_rn,
+//     sub_rn): the same roundings in the same order as two single steps,
+//     with half the shared-memory traffic.  A pass writes only rows
+//     r > j + 1 and reads rows j, j + 1, final since the last barrier; row
+//     j + 1's stepped values are stored a pass later, when nothing reads it.
+//   - The pivot slot and row j are never written after step j - 1, so the
+//     write-out recomputes d = regularize(K[j][j]) and emits K[j][c] / d
+//     right of the diagonal, d on it and 0 / d left of it: the values the
+//     global steps write, and the plain twin's, bit for bit (-0.0 for a
+//     negative pivot, NaN for an unregularized zero one).
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(UNBLOCKED_THREADS)
+
+// offset of local row i in the packed triangle of width M
+__device__ __forceinline__ int packed_row(int i, int M) { return i * M - i * (i - 1) / 2; }
+
+// Warps per block: 32, except 8 for a triangle of at most 64 columns, so
+// that several blocks share an SM when the batch outnumbers the SMs.
+constexpr int unblocked_warps(int chunks) { return chunks <= 2 ? 8 : 32; }
+static_assert(SMEM_CHUNKS <= 11, "update_row's dispatch covers 11 chunks");
+
+// Row r's columns r .. M - 1 from a warp's registers (v[k] at 32k + lane).
+template <typename T, int CH>
+__device__ __forceinline__ void store_row(T* row, int r, int M, int lane, const T (&v)[CH]) {
+#pragma unroll
+  for (int k = 0; k < CH; ++k) {
+    const int c = 32 * k + lane;
+    if (c >= r && c < M) row[c] = v[k];
+  }
+}
+
+// One row's update by the two steps j, j + 1 of a pass:
+// S(r, c) -= l0 * u0(c), then S(r, c) -= l1 * u1(c), for r <= c < M, with
+// the lane holding the columns c = 32k + lane, row pointing at S(r, lane)
+// and t = r - lane.  The row's first chunk K0 = r / 32 is a template
+// parameter, so the chunks left of the row cost nothing and the rest are
+// one basic block: every load, then every store.  The loads are
+// unconditional (a column left of r reads the row before, one right of
+// M - 1 the row after or the pad that the plan adds behind the triangle);
+// the stores are not.
+template <typename T, int CH, int K0>
+__device__ __forceinline__ void update_row(T* row, int t, bool last_ok, T l0, T l1,
+                                           const T (&u0)[CH], const T (&u1)[CH]) {
+  T x[CH - K0];
+#pragma unroll
+  for (int k = K0; k < CH; ++k) x[k - K0] = row[32 * k];
+#pragma unroll
+  for (int k = K0; k < CH; ++k) {
+    const T v = sub_rn(sub_rn(x[k - K0], mul_rn(l0, u0[k])), mul_rn(l1, u1[k]));
+    if (32 * k >= t && (k + 1 < CH || last_ok)) row[32 * k] = v;
+  }
+}
+
+// CH: 32-column chunks of the trailing triangle's width M, 32·(CH-1) < M <= 32·CH
+template <typename T, int CH, int W = unblocked_warps(CH)>
+__global__ void __launch_bounds__(32 * W)
 ldl_unblocked_kernel(T* __restrict__ K, const T* __restrict__ sign, int N,
-                     T eps, T delta) {
+                     int j0, T eps, T delta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);
   T* a = K + (size_t)blockIdx.x * N * N;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int j = 0; j < N; ++j) {
+
+  // steps 0 .. j0 - 1 in device memory; a lane loads GLOBAL_CHUNKS of its
+  // row's columns before it stores any, so their L2 round trips overlap
+  constexpr int GLOBAL_CHUNKS = 4;
+  for (int j = 0; j < j0; ++j) {
     const T* rowj = a + (size_t)j * N;
     const T d = regularize(rowj[j], sign[j], eps, delta);
-    for (int r = j + 1 + warp; r < N; r += nwarps) {
+    for (int r = j + 1 + warp; r < N; r += W) {
       const T l = rowj[r] / d;
       T* rowr = a + (size_t)r * N;
-      for (int c = r + lane; c < N; c += 32)
-        rowr[c] = sub_rn(rowr[c], mul_rn(l, rowj[c]));
+      for (int c0 = r + lane; c0 < N; c0 += 32 * GLOBAL_CHUNKS) {
+        T x[GLOBAL_CHUNKS], u[GLOBAL_CHUNKS];
+#pragma unroll
+        for (int q = 0; q < GLOBAL_CHUNKS; ++q) {
+          const int c = c0 + 32 * q;
+          x[q] = c < N ? rowr[c] : T(0);
+          u[q] = c < N ? rowj[c] : T(0);
+        }
+#pragma unroll
+        for (int q = 0; q < GLOBAL_CHUNKS; ++q) {
+          const int c = c0 + 32 * q;
+          if (c < N) rowr[c] = sub_rn(x[q], mul_rn(l, u[q]));
+        }
+      }
     }
     __syncthreads();
     const T zero_over_d = T(0) / d;
@@ -101,6 +189,84 @@ ldl_unblocked_kernel(T* __restrict__ K, const T* __restrict__ sign, int N,
       const T v = roww[c];
       roww[c] = (c < j) ? zero_over_d : (c == j ? d : v / d);
     }
+  }
+
+  // the trailing triangle into shared memory; below, local row and column
+  // i stand for matrix row and column j0 + i, and row(i)[c] = S(i, c), c >= i
+  const int M = N - j0;
+  const T* ga = a + (size_t)j0 * N + j0;
+  for (int i = warp; i < M; i += W) {
+    T* row = s + packed_row(i, M) - i;
+    const T* g = ga + (size_t)i * N;
+    for (int c = i + lane; c < M; c += 32) row[c] = g[c];
+  }
+  __syncthreads();
+
+  // Two steps per pass, each row loaded and stored once for both.  Every
+  // warp first takes pivot row j + 1 through step j itself (u1 below), the
+  // same roundings as the step would make; warp 0 stores that row at the
+  // next pass, when nothing reads it any more.
+  const bool last_ok = 32 * (CH - 1) + lane < M;  // this lane's column in the last chunk exists
+  T u1[CH];  // row j + 1 after step j, at columns 32k + lane
+  int j = 0;
+  for (; j + 1 < M; j += 2) {
+    if (j > 0 && warp == 0) store_row<T, CH>(s + packed_row(j - 1, M) - (j - 1), j - 1, M, lane, u1);
+    const T* rowj = s + packed_row(j, M) - j;
+    const T* rowj1 = s + packed_row(j + 1, M) - (j + 1);
+    const T d0 = regularize(rowj[j], sign[j0 + j], eps, delta);
+    const T lj1 = rowj[j + 1] / d0;  // l of row j + 1 at step j
+    const T d1 = regularize(sub_rn(rowj1[j + 1], mul_rn(lj1, rowj[j + 1])), sign[j0 + j + 1],
+                            eps, delta);
+    // warp w takes rows j + 2 + w + W·i, i = 0, 1, ..; lane i forms both l
+    // of the warp's i-th row, a true division each
+    const int rl = j + 2 + W * lane + warp;
+    T l0v = T(0), l1v = T(0);
+    int offl = 0;
+    if (rl < M) {
+      const T x = rowj[rl];
+      l0v = x / d0;
+      l1v = sub_rn(rowj1[rl], mul_rn(lj1, x)) / d1;
+      offl = packed_row(rl, M) - rl;
+    }
+    T u0[CH];  // row j at columns 32k + lane
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+      const int c = 32 * k + lane;
+      const bool in = c > j && c < M;
+      u0[k] = in ? rowj[c] : T(0);
+      u1[k] = in ? sub_rn(rowj1[c], mul_rn(lj1, u0[k])) : T(0);
+    }
+    for (int i = 0;; ++i) {
+      const int r = j + 2 + W * i + warp;
+      if (r >= M) break;  // uniform across the warp
+      const T l0 = __shfl_sync(0xffffffffu, l0v, i);
+      const T l1 = __shfl_sync(0xffffffffu, l1v, i);
+      T* row = s + __shfl_sync(0xffffffffu, offl, i) + lane;
+      switch (r >> 5) {  // the row's first chunk
+#define UPDATE_FROM(K0) \
+  case K0:              \
+    if constexpr (K0 < CH) update_row<T, CH, K0>(row, r - lane, last_ok, l0, l1, u0, u1); \
+    break;
+        UPDATE_FROM(0) UPDATE_FROM(1) UPDATE_FROM(2) UPDATE_FROM(3)
+        UPDATE_FROM(4) UPDATE_FROM(5) UPDATE_FROM(6) UPDATE_FROM(7)
+        UPDATE_FROM(8) UPDATE_FROM(9) UPDATE_FROM(10)
+#undef UPDATE_FROM
+      }
+    }
+    __syncthreads();
+  }
+  // the last pass's row j + 1 (none if M = 1); for odd M, step M - 1 has no
+  // rows to update
+  if (j > 0 && warp == 0) store_row<T, CH>(s + packed_row(j - 1, M) - (j - 1), j - 1, M, lane, u1);
+  __syncthreads();
+
+  // write-out of rows j0 .. N - 1
+  for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
+    const int i = idx / N, c = idx - i * N;
+    const int j = j0 + i;
+    const T* rowj = s + packed_row(i, M) - i;
+    const T d = regularize(rowj[i], sign[j], eps, delta);
+    a[(size_t)j * N + c] = (c < j) ? T(0) / d : (c == j ? d : rowj[c - j0] / d);
   }
 }
 
@@ -318,12 +484,57 @@ __global__ void ldl_finalize_kernel(T* __restrict__ K, int N) {
   }
 }
 
-template <typename T>
-int ldl_unblocked(T* K, const T* sign, int B, int N, T eps, T delta,
-                  cudaStream_t stream) {
-  if (B <= 0 || N <= 0) return 0;
-  ldl_unblocked_kernel<T><<<B, UNBLOCKED_THREADS, 0, stream>>>(K, sign, N, eps, delta);
+// a warp's rows of one step must fit its 32 lanes (the shuffle of l)
+static_assert(SMEM_MAX_COLS <= 32 * unblocked_warps(SMEM_CHUNKS), "too few warps for SMEM_MAX_COLS");
+static_assert(64 <= 32 * unblocked_warps(2), "too few warps for 64 columns");
+
+// The shared-memory bytes one block may use, queried once, on the device
+// current at the first call (the library serves one card), or minus the
+// CUDA error of the query.
+int smem_capacity() {
+  static const int bytes = [] {
+    int dev = 0, b = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&b, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return err == cudaSuccess ? b : -(int)err;
+  }();
+  return bytes;
+}
+
+// The instance with the fewest chunks that covers the trailing triangle's
+// width, so that no lane loops over chunks right of column N - 1.  Each
+// instance is allowed the whole capacity once, before its first launch.
+template <typename T, int CH = 1>
+int launch_unblocked(T* K, const T* sign, int B, int N, int j0, int smem_bytes,
+                     T eps, T delta, cudaStream_t stream) {
+  if constexpr (CH < SMEM_CHUNKS) {
+    if (N - j0 > 32 * CH)
+      return launch_unblocked<T, CH + 1>(K, sign, B, N, j0, smem_bytes, eps, delta, stream);
+  }
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      ldl_unblocked_kernel<T, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_capacity());
+  if (allowed != cudaSuccess) return (int)allowed;
+  ldl_unblocked_kernel<T, CH><<<B, 32 * unblocked_warps(CH), smem_bytes, stream>>>(K, sign, N, j0, eps, delta);
   return (int)cudaGetLastError();
+}
+
+// j0 and smem_bytes come from the host's plan: the trailing triangle of
+// columns j0 .. N - 1 and its pad must fit smem_bytes, and smem_bytes the
+// device.
+template <typename T>
+int ldl_unblocked(T* K, const T* sign, int B, int N, int j0, int smem_bytes,
+                  T eps, T delta, cudaStream_t stream) {
+  if (B <= 0 || N <= 0) return 0;
+  const long long M = N - j0;
+  // the packed triangle and the pad behind it that update_row may read
+  if (j0 < 0 || M <= 0 || M > SMEM_MAX_COLS ||
+      (M * (M + 1) / 2 + (M + 31) / 32 * 32 - M) * (long long)sizeof(T) > smem_bytes)
+    return (int)cudaErrorInvalidValue;
+  const int capacity = smem_capacity();
+  if (capacity < 0) return -capacity;
+  if (smem_bytes > capacity) return (int)cudaErrorInvalidValue;
+  return launch_unblocked<T>(K, sign, B, N, j0, smem_bytes, eps, delta, stream);
 }
 
 template <typename T>
@@ -358,15 +569,21 @@ int ldl_blocked(T* K, T* dbuf, T* ubuf, const T* sign, int B, int N, T eps,
 
 extern "C" {
 
-int ldl_unblocked_f64(double* K, const double* sign, int B, int N, double eps,
-                      double delta, void* stream) {
-  return ldl_unblocked<double>(K, sign, B, N, eps, delta, (cudaStream_t)stream);
+int ldl_unblocked_f64(double* K, const double* sign, int B, int N, int j0,
+                      int smem_bytes, double eps, double delta, void* stream) {
+  return ldl_unblocked<double>(K, sign, B, N, j0, smem_bytes, eps, delta, (cudaStream_t)stream);
 }
 
-int ldl_unblocked_f32(float* K, const float* sign, int B, int N, float eps,
-                      float delta, void* stream) {
-  return ldl_unblocked<float>(K, sign, B, N, eps, delta, (cudaStream_t)stream);
+int ldl_unblocked_f32(float* K, const float* sign, int B, int N, int j0,
+                      int smem_bytes, float eps, float delta, void* stream) {
+  return ldl_unblocked<float>(K, sign, B, N, j0, smem_bytes, eps, delta, (cudaStream_t)stream);
 }
+
+// The bytes of shared memory one block may use on the library's card
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin), or minus the CUDA error.
+int ldl_smem_capacity(void) { return smem_capacity(); }
+
+int ldl_smem_max_cols(void) { return SMEM_MAX_COLS; }
 
 // dbuf [B, N] and ubuf [B, PANEL_WIDTH, PANEL_WIDTH] are scratch of K's type.
 int ldl_blocked_f64(double* K, double* dbuf, double* ubuf, const double* sign,

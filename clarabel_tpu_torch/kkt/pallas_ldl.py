@@ -29,12 +29,38 @@ factors are N x N.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 #: columns per panel of the blocked variant, here and in csrc/ldl.cu
 PANEL_WIDTH = 32
+#: widest trailing triangle the unblocked kernel keeps in shared memory,
+#: here and in csrc/ldl.cu
+SMEM_MAX_COLS = 352
 
 VARIANTS = ("blocked", "unrolled", "fori")
+
+
+def unblocked_plan(N: int, itemsize: int, capacity: int) -> tuple[int, int]:
+    """``(j0, nbytes)`` for the unblocked kernel on N x N matrices of
+    ``itemsize``-byte entries, with ``capacity`` bytes of shared memory per
+    block: steps 0 .. j0 - 1 run in device memory, then the packed upper
+    triangle of rows and columns j0 .. N - 1 moves into shared memory:
+    M(M+1)/2 entries for M = N - j0, and a pad behind them up to the next
+    multiple of 32 columns (the kernel's loads run whole 32-column chunks),
+    ``nbytes`` bytes in all.  j0 is 0 when the whole triangle fits."""
+
+    def entries(M):
+        return M * (M + 1) // 2 + -M % 32
+
+    M = min(N, SMEM_MAX_COLS, (math.isqrt(8 * (capacity // itemsize) + 1) - 1) // 2)
+    while M > 0 and entries(M) * itemsize > capacity:
+        M -= 1
+    if M < 1:
+        raise ValueError(f"{capacity} bytes of shared memory hold no {itemsize}-byte entry")
+    return N - M, entries(M) * itemsize
 
 
 def _regularization(settings):
@@ -124,14 +150,26 @@ def ldl_blocked_plain(K, sign, eps, delta, pw=PANEL_WIDTH):
 # -----------------------------------------------------------------
 
 
+@functools.cache
+def _smem_capacity() -> int:
+    """Shared-memory bytes one block may use on the card, as the card
+    reports it to the kernels' library at its first query."""
+    from . import build
+
+    capacity = build.library().ldl_smem_capacity()
+    if capacity <= 0:
+        raise RuntimeError(f"shared-memory capacity query failed: CUDA error {-capacity}")
+    return capacity
+
+
 def _launch(variant, K, sign, eps, delta):
     """Factor the batch ``K`` [B, N, N] on its CUDA device with the
     hand-written kernel; returns the packed factors."""
     from . import build
 
     lib = build.library()
-    if lib.ldl_panel_width() != PANEL_WIDTH:
-        raise RuntimeError("csrc/ldl.cu and pallas_ldl.py disagree on PANEL_WIDTH")
+    if lib.ldl_panel_width() != PANEL_WIDTH or lib.ldl_smem_max_cols() != SMEM_MAX_COLS:
+        raise RuntimeError("csrc/ldl.cu and pallas_ldl.py disagree on PANEL_WIDTH or SMEM_MAX_COLS")
     B, N, _ = K.shape
     f64 = K.dtype == torch.float64
     with torch.cuda.device(K.device):
@@ -147,8 +185,9 @@ def _launch(variant, K, sign, eps, delta):
                      B, N, eps, delta, stream)
         else:
             out = K.clone(memory_format=torch.contiguous_format)
+            j0, nbytes = unblocked_plan(N, K.element_size(), _smem_capacity())
             fn = lib.ldl_unblocked_f64 if f64 else lib.ldl_unblocked_f32
-            err = fn(out.data_ptr(), sign.data_ptr(), B, N, eps, delta, stream)
+            err = fn(out.data_ptr(), sign.data_ptr(), B, N, j0, nbytes, eps, delta, stream)
     if err != 0:
         raise RuntimeError(f"LDL kernel ({variant}) launch failed: CUDA error {err}")
     return out

@@ -2,14 +2,16 @@
 """Where the time of one clarabel_tpu_torch solve goes on a CUDA card.
 
 Solves the portfolio problems of chip_smoke.py (QP: n = 1000, k = 50,
-N = 2001; SOCP: n = 500, k = 50, N = 1552) once through each KKT backend
-("pallas" and "auto") under torch.profiler, after one untraced warm-up
-solve, and prints for each: the wall time, the summed device time of the
-kernels, the device's idle share (1 - device time / wall time; the kernels
-of one stream do not overlap), and the kernels that take the most device
-time.  Then it profiles the blocked LDLᵀ factor alone at the two problems'
-KKT shapes (1 x 2001² and 1 x 1552², f64) and prints each of its kernels'
-device time and launches per factor.
+N = 2001; SOCP: n = 500, k = 50, N = 1552; the small QP: n = 100, k = 10,
+N = 201, whose "pallas" solve runs the unblocked kernel) once through each
+KKT backend ("pallas" and "auto") under torch.profiler, after one untraced
+warm-up solve, and prints for each: the wall time, the summed device time
+of the kernels, the device's idle share (1 - device time / wall time; the
+kernels of one stream do not overlap), and the kernels that take the most
+device time.  Then it profiles the LDLᵀ factor alone, f64: the blocked
+variant at the two large problems' KKT shapes (1 x 2001², 1 x 1552²) and
+the unblocked one at 1 x 201², 8 x 200² and 1 x 256², and prints each
+kernel's device time and launches per factor.
 
     python3 scripts/profile_torch_solve.py [--seed S] [--top K] [--out FILE]
 """
@@ -56,23 +58,24 @@ def profile_solve(problem, method, top):
     )
 
 
-def profile_factor(n, m, seed, reps=5):
-    """Device time and launches per factor of each kernel of the blocked
-    LDLᵀ on one (n + m)² f64 KKT matrix."""
+def profile_factor(n, m, seed, variant="blocked", B=1, reps=5):
+    """Device time and launches per factor of each kernel that one LDLᵀ
+    factor of ``variant`` runs on B (n + m)² f64 KKT matrices, the
+    wrapper's own copies and checks included."""
     from clarabel_tpu_torch.kkt import pallas_ldl as pl
 
     settings = tt.DefaultSettings()
-    K = chip_smoke.kkt_batch(1, n, m, torch.float64, seed, "cuda")
-    pl.ldl_factor(K, n, m, settings, "blocked")  # warm-up, and the build
+    K = chip_smoke.kkt_batch(B, n, m, torch.float64, seed, "cuda")
+    pl.ldl_factor(K, n, m, settings, variant)  # warm-up, and the build
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
-            pl.ldl_factor(K, n, m, settings, "blocked")
+            pl.ldl_factor(K, n, m, settings, variant)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     kernels = sorted(events, key=lambda e: -e.self_device_time_total)
-    return dict(N=n + m, factors=reps, kernels=[
+    return dict(variant=variant, B=B, N=n + m, factors=reps, kernels=[
         dict(name=e.key[:90], launches_per_factor=e.count / reps,
              device_ms_per_factor=e.self_device_time_total / 1e3 / reps,
              us_per_launch=e.self_device_time_total / e.count) for e in kernels])
@@ -95,6 +98,7 @@ def main():
     problems = {
         "qp_n1000": chip_smoke.portfolio_qp(1000, 50, args.seed),
         "socp_n500": chip_smoke.portfolio_socp(500, 50, args.seed + 1),
+        "qp_n100": chip_smoke.portfolio_qp(100, 10, args.seed + 2),
     }
     report = dict(card=card, runs=[])
     with full_precision():
@@ -109,10 +113,12 @@ def main():
                 for k in r["kernels"]:
                     print(f"    {k['device_ms']:9.3f} ms  {k['calls']:6d}x  {k['name']}")
         report["factors"] = []
-        for n, m in ((1000, 1001), (500, 1052)):
-            r = profile_factor(n, m, args.seed)
+        for variant, B, n, m in (("blocked", 1, 1000, 1001), ("blocked", 1, 500, 1052),
+                                 ("unrolled", 1, 100, 101), ("fori", 8, 100, 100),
+                                 ("unrolled", 1, 128, 128)):
+            r = profile_factor(n, m, args.seed, variant, B)
             report["factors"].append(r)
-            print(f"blocked factor 1x{r['N']}² f64, per factor:")
+            print(f"{variant} factor {B}x{r['N']}² f64, per factor:")
             for k in r["kernels"]:
                 print(f"    {k['device_ms_per_factor']:9.3f} ms  {k['launches_per_factor']:6.1f}x  "
                       f"{k['us_per_launch']:8.2f} us/launch  {k['name']}")

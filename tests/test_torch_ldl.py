@@ -45,6 +45,15 @@ PIVOTS = [(0, -1.0), (5, 0.0), (22, 0.5)]
 # port's 32-column panels, rows 127 and 128 (- block) on the edge of the
 # TPU kernel's 128-column panel too.
 PANEL_EDGE_PIVOTS = [(0, -1.0), (31, 0.0), (32, -1.0), (63, 0.0), (127, 0.5), (128, 0.0)]
+# Shared memory one block may use on the H100 (cudaDevAttrMaxSharedMemoryPerBlockOptin).
+H100_SMEM = 232448
+# At n = m = 128 the f64 unblocked kernel on the H100 runs its first SWITCH
+# (16) steps in device memory, then the rest in shared memory: pivots just
+# before, at and after that column (+ block), and two in the - block.  The
+# twin has no such switch; this holds it to the JAX K3 at those pivots, and
+# chip_smoke.py holds the kernel to the twin there.
+SWITCH = tl.unblocked_plan(256, 8, H100_SMEM)[0]
+SWITCH_PIVOTS = [(SWITCH - 1, -1.0), (SWITCH, 0.0), (SWITCH + 1, -1.0), (130, 0.5), (192, 0.0)]
 
 
 def _with_irregular_pivots(K, pivots):
@@ -128,6 +137,7 @@ def test_factor_and_solve_match_pallas(n, m, variant, dtype):
     pytest.param("fori", 20, PIVOTS, id="fori"),
     pytest.param("blocked", 20, PIVOTS, id="blocked"),
     pytest.param("blocked", 80, PANEL_EDGE_PIVOTS, id="blocked-panel-edges"),
+    pytest.param("fori", 128, SWITCH_PIVOTS, id="fori-n256-around-column-16"),
 ])
 def test_dynamic_regularization_fires_on_the_same_pivots(variant, n, pivots):
     m = n
@@ -173,6 +183,32 @@ def test_regularization_disabled_keeps_every_pivot(variant):
     _, ref_ok = _reference(K, n, m, settings, variant)
     _, _, ok = _port(K, n, m, settings, variant)
     assert not ok.any() and not ref_ok.any()
+
+
+@pytest.mark.parametrize("capacity", [H100_SMEM, 48 * 1024], ids=["h100", "48k"])
+@pytest.mark.parametrize("itemsize", [8, 4], ids=["f64", "f32"])
+@pytest.mark.parametrize("N", [1, 201, 240, 241, 256, 2001])
+def test_unblocked_plan_fits_shared_memory(N, itemsize, capacity):
+    """The unblocked kernel's plan: the packed trailing triangle and its
+    pad to whole 32-column chunks fit the capacity; the switch column is 0
+    whenever the whole triangle fits, and otherwise as small as fits."""
+    def nbytes(M):
+        return (M * (M + 1) // 2 + -M % 32) * itemsize
+
+    def fits(M):
+        return M <= tl.SMEM_MAX_COLS and nbytes(M) <= capacity
+
+    j0, got = tl.unblocked_plan(N, itemsize, capacity)
+    M = N - j0
+    assert 0 <= j0 < N
+    assert got == nbytes(M) <= capacity and fits(M)
+    if fits(N):
+        assert j0 == 0
+    else:
+        assert j0 > 0 and not fits(M + 1)
+    if capacity == H100_SMEM and itemsize == 8:
+        # the f64 triangle fits whole up to N = 240
+        assert j0 == max(0, N - 240)
 
 
 def test_ctypes_signatures_match_the_cuda_source():
