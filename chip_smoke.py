@@ -7,7 +7,8 @@ Phases:
   0. the card (name and power limit, from nvidia-smi) and the build of the
      hand-written kernels (clarabel_tpu_torch/kkt/csrc/ldl.cu) into build/;
   1. each LDLᵀ kernel against its plain PyTorch version on the card, at f64
-     and f32, at the shapes the solver gives it and at batched shapes, with
+     and f32, at the shapes the solvers give it (the batch phase's
+     512 and 2048 x 96², 1024 x 129², 64 x 201² and 4 x 2001² among them), with
      the solve's backward error, the kernel's and the plain version's times
      and, as yardsticks the port never calls, torch.linalg.ldl_factor
      (pivoted, so another function) and torch.linalg.lu_factor; the
@@ -27,7 +28,16 @@ Phases:
      kernel, checked against the same solve on the CPU, and the batched
      factor-and-solve entry point for each variant (make_ldl_factor, as the
      JAX package's bench drives its kernels);
-  4. the launch counts of phases 2-3 and one JSON line per kernel.
+  3b. batches through BatchSolver, each with "pallas" and "auto": the JAX
+     bench's box QPs (n = 32, m = 64, B = 512 and 2048, KKT N = 96) and
+     SOCPs (n = 32, one SecondOrderConeT(33), B = 1024, N = 129), and
+     scenario portfolio QPs, one covariance and B draws of the expected
+     returns (n = 100, B = 64, N = 201; n = 1000, B = 4, N = 2001); every
+     lane Solved, the two backends agreeing, four lanes of each re-solved
+     alone, one factor launch per iteration of the batch; then, as a
+     yardstick, DefaultSolver looped over 16 lanes of the B = 512 box QP;
+  4. the launch counts of phases 2-3 and 3b and one JSON line per kernel
+     and shape.
 
 Every failure raises, so the exit code is not 0 and no result line prints.
 The last line of standard output is {"ok": true, "device": {...}}.  Without
@@ -150,6 +160,42 @@ def portfolio_qp(n, k, seed, gamma=1.0):
     return P, -mu, A, b, [ZeroConeT(1), NonnegativeConeT(n)]
 
 
+def portfolio_qp_batch(B, n, k, seed):
+    """B scenario instances of :func:`portfolio_qp`: one covariance Σ, and
+    each instance its own draw of the expected returns μ."""
+    P, _, A, b, cones = portfolio_qp(n, k, seed)
+    mu = np.random.default_rng(seed + 1).normal(0.05, 0.1, size=(B, n))
+    tile = lambda v: np.tile(v, (B, 1, 1) if v.ndim == 2 else (B, 1))
+    return tile(P), -mu, tile(A), tile(b), cones
+
+
+def box_qp_batch(B, n, seed):
+    """The JAX bench's batched box QP (bench.py:75-82): P = MMᵀ/n + I/2,
+    -1 ≤ x ≤ 1, one NonnegativeConeT(2n)."""
+    from clarabel_tpu_torch import NonnegativeConeT
+
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(B, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", M, M) + 0.5 * np.eye(n)
+    q = rng.normal(size=(B, n))
+    A = np.tile(np.vstack([np.eye(n), -np.eye(n)]), (B, 1, 1))
+    return P, q, A, np.ones((B, 2 * n)), [NonnegativeConeT(2 * n)]
+
+
+def socp_batch(B, n, seed):
+    """The JAX bench's batched SOCP (bench.py:156-167): the box QP's data
+    plus one SecondOrderConeT(n + 1) bounding ‖x‖ by 10."""
+    from clarabel_tpu_torch import NonnegativeConeT, SecondOrderConeT
+
+    P, q, A, b, _ = box_qp_batch(B, n, seed)
+    dsoc = n + 1
+    Asoc = np.zeros((dsoc, n))
+    Asoc[1:, :n] = -np.eye(dsoc - 1)[:, :n]
+    A = np.concatenate([A, np.tile(Asoc, (B, 1, 1))], axis=1)
+    b = np.concatenate([b, np.tile(np.concatenate([[10.0], np.zeros(dsoc - 1)]), (B, 1))], axis=1)
+    return P, q, A, b, [NonnegativeConeT(2 * n), SecondOrderConeT(dsoc)]
+
+
 def portfolio_socp(n, k, seed, sigma=0.05):
     """Risk-constrained portfolio: max μᵀx s.t. 1ᵀx = 1, x ≥ 0,
     ‖[Fᵀx; D^{1/2}x]‖₂ ≤ σ (one SecondOrderConeT(1 + k + n))."""
@@ -228,15 +274,18 @@ def check_kernel(variant, B, n, m, dtype, seed, device, settings, reps, sm_hz):
                max_abs_err=err, max_abs_ref=scale, backward_error=backward)
     row["ms"] = cuda_ms(lambda: pl.ldl_factor(K, n, m, settings, variant), reps)
     row["plain_ms"] = cuda_ms(lambda: plain(K, sign, eps, delta), 1)
-    row["ldl_factor_ms"] = cuda_ms(lambda: torch.linalg.ldl_factor_ex(K), reps)
+    # the pivoted LDLᵀ factors one matrix after another, seconds at B = 1024
+    row["ldl_factor_ms"] = (cuda_ms(lambda: torch.linalg.ldl_factor_ex(K), reps)
+                            if B <= 64 else None)
     row["lu_factor_ms"] = cuda_ms(lambda: torch.linalg.lu_factor_ex(K), reps)
     row["bound_ms"], row["bound_by"] = bound_ms(B, N, dtype)
     if variant != "blocked":
         row["switch_column"], _ = pl.unblocked_plan(N, K.element_size(), pl._smem_capacity())
         row.update(one_sm_ms(B, N, dtype, sm_hz))
+    ldl_ms = "not run" if row["ldl_factor_ms"] is None else f"{row['ldl_factor_ms']:.3f} ms"
     log(f"  {variant:8s} B={B} N={N:4d} {row['dtype']}: max|Δ| {err:.2e} (of {scale:.2e}), "
         f"backward {backward:.2e}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-        f"ldl_factor {row['ldl_factor_ms']:.3f} ms, lu_factor {row['lu_factor_ms']:.3f} ms, "
+        f"ldl_factor {ldl_ms}, lu_factor {row['lu_factor_ms']:.3f} ms, "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
         + (f", one SM: non-FMA floor {row['one_sm_nonfma_floor_ms']:.4f} ms, peak "
            f"{row['one_sm_peak_ms']:.4f} ms; switch column {row['switch_column']}"
@@ -329,6 +378,114 @@ def batched_entry(variant, B, n, m, device, settings):
     assert bool(ok.all()) and resid <= 1e-9, f"batched {variant}: residual {resid:.3e}"
 
 
+# -----------------------------------------------------------------
+# phase 3b: batches
+# -----------------------------------------------------------------
+
+#: label -> (the batch made from the seed, the LDLᵀ variant "pallas" runs on it)
+BATCHES = {
+    "box QP B=512": (lambda seed: box_qp_batch(512, 32, seed), "unrolled"),
+    "box QP B=2048": (lambda seed: box_qp_batch(2048, 32, seed + 1), "unrolled"),
+    "SOCP B=1024": (lambda seed: socp_batch(1024, 32, seed + 2), "unrolled"),
+    "portfolio QP n=100 B=64": (lambda seed: portfolio_qp_batch(64, 100, 10, seed + 3), "unrolled"),
+    "portfolio QP n=1000 B=4": (lambda seed: portfolio_qp_batch(4, 1000, 50, seed + 4), "blocked"),
+}
+
+
+def batch_solve(problem, method):
+    """One BatchSolver solve on the card; (solution, wall seconds, the LDLᵀ
+    launches it made by variant), the counts set to 0 just before it."""
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+
+    P, q, A, b, cones = problem
+    settings = tt.DefaultSettings(verbose=False, direct_solve_method=method)
+    solver = tt.BatchSolver(P, q, A, b, cones, settings, device="cuda")
+    torch.cuda.synchronize()
+    for v in pl.ldl_factor.launches:
+        pl.ldl_factor.launches[v] = 0
+    t0 = time.perf_counter()
+    sol = solver.solve()
+    seconds = time.perf_counter() - t0
+    launches = dict(pl.ldl_factor.launches)
+    assert np.all(np.isfinite(sol.x)) and sol.x.shape == q.shape
+    return sol, seconds, launches
+
+
+def check_batch(label, problem, variant):
+    """Solve a batch through "pallas" and "auto"; every lane Solved, the
+    backends within 1e-7 relative in objective and 1 in iterations, lanes
+    0, B/2, the slowest and B - 1 equal to DefaultSolver's solve of the lane
+    alone (same status, iterations within 1, objective within 1e-8
+    relative), and one launch of ``variant`` per iteration of the batch."""
+    import clarabel_tpu_torch as tt
+
+    P, q, A, b, cones = problem
+    B, n = q.shape
+    N = n + b.shape[1]
+    runs = {}
+    for method in ("pallas", "auto"):
+        sol, secs, launches = batch_solve(problem, method)
+        its = sol.iterations
+        statuses = sol.statuses()
+        runs[method] = dict(sol=sol, wall_ms=secs * 1e3, solves_per_s=B / secs,
+                            ms_per_iteration=secs * 1e3 / max(int(its.max()), 1),
+                            iterations_sum=int(its.sum()), iterations_max=int(its.max()),
+                            iterations_min=int(its.min()), launches=launches)
+        log(f"  {label} N={N} {method}: {sum(s.name == 'Solved' for s in statuses)}/{B} Solved, "
+            f"iterations {its.min()}-{its.max()} (sum {its.sum()}), wall {secs * 1e3:.1f} ms, "
+            f"{B / secs:.1f} solves/s, {secs * 1e3 / max(int(its.max()), 1):.2f} ms/iteration, "
+            f"LDLᵀ launches {launches}")
+        assert all(s == tt.SolverStatus.Solved for s in statuses), f"{label} {method}: {statuses}"
+    lu, ldl = runs["auto"]["sol"], runs["pallas"]["sol"]
+    rel = np.abs(ldl.obj_val - lu.obj_val) / np.maximum(1.0, np.abs(lu.obj_val))
+    assert rel.max() <= 1e-7, f"{label}: objectives differ by {rel.max():.3e} relative"
+    assert np.abs(ldl.iterations - lu.iterations).max() <= 1, f"{label}: iterations differ"
+    pallas_launches = runs["pallas"]["launches"]
+    max_it = runs["pallas"]["iterations_max"]
+    # one factor for the start and one per iteration of the batch, B at once
+    assert max_it <= pallas_launches[variant] <= max_it + 2, \
+        f"{label}: {pallas_launches[variant]} {variant} launches for {max_it} iterations"
+    assert sum(pallas_launches.values()) == pallas_launches[variant]
+    assert sum(runs["auto"]["launches"].values()) == 0
+
+    lanes = sorted({0, B // 2, int(np.argmax(ldl.iterations)), B - 1})
+    for method, run in runs.items():
+        sol = run["sol"]
+        for i in lanes:
+            settings = tt.DefaultSettings(verbose=False, direct_solve_method=method)
+            one = tt.DefaultSolver(P[i], q[i], A[i], b[i], cones, settings, device="cuda").solve()
+            assert one.status == sol.statuses()[i], f"{label} lane {i} {method}: {one.status.name}"
+            assert abs(one.iterations - int(sol.iterations[i])) <= 1, \
+                f"{label} lane {i} {method}: {one.iterations} vs {sol.iterations[i]} iterations"
+            assert abs(one.obj_val - sol.obj_val[i]) <= 1e-8 * max(1.0, abs(one.obj_val)), \
+                f"{label} lane {i} {method}: objective {one.obj_val!r} vs {sol.obj_val[i]!r}"
+    log(f"  {label}: lanes {lanes} equal DefaultSolver's solves of them alone, both backends")
+    return dict(B=B, N=N, variant=variant, lanes_resolved=lanes, **{
+        method: {k: v for k, v in run.items() if k != "sol"} for method, run in runs.items()})
+
+
+def sequential_yardstick(problem, lanes):
+    """Solves per second of DefaultSolver looped over the first ``lanes``
+    lanes of a batch on the card, per backend."""
+    import clarabel_tpu_torch as tt
+
+    P, q, A, b, cones = problem
+    out = {}
+    for method in ("pallas", "auto"):
+        settings = tt.DefaultSettings(verbose=False, direct_solve_method=method)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(lanes):
+            sol = tt.DefaultSolver(P[i], q[i], A[i], b[i], cones, settings, device="cuda").solve()
+            assert sol.status == tt.SolverStatus.Solved
+        secs = time.perf_counter() - t0
+        out[method] = dict(lanes=lanes, wall_ms=secs * 1e3, solves_per_s=lanes / secs)
+        log(f"  DefaultSolver over {lanes} lanes, {method}: {secs * 1e3:.1f} ms, "
+            f"{lanes / secs:.1f} solves/s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -380,6 +537,10 @@ def main(argv=None) -> int:
             (1, 1, 0), (1, 1, 1), (1, 120, 120), (1, 120, 121), (1, 128, 128), (264, 32, 32))]
         # the JAX bench's bench_pallas_ldl shape (bench.py:271-273)
         shapes[torch.float32] += [(v, 8, 128, 128) for v in unblocked]
+        # the batch phase's shapes: box QP, SOCP, the two portfolio batches
+        shapes[torch.float64] += [("unrolled", 512, 32, 64), ("unrolled", 2048, 32, 64),
+                                  ("unrolled", 1024, 32, 97),
+                                  ("unrolled", 64, 100, 101), ("blocked", 4, 1000, 1001)]
         rows = []
         for dtype, cases in shapes.items():
             for variant, B, n, m in cases:
@@ -427,6 +588,15 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         launches = dict(pl.ldl_factor.launches)
 
+        # ---- phase 3b: batches, launches counted from zero for each solve
+        log("phase 3b: batches through BatchSolver")
+        report["batches"] = {}
+        for label, (make, variant) in BATCHES.items():
+            problem = make(args.seed)
+            report["batches"][label] = check_batch(label, problem, variant)
+            if label == "box QP B=512":
+                report["sequential_box_qp"] = sequential_yardstick(problem, 16)
+
     # ---- phase 4: launch counts and the kernels line
     log(f"phase 4: launches on the main path {launches}")
     main_shape = {"blocked": (1, 1000, 1001), "unrolled": (1, 100, 101), "fori": (8, 100, 100)}
@@ -441,6 +611,23 @@ def main(argv=None) -> int:
             launches=launches[variant], max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None, shape=[B, n + m, n + m], dtype="float64",
+            yardstick_ldl_factor_ms=row["ldl_factor_ms"],
+            yardstick_lu_factor_ms=row["lu_factor_ms"],
+        ))
+    # the batch phase's path: one row per batch at its kernel's shape, with
+    # the launches of its "pallas" solve
+    for label, batch in report["batches"].items():
+        variant, B, N = batch["variant"], batch["B"], batch["N"]
+        row = next(r for r in rows if r["variant"] == variant and r["B"] == B
+                   and r["N"] == N and r["dtype"] == "float64")
+        count = batch["pallas"]["launches"][variant]
+        assert count > 0, f"{KERNELS[variant]['name']} never launched by the {label} batch"
+        kernels.append(dict(
+            name=KERNELS[variant]["name"], route="cuda", source=SOURCE,
+            replaces=KERNELS[variant]["replaces"], launches=count,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            shape=[B, N, N], dtype="float64", path=f"BatchSolver {label}",
             yardstick_ldl_factor_ms=row["ldl_factor_ms"],
             yardstick_lu_factor_ms=row["lu_factor_ms"],
         ))

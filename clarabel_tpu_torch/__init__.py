@@ -1,14 +1,16 @@
 """clarabel_tpu_torch: the interior-point conic solver on PyTorch and CUDA.
 
 A port of ``clarabel_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
-module for module.  This slice carries the dense single-problem solve in f64
+module for module.  It carries the dense single-problem solve in f64
 over zero, nonnegative and second-order cones: Ruiz equilibration, the
 homogeneous-embedding IPM with Mehrotra predictor-corrector steps and
 Nesterov-Todd scalings, certificate-producing infeasibility detection, and
 two KKT backends — pivoted LU (``direct_solve_method="auto"`` or ``"lu"``)
 and the hand-written quasidefinite LDLᵀ CUDA kernels
 (``direct_solve_method="pallas"``, the name the JAX package gives its TPU
-kernel).
+kernel) -- and the batched solve of many problems of one structure
+(:class:`BatchSolver`), which runs the same loop on a leading batch
+dimension.
 
 Solves run on a CUDA device unless ``device="cpu"`` is passed; on the CPU the
 LDLᵀ kernels' plain PyTorch versions run in their place.
@@ -16,14 +18,17 @@ LDLᵀ kernels' plain PyTorch versions run in their place.
 
 from .cones.api import NonnegativeConeT, SecondOrderConeT, ZeroConeT
 from .infbound import default_infinity, get_infinity, set_infinity
+from .parallel import BatchSolution, BatchSolver
 from .settings import DefaultSettings, SettingsError
 from .solver import DefaultInfo, DefaultSolution, DefaultSolver
 from .statuses import SolverStatus
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = [
     "DefaultSolver",
+    "BatchSolver",
+    "BatchSolution",
     "DefaultSettings",
     "DefaultSolution",
     "DefaultInfo",

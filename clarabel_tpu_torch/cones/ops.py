@@ -4,9 +4,13 @@ PyTorch port of the symmetric branches of ``clarabel_tpu/cones/ops.py``.
 Every operation is a plain function over the full permuted slack vector:
 contiguous group slices handle the per-kind math and heterogeneous
 second-order cones are vectorized with segment sums (``index_add_``), so the
-same code serves one cone or thousands.  Scalars stay 0-d tensors on the
-vector's device and branches are ``torch.where``, as in the JAX package, so
-nothing here waits for the device.
+same code serves one cone or thousands.  Branches are ``torch.where``, as in
+the JAX package, so nothing here waits for the device.
+
+Every function takes vectors ``[..., k]`` over any leading batch dimensions
+(none for one problem, ``[B]`` for a batch): the cone index is always the
+last dimension, and a per-problem scalar has the batch shape itself (0-d
+for one problem, ``[B]`` for a batch).
 
 The exponential, power, generalized-power and PSD branches are not ported
 yet; the solver rejects those cones before any of this runs.
@@ -38,10 +42,15 @@ def _big(v):
 
 
 def _min_init(v, big):
-    """``jnp.min(v, initial=big)``."""
-    if v.numel() == 0:
-        return big
-    return torch.minimum(v.amin(), big)
+    """``jnp.min(v, initial=big)`` over the last dimension."""
+    if v.shape[-1] == 0:
+        return big.expand(v.shape[:-1])
+    return torch.minimum(v.amin(dim=-1), big)
+
+
+def _col(a):
+    """A per-problem scalar as a column that broadcasts over ``[..., k]``."""
+    return a.unsqueeze(-1)
 
 
 def _idx(layout: ConeLayout, device):
@@ -55,12 +64,12 @@ def _idx(layout: ConeLayout, device):
 
 def _soc_sum(layout, x):
     seg = _idx(layout, x.device)["soc_seg"]
-    out = torch.zeros(layout.num_soc, dtype=x.dtype, device=x.device)
-    return out.index_add_(0, seg, x)
+    out = torch.zeros(x.shape[:-1] + (layout.num_soc,), dtype=x.dtype, device=x.device)
+    return out.index_add_(-1, seg, x)
 
 
 def _heads(layout, x):
-    return x[_idx(layout, x.device)["soc_head_idx"]]
+    return x[..., _idx(layout, x.device)["soc_head_idx"]]
 
 
 def _tail(layout, x):
@@ -71,7 +80,7 @@ def _tail(layout, x):
 def _set_heads(layout, x, head):
     """x with each cone's leading component replaced by ``head``."""
     ix = _idx(layout, x.device)
-    return torch.where(ix["soc_head_mask"], head[ix["soc_seg"]], x)
+    return torch.where(ix["soc_head_mask"], head[..., ix["soc_seg"]], x)
 
 
 def _soc_residual(layout, x):
@@ -93,7 +102,7 @@ def _soc_circ(layout, y, z):
     y0 = _heads(layout, y)
     z0 = _heads(layout, z)
     head = _soc_sum(layout, y * z)
-    out = y0[seg] * _tail(layout, z) + z0[seg] * _tail(layout, y)
+    out = y0[..., seg] * _tail(layout, z) + z0[..., seg] * _tail(layout, y)
     return _set_heads(layout, out, head)
 
 
@@ -109,11 +118,11 @@ def _soc_mul_w(layout, w, eta, x, inverse: bool):
     if not inverse:
         c = x0 + zeta / (1.0 + w0)
         head = eta * (w0 * x0 + zeta)
-        tail = (eta[seg]) * (_tail(layout, x) + c[seg] * _tail(layout, w))
+        tail = (eta[..., seg]) * (_tail(layout, x) + c[..., seg] * _tail(layout, w))
     else:
         c = -x0 + zeta / (1.0 + w0)
         head = (w0 * x0 - zeta) / eta
-        tail = (_tail(layout, x) + c[seg] * _tail(layout, w)) / eta[seg]
+        tail = (_tail(layout, x) + c[..., seg] * _tail(layout, w)) / eta[..., seg]
     return _set_heads(layout, tail, head)
 
 
@@ -122,77 +131,81 @@ def _soc_mul_w(layout, w, eta, x, inverse: bool):
 # =================================================================
 
 
-def unit_initialization(layout: ConeLayout, dtype, device):
-    """(z, s) unit initial point per cone.
+def unit_initialization(layout: ConeLayout, dtype, device, batch=()):
+    """(z, s) unit initial point per cone, for each problem of the batch
+    shape ``batch``.
 
     reference: per-cone ``unit_initialization`` (zerocone.rs:72-75,
     nonnegativecone.rs:68-71, socone.rs:114-119)
     """
-    z = torch.zeros(layout.m, dtype=dtype, device=device)
+    z = torch.zeros(tuple(batch) + (layout.m,), dtype=dtype, device=device)
     nn = layout.slice_of(api.NONNEGATIVE)
-    z[nn] = 1.0
+    z[..., nn] = 1.0
     if layout.num_soc:
-        z[_idx(layout, device)["soc_head_idx"] + layout.slice_of(api.SOC).start] = 1.0
+        z[..., _idx(layout, device)["soc_head_idx"] + layout.slice_of(api.SOC).start] = 1.0
     return z, z.clone()
 
 
-def set_identity_scaling(layout: ConeLayout, dtype, device):
-    """Identity NT scalings for the symmetric initial KKT solve.
+def set_identity_scaling(layout: ConeLayout, dtype, device, batch=()):
+    """Identity NT scalings for the symmetric initial KKT solve, for each
+    problem of the batch shape ``batch``.
 
     reference: per-cone ``set_identity_scaling`` (nonnegativecone.rs:73-75,
     socone.rs:121-132)
     """
+    kw = dict(dtype=dtype, device=device)
+    shape = lambda k: tuple(batch) + (k,)
     state = {}
     if layout.n_nn:
-        state["nn_w"] = torch.ones(layout.n_nn, dtype=dtype, device=device)
-        state["nn_lam"] = torch.zeros(layout.n_nn, dtype=dtype, device=device)
+        state["nn_w"] = torch.ones(shape(layout.n_nn), **kw)
+        state["nn_lam"] = torch.zeros(shape(layout.n_nn), **kw)
     if layout.num_soc:
-        w = torch.zeros(layout.m_soc, dtype=dtype, device=device)
-        w[_idx(layout, device)["soc_head_idx"]] = 1.0
+        w = torch.zeros(shape(layout.m_soc), **kw)
+        w[..., _idx(layout, device)["soc_head_idx"]] = 1.0
         state["soc_w"] = w
-        state["soc_eta"] = torch.ones(layout.num_soc, dtype=dtype, device=device)
-        state["soc_lam"] = torch.zeros(layout.m_soc, dtype=dtype, device=device)
+        state["soc_eta"] = torch.ones(shape(layout.num_soc), **kw)
+        state["soc_lam"] = torch.zeros(shape(layout.m_soc), **kw)
     return state
 
 
 def update_scaling(layout: ConeLayout, state, s, z, mu, strategy):
     """Update all scaling-point data from the current (s, z).
 
-    Returns (new_state, ok) with ``ok`` a 0-d bool tensor.  reference:
+    Returns (new_state, ok) with ``ok`` a bool per problem.  reference:
     compositecone.rs:226-243 and the per-cone ``update_scaling`` impls.
     ``mu`` and ``strategy`` only matter to the nonsymmetric cones.
     """
     del mu, strategy
     state = dict(state)
-    ok = torch.ones((), dtype=torch.bool, device=s.device)
+    ok = torch.ones(s.shape[:-1], dtype=torch.bool, device=s.device)
 
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
-        si, zi = s[sl], z[sl]
+        si, zi = s[..., sl], z[..., sl]
         # reference: nonnegativecone.rs:77-90
         state["nn_lam"] = torch.sqrt(si * zi)
         state["nn_w"] = torch.sqrt(si / zi)
 
     if layout.num_soc:
         sl = layout.slice_of(api.SOC)
-        si, zi = s[sl], z[sl]
+        si, zi = s[..., sl], z[..., sl]
         ix = _idx(layout, s.device)
         seg = ix["soc_seg"]
         # reference: socone.rs:134-211
         zres = _soc_residual(layout, zi)
         sres = _soc_residual(layout, si)
-        ok = ok & torch.all(zres > 0) & torch.all(sres > 0)
+        ok = ok & torch.all(zres > 0, dim=-1) & torch.all(sres > 0, dim=-1)
         zscale = torch.sqrt(torch.clamp(zres, min=1e-300))
         sscale = torch.sqrt(torch.clamp(sres, min=1e-300))
 
         eta = torch.sqrt(sscale / zscale)
 
         sgn = torch.where(ix["soc_head_mask"], 1.0, -1.0).to(s.dtype)
-        w = si / sscale[seg] + sgn * zi / zscale[seg]
+        w = si / sscale[..., seg] + sgn * zi / zscale[..., seg]
         wres = _soc_residual(layout, w)
-        ok = ok & torch.all(wres > 0)
+        ok = ok & torch.all(wres > 0, dim=-1)
         wscale = torch.sqrt(torch.clamp(wres, min=1e-300))
-        w = w / wscale[seg]
+        w = w / wscale[..., seg]
 
         # force w to come out normalized (socone.rs:170-172)
         w1sq = _soc_sum(layout, _tail(layout, w) ** 2)
@@ -204,9 +217,9 @@ def update_scaling(layout: ConeLayout, state, s, z, mu, strategy):
         cs = (gamma + z0 / zscale) / sscale
         cz = (gamma + s0 / sscale) / zscale
         den = s0 / sscale + z0 / zscale + 2.0 * gamma
-        lam = (cs[seg] * _tail(layout, si) + cz[seg] * _tail(layout, zi)) / den[seg]
+        lam = (cs[..., seg] * _tail(layout, si) + cz[..., seg] * _tail(layout, zi)) / den[..., seg]
         lam = _set_heads(layout, lam, gamma)
-        lam = lam * torch.sqrt(sscale * zscale)[seg]
+        lam = lam * torch.sqrt(sscale * zscale)[..., seg]
 
         state["soc_w"] = w
         state["soc_eta"] = eta
@@ -215,17 +228,17 @@ def update_scaling(layout: ConeLayout, state, s, z, mu, strategy):
     return state, ok
 
 
-def hs_dense(layout: ConeLayout, state, dtype, device):
-    """Dense [m, m] block-diagonal scaling matrix Hs = WᵀW for KKT
-    assembly (zero cones contribute zero rows).  reference: per-cone
-    ``get_Hs``."""
-    H = torch.zeros((layout.m, layout.m), dtype=dtype, device=device)
+def hs_dense(layout: ConeLayout, state, dtype, device, batch=()):
+    """Dense [..., m, m] block-diagonal scaling matrices Hs = WᵀW for KKT
+    assembly (zero cones contribute zero rows), one per problem of the
+    batch shape ``batch``.  reference: per-cone ``get_Hs``."""
+    H = torch.zeros(tuple(batch) + (layout.m, layout.m), dtype=dtype, device=device)
 
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
         idx = torch.arange(sl.start, sl.stop, device=device)
         # reference: nonnegativecone.rs:96-101 (diag Hs = w²)
-        H[idx, idx] = state["nn_w"] ** 2
+        H[..., idx, idx] = state["nn_w"] ** 2
 
     if layout.num_soc:
         sl = layout.slice_of(api.SOC)
@@ -234,12 +247,12 @@ def hs_dense(layout: ConeLayout, state, dtype, device):
         w, eta = state["soc_w"], state["soc_eta"]
         # dense form Hs = η²(2wwᵀ - J), J = diag(1, -I)
         # (reference: socone.rs:227-245)
-        u = eta[seg] * w
+        u = eta[..., seg] * w
         same = seg[:, None] == seg[None, :]
-        blk = 2.0 * torch.where(same, u[:, None] * u[None, :], 0.0)
-        diag = torch.where(ix["soc_head_mask"], -(eta[seg] ** 2), eta[seg] ** 2)
-        blk = blk + torch.diag(diag)
-        H[sl, sl] = blk
+        blk = 2.0 * torch.where(same, u[..., :, None] * u[..., None, :], 0.0)
+        diag = torch.where(ix["soc_head_mask"], -(eta[..., seg] ** 2), eta[..., seg] ** 2)
+        blk = blk + torch.diag_embed(diag)
+        H[..., sl, sl] = blk
 
     return H
 
@@ -250,18 +263,18 @@ def mul_hs(layout: ConeLayout, state, x):
 
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
-        y[sl] = state["nn_w"] ** 2 * x[sl]
+        y[..., sl] = state["nn_w"] ** 2 * x[..., sl]
 
     if layout.num_soc:
         sl = layout.slice_of(api.SOC)
-        xi = x[sl]
+        xi = x[..., sl]
         ix = _idx(layout, x.device)
         seg = ix["soc_seg"]
         w, eta = state["soc_w"], state["soc_eta"]
         # reference: socone.rs:248-256
         c = 2.0 * _soc_sum(layout, w * xi)
-        out = torch.where(ix["soc_head_mask"], -xi, xi) + c[seg] * w
-        y[sl] = eta[seg] ** 2 * out
+        out = torch.where(ix["soc_head_mask"], -xi, xi) + c[..., seg] * w
+        y[..., sl] = eta[..., seg] ** 2 * out
 
     return y
 
@@ -273,12 +286,12 @@ def affine_ds(layout: ConeLayout, state, s):
 
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
-        ds[sl] = state["nn_lam"] ** 2
+        ds[..., sl] = state["nn_lam"] ** 2
 
     if layout.num_soc:
         sl = layout.slice_of(api.SOC)
         lam = state["soc_lam"]
-        ds[sl] = _soc_circ(layout, lam, lam)
+        ds[..., sl] = _soc_circ(layout, lam, lam)
 
     return ds
 
@@ -286,25 +299,26 @@ def affine_ds(layout: ConeLayout, state, s):
 def combined_ds_shift(layout: ConeLayout, state, step_z, step_s, sigma_mu, z):
     """Mehrotra shift term for the combined step RHS: W⁻¹Δs ∘ WΔz − σμe
     (reference: symmetric_common.rs:53-84).  ``z`` only matters to the
-    nonsymmetric cones."""
+    nonsymmetric cones; ``sigma_mu`` is a per-problem scalar."""
     del z
     shift = torch.zeros_like(step_z)
+    sigma_mu = _col(sigma_mu)
 
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
         w = state["nn_w"]
-        wz = w * step_z[sl]
-        wis = step_s[sl] / w
-        shift[sl] = wis * wz - sigma_mu
+        wz = w * step_z[..., sl]
+        wis = step_s[..., sl] / w
+        shift[..., sl] = wis * wz - sigma_mu
 
     if layout.num_soc:
         sl = layout.slice_of(api.SOC)
         w, eta = state["soc_w"], state["soc_eta"]
-        wz = _soc_mul_w(layout, w, eta, step_z[sl], inverse=False)
-        wis = _soc_mul_w(layout, w, eta, step_s[sl], inverse=True)
+        wz = _soc_mul_w(layout, w, eta, step_z[..., sl], inverse=False)
+        wis = _soc_mul_w(layout, w, eta, step_s[..., sl], inverse=True)
         out = _soc_circ(layout, wis, wz)
         head_mask = _idx(layout, step_z.device)["soc_head_mask"]
-        shift[sl] = torch.where(head_mask, out - sigma_mu, out)
+        shift[..., sl] = torch.where(head_mask, out - sigma_mu, out)
 
     return shift
 
@@ -317,11 +331,11 @@ def ds_from_dz_offset(layout: ConeLayout, state, ds, z):
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
         # reference: nonnegativecone.rs:122-126 (out = ds / z)
-        out[sl] = ds[sl] / z[sl]
+        out[..., sl] = ds[..., sl] / z[..., sl]
 
     if layout.num_soc:
         sl = layout.slice_of(api.SOC)
-        dsi, zi = ds[sl], z[sl]
+        dsi, zi = ds[..., sl], z[..., sl]
         ix = _idx(layout, ds.device)
         seg, head_mask = ix["soc_seg"], ix["soc_head_mask"]
         w, eta, lam = state["soc_w"], state["soc_eta"], state["soc_lam"]
@@ -334,14 +348,14 @@ def ds_from_dz_offset(layout: ConeLayout, state, ds, z):
 
         v = torch.where(head_mask, zi, -zi)
         c = lam0 * ds0 - lam1ds1
-        v = v * (c / resz)[seg]
-        v = torch.where(head_mask, v + (eta * w1ds1)[seg], v)
-        tail_add = eta[seg] * (
-            _tail(layout, dsi) + (w1ds1 / (1.0 + w0))[seg] * _tail(layout, w)
+        v = v * (c / resz)[..., seg]
+        v = torch.where(head_mask, v + (eta * w1ds1)[..., seg], v)
+        tail_add = eta[..., seg] * (
+            _tail(layout, dsi) + (w1ds1 / (1.0 + w0))[..., seg] * _tail(layout, w)
         )
         v = v + _tail(layout, tail_add)
-        v = v / lam0[seg]
-        out[sl] = v
+        v = v / lam0[..., seg]
+        out[..., sl] = v
 
     # zero cones contribute zero
     return out
@@ -402,43 +416,45 @@ def _soc_step_component(layout, x, dx, big):
 
 def step_length(layout: ConeLayout, state, dz, ds, z, s, settings, alpha_max):
     """Composite maximum step length to the cone boundary (closed form for
-    the symmetric cones).  reference: compositecone.rs:300-340"""
+    the symmetric cones), per problem.  reference: compositecone.rs:300-340"""
     del state, settings
     big = _big(z)
     alpha = alpha_max
 
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
-        alpha = torch.minimum(alpha, _nn_step_component(z[sl], dz[sl], big))
-        alpha = torch.minimum(alpha, _nn_step_component(s[sl], ds[sl], big))
+        alpha = torch.minimum(alpha, _nn_step_component(z[..., sl], dz[..., sl], big))
+        alpha = torch.minimum(alpha, _nn_step_component(s[..., sl], ds[..., sl], big))
 
     if layout.num_soc:
         sl = layout.slice_of(api.SOC)
-        alpha = torch.minimum(alpha, _soc_step_component(layout, z[sl], dz[sl], big))
-        alpha = torch.minimum(alpha, _soc_step_component(layout, s[sl], ds[sl], big))
+        alpha = torch.minimum(alpha, _soc_step_component(layout, z[..., sl], dz[..., sl], big))
+        alpha = torch.minimum(alpha, _soc_step_component(layout, s[..., sl], ds[..., sl], big))
 
     return alpha
 
 
 def compute_barrier(layout: ConeLayout, state, z, s, dz, ds, alpha):
     """Combined barrier at (z+αdz, s+αds).  reference: per-cone
-    ``compute_barrier``; used by the asymmetric backtracking line search."""
+    ``compute_barrier``, per problem; used by the asymmetric backtracking
+    line search."""
     del state
-    barrier = torch.zeros((), dtype=z.dtype, device=z.device)
+    barrier = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
+    a = _col(alpha)
 
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
-        si = s[sl] + alpha * ds[sl]
-        zi = z[sl] + alpha * dz[sl]
-        barrier = barrier - torch.sum(_logsafe(si * zi))
+        si = s[..., sl] + a * ds[..., sl]
+        zi = z[..., sl] + a * dz[..., sl]
+        barrier = barrier - torch.sum(_logsafe(si * zi), dim=-1)
 
     if layout.num_soc:
         sl = layout.slice_of(api.SOC)
-        res_s = _soc_residual(layout, s[sl] + alpha * ds[sl])
-        res_z = _soc_residual(layout, z[sl] + alpha * dz[sl])
+        res_s = _soc_residual(layout, s[..., sl] + a * ds[..., sl])
+        res_z = _soc_residual(layout, z[..., sl] + a * dz[..., sl])
         good = (res_s > 0) & (res_z > 0)
         term = torch.where(good, -0.5 * _logsafe(res_s * res_z), torch.inf)
-        barrier = barrier + torch.sum(term)
+        barrier = barrier + torch.sum(term, dim=-1)
 
     return barrier
 
@@ -449,53 +465,55 @@ def compute_barrier(layout: ConeLayout, state, z, s, dz, ds, alpha):
 
 
 def margins(layout: ConeLayout, z, pd):
-    """(minimum margin, total positive margin) over all cones.
+    """(minimum margin, total positive margin) over all cones, per problem.
 
     reference: compositecone margins + per-cone impls (zerocone.rs:55-62,
     nonnegativecone.rs:58-62, socone.rs:104-108)
     """
     del pd
     big = _big(z)
-    mn = big
-    total = torch.zeros((), dtype=z.dtype, device=z.device)
+    mn = big.expand(z.shape[:-1])
+    total = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
 
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
-        zi = z[sl]
+        zi = z[..., sl]
         mn = torch.minimum(mn, _min_init(zi, big))
-        total = total + torch.sum(torch.clamp(zi, min=0.0))
+        total = total + torch.sum(torch.clamp(zi, min=0.0), dim=-1)
 
     if layout.num_soc:
         sl = layout.slice_of(api.SOC)
-        zi = z[sl]
+        zi = z[..., sl]
         z0 = _heads(layout, zi)
         n1 = torch.sqrt(_soc_sum(layout, _tail(layout, zi) ** 2))
         a = z0 - n1
         mn = torch.minimum(mn, _min_init(a, big))
-        total = total + torch.sum(torch.clamp(a, min=0.0))
+        total = total + torch.sum(torch.clamp(a, min=0.0), dim=-1)
 
     # zero cones: (+inf, 0) contribution — no-op on (mn, total)
     return mn, total
 
 
 def scaled_unit_shift(layout: ConeLayout, z, alpha, pd):
-    """z += α·e per cone; zero cones clamp to 0 in the primal case.
+    """z += α·e per cone, α a per-problem scalar; zero cones clamp to 0 in
+    the primal case.
 
     reference: per-cone ``scaled_unit_shift`` (zerocone.rs:64-70,
     nonnegativecone.rs:64-66, socone.rs:110-112)
     """
     z = z.clone()
+    alpha = _col(alpha)
     if layout.n_zero and pd == PRIMAL:
-        z[layout.slice_of(api.ZERO)] = 0.0
+        z[..., layout.slice_of(api.ZERO)] = 0.0
 
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
-        z[sl] = z[sl] + alpha
+        z[..., sl] = z[..., sl] + alpha
 
     if layout.num_soc:
         sl = layout.slice_of(api.SOC)
         heads = _idx(layout, z.device)["soc_head_idx"] + sl.start
-        z[heads] = z[heads] + alpha
+        z[..., heads] = z[..., heads] + alpha
 
     return z
 
@@ -512,9 +530,9 @@ def rectify_equilibration(layout: ConeLayout, e):
         return torch.ones_like(e), False
     ix = _idx(layout, e.device)
     seg = ix["cone_seg"]
-    zeros = torch.zeros(layout.num_cones, dtype=e.dtype, device=e.device)
-    sums = zeros.index_add(0, seg, e)
-    counts = zeros.index_add(0, seg, torch.ones_like(e))
+    zeros = torch.zeros(e.shape[:-1] + (layout.num_cones,), dtype=e.dtype, device=e.device)
+    sums = zeros.index_add(-1, seg, e)
+    counts = zeros.index_add(-1, seg, torch.ones_like(e))
     mean = sums / torch.clamp(counts, min=1.0)
-    delta = torch.where(ix["rectify_mask"], mean[seg] / e, 1.0)
+    delta = torch.where(ix["rectify_mask"], mean[..., seg] / e, 1.0)
     return delta, True

@@ -3,7 +3,9 @@
 PyTorch port of ``clarabel_tpu/equilibration.py:equilibrate`` (reference:
 src/solver/implementations/default/problemdata.rs:229-312).  The loop runs a
 fixed ``equilibrate_max_iter`` passes, as the reference does; the cost scale
-``c`` stays a 0-d tensor, so nothing here waits for the device.
+``c`` stays a tensor, so nothing here waits for the device.  The data may
+carry leading batch dimensions (P [..., n, n], q [..., n], A [..., m, n],
+b [..., m]); every norm and the cost scale ``c`` [...] are then per problem.
 """
 
 from __future__ import annotations
@@ -31,12 +33,13 @@ def equilibrate(layout: ConeLayout, settings, P, q, A, b, triu_mask):
     normalization term (the reference computes column norms of the
     triu-stored P there; problemdata.rs:280-295).
     """
-    n, m = q.shape[0], b.shape[0]
+    n, m = q.shape[-1], b.shape[-1]
+    batch = q.shape[:-1]
     kw = dict(dtype=q.dtype, device=q.device)
 
-    d = torch.ones(n, **kw)
-    e = torch.ones(m, **kw)
-    c = torch.ones((), **kw)
+    d = torch.ones(batch + (n,), **kw)
+    e = torch.ones(batch + (m,), **kw)
+    c = torch.ones(batch, **kw)
 
     if not settings.equilibrate_enable:
         return P, q, A, b, d, e, c
@@ -48,8 +51,8 @@ def equilibrate(layout: ConeLayout, settings, P, q, A, b, triu_mask):
         # inf-norms of the KKT columns (problemdata.rs:319-328):
         # LHS cols: symmetric P column norms joined with A column norms;
         # RHS rows: A row norms
-        dwork = torch.maximum(_absmax(P, 0), _absmax(A, 0))
-        ework = _absmax(A, 1)
+        dwork = torch.maximum(_absmax(P, -2), _absmax(A, -2))
+        ework = _absmax(A, -1)
 
         # zero rows / columns are left unscaled
         dwork = torch.where(dwork == 0, 1.0, dwork)
@@ -63,8 +66,8 @@ def equilibrate(layout: ConeLayout, settings, P, q, A, b, triu_mask):
         ework = torch.clamp(ework, scale_min / e, scale_max / e)
 
         # scale data
-        P = P * dwork[:, None] * dwork[None, :]
-        A = A * ework[:, None] * dwork[None, :]
+        P = P * dwork[..., :, None] * dwork[..., None, :]
+        A = A * ework[..., :, None] * dwork[..., None, :]
         q = q * dwork
         b = b * ework
         d = d * dwork
@@ -72,11 +75,11 @@ def equilibrate(layout: ConeLayout, settings, P, q, A, b, triu_mask):
 
         # cost normalization (problemdata.rs:280-295).  The reference takes
         # per-column max-abs over the triu-stored P only.
-        col_norm_P = _absmax(P * triu_mask, 0)
+        col_norm_P = _absmax(P * triu_mask, -2)
         mean_col_norm_P = (
-            torch.mean(col_norm_P) if n > 0 else torch.zeros((), **kw)
+            torch.mean(col_norm_P, dim=-1) if n > 0 else torch.zeros(batch, **kw)
         )
-        inf_norm_q = _absmax(q, 0)
+        inf_norm_q = _absmax(q, -1)
 
         do_cost = (mean_col_norm_P != 0) & (inf_norm_q != 0)
         scale_cost = torch.maximum(inf_norm_q, mean_col_norm_P)
@@ -87,15 +90,15 @@ def equilibrate(layout: ConeLayout, settings, P, q, A, b, triu_mask):
             do_cost, torch.clamp(ctmp, scale_min / c, scale_max / c), 1.0
         )
 
-        P = P * ctmp
-        q = q * ctmp
+        P = P * ctmp[..., None, None]
+        q = q * ctmp[..., None]
         c = c * ctmp
 
     # per-cone rectification: cones that only admit a scalar scaling get
     # their rows replaced by the cone mean (problemdata.rs:299-307)
     delta, changed = cone_ops.rectify_equilibration(layout, e)
     if changed:
-        A = A * delta[:, None]
+        A = A * delta[..., :, None]
         b = b * delta
         e = e * delta
 

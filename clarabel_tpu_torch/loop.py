@@ -12,6 +12,14 @@ choice inside an iteration stays a ``torch.where`` as in the JAX package, and
 the host reads the device twice per iteration: for the loop condition and for
 whether the iteration takes a step.  The iterative refinement inside each KKT
 solve reads one scalar per sweep (``kkt.dense.solve_refined``).
+
+The data may carry one leading batch dimension (P [B, n, n], q [B, n],
+A [B, m, n], b [B, m]): every vector is then [B, k] and every per-problem
+scalar [B], and the loop solves the B problems at once, as ``jax.vmap`` of
+the JAX package's loop does.  A problem whose status stops being Unsolved
+at the top of an iteration is frozen: it computes along with the others and
+keeps none of it.  The two device reads per iteration stay two, for the
+whole batch: whether any problem is unsolved, and whether any takes a step.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ from typing import NamedTuple
 import torch
 
 from .cones import ops as cone_ops
+from .cones.ops import _col
 from .kkt import dense as kkt_dense
+from .kkt.dense import dot as _dot, matvec as _mv
 from .statuses import SCALING_DUAL, SCALING_PRIMAL_DUAL, SolverStatus
 
 _UNSOLVED = int(SolverStatus.Unsolved)
@@ -74,7 +84,7 @@ class SolverState(NamedTuple):
     # consecutive iterations the insufficient-progress condition held
     ip_pending: torch.Tensor
 
-    # per-iteration progress table [max_iter+1, 9]:
+    # per-iteration progress table [..., max_iter+1, 9]:
     # (pcost, dcost, gap_abs, gap_rel, pres, dres, k/t, μ, step)
     history: torch.Tensor
 
@@ -94,17 +104,17 @@ class Residuals(NamedTuple):
 
 def compute_residuals(P, q, A, b, x, s, z, tau, kappa) -> Residuals:
     """reference: src/solver/implementations/default/residuals.rs:69-111"""
-    qx = q @ x
-    bz = b @ z
-    sz = s @ z
-    Px = P @ x
-    xPx = x @ Px
+    qx = _dot(q, x)
+    bz = _dot(b, z)
+    sz = _dot(s, z)
+    Px = _mv(P, x)
+    xPx = _dot(x, Px)
 
-    rx_inf = -(A.T @ z)
-    rz_inf = A @ x + s
+    rx_inf = -_mv(A.mT, z)
+    rz_inf = _mv(A, x) + s
 
-    rx = rx_inf - Px - tau * q
-    rz = rz_inf - tau * b
+    rx = rx_inf - Px - _col(tau) * q
+    rz = rz_inf - _col(tau) * b
     rtau = qx + bz + kappa + xPx / tau
 
     return Residuals(rx, rz, rtau, rx_inf, rz_inf, Px, qx, bz, sz, xPx)
@@ -112,7 +122,7 @@ def compute_residuals(P, q, A, b, x, s, z, tau, kappa) -> Residuals:
 
 def _norm_scaled(v, w):
     """||diag(w) v||_2  (reference: VectorMath::norm_scaled)"""
-    return torch.sqrt(torch.sum((v * w) ** 2))
+    return torch.sqrt(torch.sum((v * w) ** 2, dim=-1))
 
 
 def _max1(v):
@@ -318,7 +328,7 @@ def kkt_solve_rhs(layout, scaling_state, rhs, variables, is_combined):
     else:
         ds_const = s
 
-    return torch.cat([rx, ds_const - rz]), ds_const
+    return torch.cat([rx, ds_const - rz], dim=-1), ds_const
 
 
 def kkt_solve_finish(
@@ -326,30 +336,31 @@ def kkt_solve_finish(
 ):
     """Recover the full direction from the reduced solve: Δτ closed form
     with P-quadratic terms, then Δx/Δz/Δs/Δκ (kktsystem.rs:160-207)."""
-    n = q.shape[0]
-    m = b.shape[0]
+    n = q.shape[-1]
+    m = b.shape[-1]
     x, s, z, tau, kappa = variables
     rx, rs, rz, rtau, rkappa = rhs
-    x1, z1f = sol[:n], sol[n:]
+    x1, z1f = sol[..., :n], sol[..., n:]
 
     # Δτ (kktsystem.rs:168-190)
-    xi = x / tau
+    xi = x / _col(tau)
     tau_num = (
-        rtau - rkappa / tau + q @ x1 + b @ z1f[:m] + 2.0 * (xi @ (P @ x1))
+        rtau - rkappa / tau + _dot(q, x1) + _dot(b, z1f[..., :m])
+        + 2.0 * _dot(xi, _mv(P, x1))
     )
     xi_m_x2 = xi - x2
     tau_den = (
         kappa / tau
-        - q @ x2
-        - b @ z2[:m]
-        + xi_m_x2 @ (P @ xi_m_x2)
-        - x2 @ (P @ x2)
+        - _dot(q, x2)
+        - _dot(b, z2[..., :m])
+        + _dot(xi_m_x2, _mv(P, xi_m_x2))
+        - _dot(x2, _mv(P, x2))
     )
     dtau = tau_num / tau_den
 
-    dx = x1 + dtau * x2
-    dzf = z1f + dtau * z2
-    dz = dzf[:m]
+    dx = x1 + _col(dtau) * x2
+    dzf = z1f + _col(dtau) * z2
+    dz = dzf[..., :m]
 
     # Δs = -(HₛΔz + c)  (kktsystem.rs:195-199)
     ds = -(cone_ops.mul_hs(layout, scaling_state, dz) + ds_const)
@@ -425,7 +436,7 @@ def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state):
             f"the {method!r} KKT backend at {dtype} is not ported "
             "(ROADMAP.md Queue 1 items 5 and 12)"
         )
-    Hs = cone_ops.hs_dense(layout, scaling_state, dtype, P.device)
+    Hs = cone_ops.hs_dense(layout, scaling_state, dtype, P.device, P.shape[:-2])
     K, K_reg = kkt_dense.assemble(P, A, Hs, settings)
     factors, ok = _make_factor_fn(layout, settings, dtype, n, use_pallas, method)(K_reg)
     return factors, K, ok
@@ -446,32 +457,33 @@ def _make_factor_fn(layout, settings, dtype, n, use_pallas=False, method=None):
 def default_start(layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas=False):
     """Initial iterate.  reference: solver.rs:525-541, kktsystem.rs:211-259,
     variables.rs:164-178, 231-256."""
-    n, m = q.shape[0], b.shape[0]
+    n, m = q.shape[-1], b.shape[-1]
+    batch = q.shape[:-1]
     kw = dict(dtype=dtype, device=q.device)
-    one = torch.ones((), **kw)
+    one = torch.ones(batch, **kw)
 
     if not layout.is_symmetric:
-        z, s = cone_ops.unit_initialization(layout, dtype, q.device)
-        return torch.zeros(n, **kw), s, z, one, one.clone()
+        z, s = cone_ops.unit_initialization(layout, dtype, q.device, batch)
+        return torch.zeros(batch + (n,), **kw), s, z, one, one.clone()
 
     # symmetric: solve the KKT system with identity scalings
-    state0 = cone_ops.set_identity_scaling(layout, dtype, q.device)
+    state0 = cone_ops.set_identity_scaling(layout, dtype, q.device, batch)
     factors, K, _ = _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, state0)
 
     if p_is_zero:
         # LP initialization (kktsystem.rs:219-245)
-        rhs1 = torch.cat([torch.zeros(n, **kw), b])
-        rhs2 = torch.cat([-q, torch.zeros(m, **kw)])
+        rhs1 = torch.cat([torch.zeros(batch + (n,), **kw), b], dim=-1)
+        rhs2 = torch.cat([-q, torch.zeros(batch + (m,), **kw)], dim=-1)
         sol1, _ = kkt_dense.solve_refined(factors, K, rhs1, settings)
         sol2, _ = kkt_dense.solve_refined(factors, K, rhs2, settings)
-        x = sol1[:n]
-        s = -sol1[n:]
-        z = sol2[n:]
+        x = sol1[..., :n]
+        s = -sol1[..., n:]
+        z = sol2[..., n:]
     else:
         # QP initialization (kktsystem.rs:246-257)
-        sol, _ = kkt_dense.solve_refined(factors, K, torch.cat([-q, b]), settings)
-        x = sol[:n]
-        z = sol[n:]
+        sol, _ = kkt_dense.solve_refined(factors, K, torch.cat([-q, b], dim=-1), settings)
+        x = sol[..., :n]
+        z = sol[..., n:]
         s = -z
 
     # shift (s, z) into the cone interior (variables.rs:231-256)
@@ -497,13 +509,35 @@ def _shift_to_cone_interior(layout, v, pd, floor=1.0):
     return v
 
 
+def _select(mask, new, old):
+    """``new`` where the per-problem ``mask`` holds, else ``old``; the mask
+    broadcasts over each tensor's own trailing dimensions."""
+    if new is old:
+        return new
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - mask.dim())), new, old)
+
+
+def _select_state(mask, new: SolverState, old: SolverState) -> SolverState:
+    return SolverState(*(_select(mask, a, b) for a, b in zip(new, old)))
+
+
+def _write_history_row(history, iterations, row, active):
+    """``history[..., iterations, :] = row`` in place, on the problems that
+    are ``active`` only (each at its own iteration count)."""
+    h = history.view(-1, *history.shape[-2:])
+    lanes = torch.arange(h.shape[0], device=h.device)
+    at = iterations.reshape(-1).long()
+    h[lanes, at] = torch.where(active.reshape(-1, 1), row.reshape(h.shape[0], -1), h[lanes, at])
+
+
 def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             use_pallas=False):
     """The main loop.  Returns the final SolverState.
 
     reference: solver.rs:242-465
     """
-    n, m = q.shape[0], b.shape[0]
+    n = q.shape[-1]
+    batch = q.shape[:-1]
     asym = not layout.is_symmetric
     device = q.device
 
@@ -511,8 +545,8 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas,
     )
 
-    f = lambda v: torch.full((), v, dtype=dtype, device=device)
-    i32 = lambda v: torch.full((), v, dtype=torch.int32, device=device)
+    f = lambda v: torch.full(batch, v, dtype=dtype, device=device)
+    i32 = lambda v: torch.full(batch, v, dtype=torch.int32, device=device)
     init_scaling = (
         SCALING_PRIMAL_DUAL
         if layout.allows_primal_dual_scaling
@@ -537,13 +571,16 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         status=i32(_UNSOLVED),
         scaling=i32(init_scaling),
         ip_pending=i32(0),
-        history=torch.full((settings.max_iter + 1, 9), torch.nan, dtype=dtype, device=device),
+        history=torch.full(batch + (settings.max_iter + 1, 9), torch.nan,
+                           dtype=dtype, device=device),
     )
 
-    def body(st: SolverState):
-        r = compute_residuals(P, q, A, b, st.x, st.s, st.z, st.tau, st.kappa)
-        mu = calc_mu(layout, r, st.tau, st.kappa)
-        st = update_info(st._replace(mu=mu), r, equil, normq, normb)
+    def body(st_in: SolverState):
+        # a problem no longer Unsolved at the top of the iteration is frozen
+        active = st_in.status == _UNSOLVED
+        r = compute_residuals(P, q, A, b, st_in.x, st_in.s, st_in.z, st_in.tau, st_in.kappa)
+        mu = calc_mu(layout, r, st_in.tau, st_in.kappa)
+        st = update_info(st_in._replace(mu=mu), r, equil, normq, normb)
 
         # record the progress row for this iterate (info_print.rs per-iter
         # table); α/σ are the values from the step that produced it
@@ -551,9 +588,10 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             [
                 st.cost_primal, st.cost_dual, st.gap_abs, st.gap_rel,
                 st.res_primal, st.res_dual, st.ktratio, mu, st.step_length,
-            ]
+            ],
+            dim=-1,
         )
-        st.history.index_copy_(0, st.iterations.long().view(1), row.view(1, 9))
+        _write_history_row(st.history, st.iterations, row, active)
 
         status, ip_pending = check_termination(st, settings, dtype)
         st = st._replace(ip_pending=ip_pending)
@@ -573,21 +611,22 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             gap_abs=st.prev_gap_abs, gap_rel=st.prev_gap_rel,
         )
         st = st._replace(**{
-            k: torch.where(is_ip, v, getattr(st, k)) for k, v in restored.items()
+            k: _select(is_ip, v, getattr(st, k)) for k, v in restored.items()
         })
         status = torch.where(retry_ip, _UNSOLVED, status).to(torch.int32)
         scaling = torch.where(retry_ip, SCALING_DUAL, st.scaling).to(torch.int32)
         st = st._replace(status=status, scaling=scaling)
 
-        proceed = (status == _UNSOLVED) & ~retry_ip
-        if bool(proceed):
-            st = _step(st, r, mu)
-        return st
+        # the JAX package's lax.cond(proceed, do_step, ...), per problem
+        proceed = active & (status == _UNSOLVED) & ~retry_ip
+        if bool(proceed.any()):
+            st = _select_state(proceed, _step(st, r, mu), st)
+        return _select_state(active, st, st_in)
 
     def _step(st: SolverState, r: Residuals, mu):
         # --- cone scaling update (solver.rs:327-338)
         scaling_state, ok_scale = cone_ops.update_scaling(
-            layout, cone_ops.set_identity_scaling(layout, dtype, device),
+            layout, cone_ops.set_identity_scaling(layout, dtype, device, batch),
             st.s, st.z, mu, st.scaling,
         )
         # iterations only count successful KKT updates (solver.rs:340-342)
@@ -607,7 +646,7 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             r.rtau,
             st.tau * st.kappa,
         )
-        rhs_const = torch.cat([-q, b])
+        rhs_const = torch.cat([-q, b], dim=-1)
         rhs_aff, dsc_aff = kkt_solve_rhs(
             layout, scaling_state, affine_rhs, variables, is_combined=False,
         )
@@ -617,7 +656,7 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         (sol_a, _), ok_a = kkt_dense.solve_refined(
             factors, K, rhs_aff, settings, want_lo=True
         )
-        x2, z2 = sol_c[:n], sol_c[n:]
+        x2, z2 = sol_c[..., :n], sol_c[..., n:]
         aff = kkt_solve_finish(
             layout, scaling_state, P, q, A, b, x2, z2, sol_a, dsc_aff,
             affine_rhs, variables,
@@ -637,12 +676,12 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         dx_a, ds_a, dz_a, dtau_a, dkappa_a = aff
         sigma_mu = sigma * mu
         shift = cone_ops.combined_ds_shift(
-            layout, scaling_state, m_corr * dz_a, ds_a, sigma_mu, st.z
+            layout, scaling_state, _col(m_corr) * dz_a, ds_a, sigma_mu, st.z
         )
         comb_rhs = (
-            (1.0 - sigma) * r.rx,
+            _col(1.0 - sigma) * r.rx,
             affine_rhs[1] + shift,
-            (1.0 - sigma) * r.rz,
+            _col(1.0 - sigma) * r.rz,
             (1.0 - sigma) * r.rtau,
             -sigma_mu + m_corr * dtau_a * dkappa_a + st.tau * st.kappa,
         )
@@ -669,7 +708,8 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         # KKT numerical error (reference analog: solver.rs:611-630)
         dir_ok = torch.isfinite(alpha)
         for leaf in comb:
-            dir_ok = dir_ok & torch.all(torch.isfinite(leaf))
+            fin = torch.isfinite(leaf)
+            dir_ok = dir_ok & (torch.all(fin, dim=-1) if fin.dim() > alpha.dim() else fin)
         retry_dir = (~dir_ok) & asym & (st.scaling == SCALING_PRIMAL_DUAL)
         fail_ne = fail_ne | ((~dir_ok) & (~retry_dir))
         retry_ne = retry_ne | (retry_dir & ok_scale)
@@ -706,7 +746,7 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         new_tau = st.tau + a * dtau
         new_kappa = st.kappa + a * dkappa
         invscale = 1.0 / torch.maximum(new_tau, new_kappa)
-        keep = lambda new, old: torch.where(take, new, old)
+        keep = lambda new, old: _select(take, new, old)
         return st._replace(
             # save previous iterate before stepping (solver.rs:429-432)
             px=keep(st.x, st.px),
@@ -720,9 +760,9 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             prev_res_dual=keep(st.res_dual, st.prev_res_dual),
             prev_gap_abs=keep(st.gap_abs, st.prev_gap_abs),
             prev_gap_rel=keep(st.gap_rel, st.prev_gap_rel),
-            x=(st.x + a * dx) * invscale,
-            s=(st.s + a * ds) * invscale,
-            z=(st.z + a * dz) * invscale,
+            x=(st.x + _col(a) * dx) * _col(invscale),
+            s=(st.s + _col(a) * ds) * _col(invscale),
+            z=(st.z + _col(a) * dz) * _col(invscale),
             tau=new_tau * invscale,
             kappa=new_kappa * invscale,
             sigma=sigma,
@@ -731,7 +771,7 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             scaling=scaling,
         )
 
-    while bool(st.status == _UNSOLVED):
+    while bool((st.status == _UNSOLVED).any()):
         st = body(st)
 
     # "almost solved" tier on error / iteration-limit exits

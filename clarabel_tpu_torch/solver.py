@@ -218,18 +218,20 @@ def full_precision():
 
 
 def _amax0(v):
-    """``jnp.max(jnp.abs(v), initial=0.0)``."""
-    if v.numel() == 0:
-        return torch.zeros((), dtype=v.dtype, device=v.device)
-    return torch.abs(v).amax()
+    """``jnp.max(jnp.abs(v), initial=0.0)`` over the last dimension."""
+    if v.shape[-1] == 0:
+        return torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    return torch.abs(v).amax(dim=-1)
 
 
 def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
                      n: int, p_is_zero: bool, dtype: torch.dtype,
                      use_pallas: bool = False):
-    """The single-problem solve function (P, q, A, b) -> outputs, with the
-    same output dictionary as the JAX package's
-    (clarabel_tpu/solver.py:246-272).  The tensors stay on their device."""
+    """The solve function (P, q, A, b) -> outputs, with the same output
+    dictionary as the JAX package's (clarabel_tpu/solver.py:246-272).  The
+    tensors stay on their device.  It solves one problem, or a batch of
+    problems when the data carry a leading batch dimension (P [B, n, n],
+    q [B, n], A [B, m, n], b [B, m]); every output then has it too."""
 
     def solve_core(P, q, A, b):
         triu_mask = torch.triu(torch.ones((n, n), dtype=dtype, device=P.device))
@@ -260,9 +262,9 @@ def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
         )
         scaleinv = torch.where(is_infeasible, 1.0 / st.kappa, 1.0 / st.tau)
 
-        x = st.x * d * scaleinv
-        z = st.z * e * (scaleinv * cinv)
-        s = st.s * einv * scaleinv
+        x = st.x * d * scaleinv.unsqueeze(-1)
+        z = st.z * e * (scaleinv * cinv).unsqueeze(-1)
+        s = st.s * einv * scaleinv.unsqueeze(-1)
 
         obj_val = torch.where(is_infeasible, torch.nan, st.cost_primal)
         obj_val_dual = torch.where(is_infeasible, torch.nan, st.cost_dual)
@@ -304,6 +306,27 @@ def _not_ported(what: str, item: int):
     )
 
 
+def check_ported(settings: DefaultSettings, dtype: Optional[str]) -> str:
+    """The dtype name a solve runs at ("float64"); raises for a dtype or a
+    ``direct_solve_method`` this port does not run yet."""
+    dtype = dtype or "float64"
+    if dtype == "float32":
+        raise _not_ported("dtype='float32' (the mixed-precision f32 stack)", 12)
+    if dtype != "float64":
+        raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
+    method = settings.direct_solve_method
+    if method not in _PORTED_METHODS:
+        raise _not_ported(f"direct_solve_method={method!r}", _METHOD_ITEMS.get(method, 5))
+    return dtype
+
+
+def check_ported_cones(cones_int) -> None:
+    """Raises for a (collapsed) cone this port does not run yet."""
+    for c in cones_int:
+        if c.kind not in _PORTED_CONES:
+            raise _not_ported(f"the {c!r} cone", _CONE_ITEMS[c.kind])
+
+
 class DefaultSolver:
     """Interior-point solver for convex conic programs with quadratic
     objectives (reference: DefaultSolver, default/solver.rs:19-126), on the
@@ -324,16 +347,7 @@ class DefaultSolver:
         self.settings.validate()
         self.timers = Timers()
 
-        self._dtype = dtype or "float64"
-        if self._dtype == "float32":
-            raise _not_ported("dtype='float32' (the mixed-precision f32 stack)", 12)
-        if self._dtype != "float64":
-            raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
-        method = self.settings.direct_solve_method
-        if method not in _PORTED_METHODS:
-            raise _not_ported(
-                f"direct_solve_method={method!r}", _METHOD_ITEMS.get(method, 5)
-            )
+        self._dtype = check_ported(self.settings, dtype)
         self._device = resolve_device(device)
 
         with self.timers.scope("setup"):
@@ -375,9 +389,7 @@ class DefaultSolver:
         with self.timers.scope("presolve"):
             # cone collapsing (supportedcone.rs:105-161)
             cones_int = api.collapse_cones(cones)
-            for c in cones_int:
-                if c.kind not in _PORTED_CONES:
-                    raise _not_ported(f"the {c!r} cone", _CONE_ITEMS[c.kind])
+            check_ported_cones(cones_int)
 
             # presolve reduction (problemdata.rs:85-90)
             self._presolver = presolve.try_presolve(A, b, cones_int, self.settings)

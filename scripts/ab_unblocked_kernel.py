@@ -14,13 +14,17 @@ variant for each choice, with that choice flipped by an edit of the source:
                lanes read different banks, instead of in order (a choice
                this measurement took out of the kernel);
   32-warps     1,024 threads a block at every width, instead of 256 when
-               the triangle has at most 64 columns.
+               the triangle has at most 64 columns;
+  8-warps-160  256 threads a block up to 160 columns (5 chunks), so that
+               more than two blocks share an SM at the batched solver's
+               N = 96 and 129.
 
-All four build at once.  Each launch is timed alone with CUDA events
+All five build at once.  Each launch is timed alone with CUDA events
 (the factor's input copied in before the first event), f64, at 1 x 201²
-(the small QP's KKT shape) and 264 x 64² (more matrices than SMs); the
-variants take turns in every round, and each variant's factor must equal
-the plain twin bit for bit.  Prints the card, then one line per shape and
+(the small QP's KKT shape), 264 x 64² (more matrices than SMs), and the
+batch shapes of chip_smoke.py's box QP (2048 x 96²) and SOCP (1024 x 129²);
+the variants take turns in every round, and each variant's factor must
+equal the plain twin bit for bit.  Prints the card, then one line per shape and
 variant: the median milliseconds and the ratio to base.
 
     python3 scripts/ab_unblocked_kernel.py [--rounds R] [--reps K] [--out FILE]
@@ -45,7 +49,7 @@ import chip_smoke  # noqa: E402  (kkt_batch, card_line)
 import clarabel_tpu_torch as tt  # noqa: E402
 from clarabel_tpu_torch.kkt import build, pallas_ldl as pl  # noqa: E402
 
-SHAPES = ((1, 100, 101), (264, 32, 32))  # (B, n, m), N = n + m
+SHAPES = ((1, 100, 101), (264, 32, 32), (2048, 32, 64), (1024, 32, 97))  # (B, n, m), N = n + m
 
 # variant: (pattern of csrc/ldl.cu, replacement, the matches it must have)
 EDITS = {
@@ -53,6 +57,7 @@ EDITS = {
                   "      update_row<T, CH, 0>(row, r - lane, last_ok, l0, l1, u0, u1);\n", 1),
     "rotated": (r"W \* (lane|i) \+ warp;", r"W * \1 + ((warp - \1) & (W - 1));", 2),
     "32-warps": (r"return chunks <= 2 \? 8 : 32;", "return 32;", 1),
+    "8-warps-160": (r"return chunks <= 2 \? 8 : 32;", "return chunks <= 5 ? 8 : 32;", 1),
 }
 
 

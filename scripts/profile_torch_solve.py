@@ -3,15 +3,17 @@
 
 Solves the portfolio problems of chip_smoke.py (QP: n = 1000, k = 50,
 N = 2001; SOCP: n = 500, k = 50, N = 1552; the small QP: n = 100, k = 10,
-N = 201, whose "pallas" solve runs the unblocked kernel) once through each
-KKT backend ("pallas" and "auto") under torch.profiler, after one untraced
+N = 201, whose "pallas" solve runs the unblocked kernel) and, through
+BatchSolver, the JAX bench's box-QP batch (n = 32, m = 64, B = 2048, KKT
+N = 96) once through each KKT backend ("pallas" and "auto") under
+torch.profiler, after one untraced
 warm-up solve, and prints for each: the wall time, the summed device time
 of the kernels, the device's idle share (1 - device time / wall time; the
 kernels of one stream do not overlap), and the kernels that take the most
 device time.  Then it profiles the LDLᵀ factor alone, f64: the blocked
 variant at the two large problems' KKT shapes (1 x 2001², 1 x 1552²) and
-the unblocked one at 1 x 201², 8 x 200² and 1 x 256², and prints each
-kernel's device time and launches per factor.
+the unblocked one at 1 x 201², 8 x 200², 1 x 256² and the box-QP batch's
+2048 x 96², and prints each kernel's device time and launches per factor.
 
     python3 scripts/profile_torch_solve.py [--seed S] [--top K] [--out FILE]
 """
@@ -34,11 +36,11 @@ import clarabel_tpu_torch as tt  # noqa: E402
 from clarabel_tpu_torch.solver import full_precision  # noqa: E402
 
 
-def profile_solve(problem, method, top):
+def profile_solve(problem, method, top, solver_type=tt.DefaultSolver):
     P, q, A, b, cones = problem
     settings = tt.DefaultSettings(verbose=False, direct_solve_method=method)
-    tt.DefaultSolver(P, q, A, b, cones, settings, device="cuda").solve()  # warm-up
-    solver = tt.DefaultSolver(P, q, A, b, cones, settings, device="cuda")
+    solver_type(P, q, A, b, cones, settings, device="cuda").solve()  # warm-up
+    solver = solver_type(P, q, A, b, cones, settings, device="cuda")
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -49,8 +51,13 @@ def profile_solve(problem, method, top):
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_us = sum(e.self_device_time_total for e in events)
     kernels = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    if solver_type is tt.BatchSolver:  # the slowest lane's iterations
+        solved = sum(s == tt.SolverStatus.Solved for s in sol.statuses())
+        status, iterations = f"{solved}/{len(sol.status)} Solved", int(sol.iterations.max())
+    else:
+        status, iterations = sol.status.name, sol.iterations
     return dict(
-        method=method, status=sol.status.name, iterations=sol.iterations,
+        method=method, status=status, iterations=iterations,
         wall_ms=wall * 1e3, device_ms=device_us / 1e3,
         idle_share=1.0 - device_us / 1e6 / wall,
         kernels=[dict(name=e.key[:90], calls=e.count,
@@ -96,15 +103,18 @@ def main():
     ).stdout.strip()
     print(f"card: {card}")
     problems = {
-        "qp_n1000": chip_smoke.portfolio_qp(1000, 50, args.seed),
-        "socp_n500": chip_smoke.portfolio_socp(500, 50, args.seed + 1),
-        "qp_n100": chip_smoke.portfolio_qp(100, 10, args.seed + 2),
+        "qp_n1000": (chip_smoke.portfolio_qp(1000, 50, args.seed), tt.DefaultSolver),
+        "socp_n500": (chip_smoke.portfolio_socp(500, 50, args.seed + 1), tt.DefaultSolver),
+        "qp_n100": (chip_smoke.portfolio_qp(100, 10, args.seed + 2), tt.DefaultSolver),
+        # the batch of chip_smoke.py's "box QP B=2048"
+        "box_qp_batch_B2048": (chip_smoke.box_qp_batch(2048, 32, args.seed + 1),
+                               tt.BatchSolver),
     }
     report = dict(card=card, runs=[])
     with full_precision():
-        for label, problem in problems.items():
+        for label, (problem, solver_type) in problems.items():
             for method in ("pallas", "auto"):
-                r = profile_solve(problem, method, args.top)
+                r = profile_solve(problem, method, args.top, solver_type)
                 r["problem"] = label
                 report["runs"].append(r)
                 print(f"{label} {method}: {r['status']} in {r['iterations']} iterations, "
@@ -115,7 +125,7 @@ def main():
         report["factors"] = []
         for variant, B, n, m in (("blocked", 1, 1000, 1001), ("blocked", 1, 500, 1052),
                                  ("unrolled", 1, 100, 101), ("fori", 8, 100, 100),
-                                 ("unrolled", 1, 128, 128)):
+                                 ("unrolled", 1, 128, 128), ("unrolled", 2048, 32, 64)):
             r = profile_factor(n, m, args.seed, variant, B)
             report["factors"].append(r)
             print(f"{variant} factor {B}x{r['N']}² f64, per factor:")

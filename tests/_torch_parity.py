@@ -1,11 +1,12 @@
 """Shared helpers of the ``test_torch_*`` parity tests: the oracle problems
-of the basic suites, and the contract a solve of the port is held to
-against the JAX package (:func:`assert_port_matches_reference`).
+of the basic suites and the batches of the batch suite, and the contract a
+solve of the port is held to against the JAX package
+(:func:`assert_lane_matches`, for one problem or one lane of a batch).
 
 Each problem is built as numpy data from the basic suites' own builders
-(``test_basic_*.py``), so the port is held to exactly the problems the JAX
-package is.  The JAX side runs its Pallas LDLᵀ kernel in interpret mode,
-as the JAX package's own CPU runs do.
+(``test_basic_*.py``, ``test_batch.py``), so the port is held to exactly
+the problems the JAX package is.  The JAX side runs its Pallas LDLᵀ kernel
+in interpret mode, as the JAX package's own CPU runs do.
 """
 
 import dataclasses
@@ -22,6 +23,7 @@ import test_basic_lp
 import test_basic_qp
 import test_basic_socp
 import test_basic_eq_and_unconstrained as test_basic_eq
+import test_batch
 
 
 def _lp_primal_infeasible():
@@ -146,6 +148,65 @@ def interpret_pallas(monkeypatch):
     )
 
 
+def _mixed_status_lp_batch():
+    """One feasible and one primal-infeasible LP (test_batch.py:59-73)."""
+    n = 3
+    P = np.zeros((2, n, n))
+    q = np.tile(np.array([3.0, -2.0, 1.0]), (2, 1))
+    A = np.tile(2.0 * np.vstack([np.eye(3), -np.eye(3)]), (2, 1, 1))
+    b = np.ones((2, 6))
+    b[1, 0] = -1.0
+    b[1, 3] = -1.0
+    return P, q, A, b, [ct.NonnegativeConeT(6)]
+
+
+def _mu_draws(problem, B, seed):
+    """B instances of a portfolio problem sharing its Σ, each with its own
+    expected returns μ: the scenario batch of a portfolio optimizer."""
+    P, _, A, b, cones = problem()
+    n = P.shape[0]
+    mu = np.random.default_rng(seed).normal(0.05, 0.1, size=(B, n))
+    tile = lambda v: np.tile(v, (B,) + (1,) * v.ndim)
+    return tile(P), -mu, tile(A), tile(b), cones
+
+
+def _bench_socp_batch(B=4, n=6, seed=1):
+    """The JAX bench's batched SOCP (bench.py:156-167): box constraints and
+    one SecondOrderConeT(n + 1) bounding the norm of x, here at n = 6."""
+    rng = np.random.default_rng(seed)
+    dsoc = n + 1
+    M = rng.normal(size=(B, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", M, M) + 0.5 * np.eye(n)
+    q = rng.normal(size=(B, n))
+    Asoc = np.zeros((dsoc, n))
+    Asoc[1:, :n] = -np.eye(dsoc - 1)[:, :n]
+    A = np.tile(np.vstack([np.eye(n), -np.eye(n), Asoc]), (B, 1, 1))
+    b = np.tile(np.concatenate([np.ones(2 * n), [10.0], np.zeros(dsoc - 1)]), (B, 1))
+    return P, q, A, b, [ct.NonnegativeConeT(2 * n), ct.SecondOrderConeT(dsoc)]
+
+
+BATCHES = {
+    # B = 5, n = 4, m = 8: B is neither n nor m
+    "box_qp": lambda: test_batch.qp_batch(5),
+    # B = n = 4: a per-lane scalar broadcast the wrong way would go unseen
+    "box_qp_b_eq_n": lambda: test_batch.qp_batch(4, seed=3),
+    "mixed_status_lp": _mixed_status_lp_batch,
+    "portfolio_qp": lambda: _mu_draws(_portfolio_qp, 3, seed=10),
+    "portfolio_socp": lambda: _mu_draws(_portfolio_socp, 3, seed=11),
+    "bench_socp": _bench_socp_batch,
+}
+
+
+def port_cones(cones):
+    """The JAX package's cones as the port's."""
+    return convert.cones_from_specs(convert.cone_specs(cones))
+
+
+def port_settings(settings):
+    """The JAX package's settings as the port's."""
+    return convert.settings_from_dict(dataclasses.asdict(settings))
+
+
 @functools.cache
 def reference(name, method):
     """The JAX package's solver for problem ``name``, after its solve.  The
@@ -164,13 +225,67 @@ def port(name, method):
     P, q, A, b, cones = PROBLEMS[name]()
     settings = ct.DefaultSettings(verbose=False, direct_solve_method=method)
     solver = tt.DefaultSolver(
-        P, q, A, b,
-        convert.cones_from_specs(convert.cone_specs(cones)),
-        convert.settings_from_dict(dataclasses.asdict(settings)),
-        device="cpu",
+        P, q, A, b, port_cones(cones), port_settings(settings), device="cpu",
     )
     solver.solve()
     return solver
+
+
+@functools.cache
+def batch_reference(name, method):
+    """The JAX package's BatchSolver for batch ``name`` and its solution.
+    The caller runs it with the Pallas kernel in interpret mode."""
+    P, q, A, b, cones = BATCHES[name]()
+    settings = ct.DefaultSettings(verbose=False, direct_solve_method=method)
+    solver = ct.BatchSolver(P, q, A, b, cones, settings)
+    return solver, solver.solve()
+
+
+@functools.cache
+def batch_port(name, method, lanes=None):
+    """The port's BatchSolver for batch ``name`` on the CPU, or for the
+    lanes ``lanes`` (a tuple of indices, in that order) of it, and its
+    solution."""
+    P, q, A, b, cones = BATCHES[name]()
+    if lanes is not None:
+        P, q, A, b = (v[list(lanes)] for v in (P, q, A, b))
+    settings = ct.DefaultSettings(verbose=False, direct_solve_method=method)
+    solver = tt.BatchSolver(P, q, A, b, port_cones(cones), port_settings(settings),
+                            device="cpu")
+    return solver, solver.solve()
+
+
+@dataclasses.dataclass
+class Lane:
+    """One solution as the contract compares it: of a single solve, or one
+    lane of a batch.  ``status`` is its package's SolverStatus."""
+
+    status: object
+    iterations: int
+    x: np.ndarray
+    z: np.ndarray
+    s: np.ndarray
+    obj_val: float
+    obj_val_dual: float
+    history: np.ndarray
+
+
+def lane_of(solver):
+    """The solution of a single solve (either package's DefaultSolver)."""
+    s = solver.solution
+    return Lane(s.status, s.iterations, s.x, s.z, s.s, s.obj_val, s.obj_val_dual,
+                solver.iteration_history)
+
+
+def lanes_of(solver, solution, status_type):
+    """Each lane of a batch solve (either package's BatchSolver)."""
+    history = solver.iteration_history()
+    return [
+        Lane(status_type(int(solution.status[i])), int(solution.iterations[i]),
+             solution.x[i], solution.z[i], solution.s[i], float(solution.obj_val[i]),
+             float(solution.obj_val_dual[i]), history[i])
+        for i in range(len(solution.status))
+    ]
 
 
 def _direction(v):
@@ -179,11 +294,28 @@ def _direction(v):
 
 def assert_port_matches_reference(name, method):
     """Solve problem ``name`` through both packages and hold the port to
-    the reference.
+    the reference: the same status and KKT backend name, and
+    :func:`assert_lane_matches`."""
+    ref, got = reference(name, method), port(name, method)
+    assert got.solution.status == ref.solution.status
+    assert got.info.linear_solver.name == ref.info.linear_solver.name
+    methods = ("auto", "pallas")
+    assert_lane_matches(
+        lane_of(ref), lane_of(got),
+        [lane_of(reference(name, m)) for m in methods],
+        [lane_of(port(name, m)) for m in methods],
+    )
 
-    Always: the same status and KKT backend name.  Solved: x, z and s
-    within 1e-7 of the reference's inf-norm (at least 1) and the objectives
-    within 1e-9 relative.
+
+def assert_lane_matches(ref, got, ref_pair, got_pair):
+    """Hold the port's solution ``got`` to the reference's ``ref``, each a
+    :class:`Lane`; ``ref_pair`` and ``got_pair`` are the same problem's
+    solutions through the pivoted LU ("auto") and the LDLᵀ ("pallas") in
+    each package.
+
+    Always: the same status.  Solved: x, z and s within 1e-7 of the
+    reference's inf-norm (at least 1) and the objectives within 1e-9
+    relative.
 
     What comes out of an ill-conditioned KKT system is held to the
     packages' own reproducibility: the *spread*, the larger of the two
@@ -201,39 +333,51 @@ def assert_port_matches_reference(name, method):
     (a singular KKT matrix, whose refined solves are rounding noise), the
     port's count lies within their range.
     """
-    ref, got = reference(name, method), port(name, method)
-    rs, ps = ref.solution, got.solution
-    assert ps.status == rs.status
-    assert got.info.linear_solver.name == ref.info.linear_solver.name
+    assert got.status == ref.status
 
-    pairs = [(reference(name, "auto"), reference(name, "pallas")),
-             (port(name, "auto"), port(name, "pallas"))]
-    counts = [s.solution.iterations for s in pairs[0]]
+    pairs = [tuple(ref_pair), tuple(got_pair)]
+    counts = [s.iterations for s in pairs[0]]
     if counts[0] != counts[1]:
-        assert min(counts) <= ps.iterations <= max(counts)
+        assert min(counts) <= got.iterations <= max(counts)
         return
-    assert ps.iterations == rs.iterations
+    assert got.iterations == ref.iterations
 
     def spread(get):
         return np.maximum(*(np.abs(get(a) - get(b)) for a, b in pairs))
 
-    rows = rs.iterations  # the terminating row is compared through the status
-    history = lambda s: s.iteration_history[:rows]
+    rows = ref.iterations  # the terminating row is compared through the status
+    history = lambda s: s.history[:rows]
     bound = 1e-6 * np.abs(history(ref)) + 1e-10 + 2.0 * spread(history)
     err = np.abs(history(got) - history(ref))
     assert np.all(err <= bound), np.max(err / bound)
 
-    if rs.status == ct.SolverStatus.Solved:
+    if ref.status == ct.SolverStatus.Solved:
         for v in ("x", "z", "s"):
-            r, p = getattr(rs, v), getattr(ps, v)
+            r, p = getattr(ref, v), getattr(got, v)
             scale = max(1.0, float(np.max(np.abs(r), initial=0.0)))
             assert np.max(np.abs(p - r), initial=0.0) <= 1e-7 * scale, v
         for v in ("obj_val", "obj_val_dual"):
-            r, p = getattr(rs, v), getattr(ps, v)
+            r, p = getattr(ref, v), getattr(got, v)
             assert abs(p - r) <= 1e-9 * max(1.0, abs(r)), v
-    elif rs.status.is_infeasible():
-        cert = "z" if rs.status == ct.SolverStatus.PrimalInfeasible else "x"
-        unit = lambda s: _direction(getattr(s.solution, cert))
+    elif ref.status.is_infeasible():
+        cert = "z" if ref.status == ct.SolverStatus.PrimalInfeasible else "x"
+        unit = lambda s: _direction(getattr(s, cert))
         err = np.abs(unit(got) - unit(ref))
         assert np.all(err <= 1e-6 + 2.0 * spread(unit)), cert
-        assert np.isnan(ps.obj_val) and np.isnan(ps.obj_val_dual)
+        assert np.isnan(got.obj_val) and np.isnan(got.obj_val_dual)
+
+
+def assert_batch_matches_reference(name, method):
+    """Solve batch ``name`` through both packages' BatchSolver and hold
+    each lane of the port to the reference's with :func:`assert_lane_matches`;
+    besides, every history row past a lane's last one is NaN in both
+    packages (a frozen lane writes no row)."""
+    methods = ("auto", "pallas")
+    ref = {m: lanes_of(*batch_reference(name, m), ct.SolverStatus) for m in methods}
+    got = {m: lanes_of(*batch_port(name, m), tt.SolverStatus) for m in methods}
+    assert len(got[method]) == len(ref[method])
+    for i, (r, g) in enumerate(zip(ref[method], got[method])):
+        assert_lane_matches(r, g, [ref[m][i] for m in methods], [got[m][i] for m in methods])
+        for lane in (r, g):
+            assert np.all(np.isnan(lane.history[lane.iterations + 1:])), i
+            assert not np.any(np.all(np.isnan(lane.history[:lane.iterations + 1]), axis=1)), i

@@ -78,12 +78,33 @@ def test_device_defaults_to_cuda(monkeypatch):
     (dict(dtype="float32"), "item 12"),
     (dict(settings=tt.DefaultSettings(direct_solve_method="schur_lr")), "item 5"),
     (dict(settings=tt.DefaultSettings(direct_solve_method="multifrontal")), "item 14"),
+    # BatchSolver: a batch of two copies of the same problem
+    (dict(batch=True, dtype="float32"), "item 12"),
+    (dict(batch=True, mesh=object()), "item 16"),
+    (dict(batch=True, warm_start=(np.zeros((2, 2)), np.ones((2, 5)), np.ones((2, 5)))),
+     "item 18"),
 ])
 def test_unported_options_raise(kwargs, item):
     P, q, A, b, cones = _tiny_qp()
+    kwargs = dict(kwargs)
     kwargs.setdefault("settings", tt.DefaultSettings(verbose=False))
     with pytest.raises(NotImplementedError, match=item):
-        tt.DefaultSolver(P, q, A, b, cones, device="cpu", **kwargs)
+        if kwargs.pop("batch", False):
+            warm_start = kwargs.pop("warm_start", None)
+            P, q, A, b = (np.stack([v, v]) for v in (P, q, A, b))
+            tt.BatchSolver(P, q, A, b, cones, device="cpu", **kwargs).solve(warm_start=warm_start)
+        else:
+            tt.DefaultSolver(P, q, A, b, cones, device="cpu", **kwargs)
+
+
+def test_batch_solver_defaults_to_cuda_and_has_no_time_limit(monkeypatch):
+    P, q, A, b, cones = (np.stack([v, v]) if isinstance(v, np.ndarray) else v
+                         for v in _tiny_qp())
+    with pytest.raises(ValueError, match="time limit"):
+        tt.BatchSolver(P, q, A, b, cones, tt.DefaultSettings(time_limit=10.0), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.BatchSolver(P, q, A, b, cones, tt.DefaultSettings(verbose=False))
 
 
 @pytest.mark.parametrize("cone, item", [
