@@ -36,8 +36,20 @@ Phases:
      lane Solved, the two backends agreeing, four lanes of each re-solved
      alone, one factor launch per iteration of the batch; then, as a
      yardstick, DefaultSolver looped over 16 lanes of the B = 512 box QP;
+  3c. the Schur-complement KKT paths, which run no LDLᵀ kernel: the QP and
+     the SOCP of phases 2-3 at f64 through "schur_diag", "schur_lr" and
+     "schur" against their LU solves, and at f32 through "auto"; the box-QP
+     and SOCP batches of phase 3b at f32 through "auto", every lane against
+     its f64 solve, with solves/s, ms/iteration and Cholesky calls per
+     iteration; the SOCP solved twice through "pallas" and twice through
+     "schur_lr", bit for bit equal; the SOC segment sums timed against
+     index_add_;
   4. the launch counts of phases 2-3 and 3b and one JSON line per kernel
      and shape.
+
+With --deterministic the run also sets torch.use_deterministic_algorithms
+(warn only) and lists each operation PyTorch reports as having no
+deterministic implementation.
 
 Every failure raises, so the exit code is not 0 and no result line prints.
 The last line of standard output is {"ok": true, "device": {...}}.  Without
@@ -49,9 +61,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -461,8 +475,9 @@ def check_batch(label, problem, variant):
             assert abs(one.obj_val - sol.obj_val[i]) <= 1e-8 * max(1.0, abs(one.obj_val)), \
                 f"{label} lane {i} {method}: objective {one.obj_val!r} vs {sol.obj_val[i]!r}"
     log(f"  {label}: lanes {lanes} equal DefaultSolver's solves of them alone, both backends")
-    return dict(B=B, N=N, variant=variant, lanes_resolved=lanes, **{
+    report = dict(B=B, N=N, variant=variant, lanes_resolved=lanes, **{
         method: {k: v for k, v in run.items() if k != "sol"} for method, run in runs.items()})
+    return report, lu.obj_val
 
 
 def sequential_yardstick(problem, lanes):
@@ -486,15 +501,198 @@ def sequential_yardstick(problem, lanes):
     return out
 
 
+# -----------------------------------------------------------------
+# phase 3c: the Schur-complement paths
+# -----------------------------------------------------------------
+
+#: phase 3b's batches that phase 3c solves again at f32 through "auto"
+F32_BATCHES = {"box QP B=512": "schur_diag", "box QP B=2048": "schur_diag",
+               "SOCP B=1024": "schur_lr"}
+
+
+def counted_solve(make_solver):
+    """Build a solver, then solve on the card with the LDLᵀ launch counts
+    and the Cholesky call count set to 0 just before: (solver, solution,
+    wall seconds, Cholesky calls, LDLᵀ launches)."""
+    from clarabel_tpu_torch.kkt import dense as kkt_dense, pallas_ldl as pl
+
+    solver = make_solver()
+    torch.cuda.synchronize()
+    for v in pl.ldl_factor.launches:
+        pl.ldl_factor.launches[v] = 0
+    kkt_dense.cholesky.calls = 0
+    t0 = time.perf_counter()
+    sol = solver.solve()
+    seconds = time.perf_counter() - t0
+    return solver, sol, seconds, kkt_dense.cholesky.calls, sum(pl.ldl_factor.launches.values())
+
+
+def schur_single(label, problem, method, dtype, obj_ref, rel, gate=True):
+    """One DefaultSolver solve through ``method`` at ``dtype`` ("auto" at f32,
+    with the f32 preset), Solved with its objective within ``rel`` of
+    ``obj_ref`` (the f64 LU solve's) -- unless ``gate`` is False, when it is
+    only printed.  No LDLᵀ launch, and the Cholesky factor on every
+    iteration."""
+    import clarabel_tpu_torch as tt
+
+    P, q, A, b, cones = problem
+    settings = (tt.DefaultSettings.for_float32(verbose=False) if dtype == "float32"
+                else tt.DefaultSettings(verbose=False, direct_solve_method=method))
+    solver, sol, secs, chol, ldl = counted_solve(lambda: tt.DefaultSolver(
+        P, q, A, b, cones, settings, dtype=dtype, device="cuda"))
+    name = solver.info.linear_solver.name
+    err = abs(sol.obj_val - obj_ref) / max(1.0, abs(obj_ref))
+    log(f"  {label} {dtype} {name}: {sol.status.name}, {sol.iterations} iterations, "
+        f"obj {sol.obj_val:.12e} (LU f64 {obj_ref:.12e}, rel {err:.2e}), {secs * 1e3:.1f} ms, "
+        f"{chol} Cholesky factorizations" + ("" if gate else " (printed, not gated)"))
+    if gate:
+        assert np.all(np.isfinite(sol.x)) and sol.x.shape == (q.shape[0],)
+        assert name == method, f"{label}: {name} ran, not {method}"
+        assert sol.status == tt.SolverStatus.Solved, f"{label} {method} {dtype}: {sol.status.name}"
+        assert err <= rel, f"{label} {method} {dtype}: objective {err:.3e} relative from LU's"
+        assert ldl == 0 and chol >= sol.iterations
+    return dict(method=name, dtype=dtype, status=sol.status.name, iterations=sol.iterations,
+                obj=sol.obj_val, obj_lu_f64=obj_ref, rel_err=err, ms=secs * 1e3,
+                cholesky_calls=chol, gated=gate)
+
+
+def schur_batch(label, problem, method, f64_obj, f64_run):
+    """One f32 BatchSolver solve through "auto": every lane Solved, within
+    1e-3 relative of the f64 batch's objective on the same data."""
+    import clarabel_tpu_torch as tt
+
+    P, q, A, b, cones = problem
+    B = q.shape[0]
+    settings = tt.DefaultSettings.for_float32(verbose=False)
+    _, sol, secs, chol, ldl = counted_solve(lambda: tt.BatchSolver(
+        P, q, A, b, cones, settings, dtype="float32", device="cuda"))
+    its = sol.iterations
+    solved = sum(s == tt.SolverStatus.Solved for s in sol.statuses())
+    rel = np.abs(sol.obj_val - f64_obj) / np.maximum(1.0, np.abs(f64_obj))
+    # the start's factorization and one per iteration of the slowest lane
+    per_iteration = chol / (int(its.max()) + 1)
+    row = dict(B=B, method=method, solved=solved, iterations_min=int(its.min()),
+               iterations_max=int(its.max()), iterations_sum=int(its.sum()),
+               wall_ms=secs * 1e3, solves_per_s=B / secs,
+               ms_per_iteration=secs * 1e3 / max(int(its.max()), 1),
+               cholesky_calls=chol, cholesky_per_iteration=per_iteration,
+               max_rel_obj_vs_f64=float(rel.max()),
+               f64_auto=dict((k, f64_run[k]) for k in
+                             ("wall_ms", "solves_per_s", "ms_per_iteration", "iterations_max")))
+    log(f"  {label} f32 {method}: {solved}/{B} Solved, iterations {its.min()}-{its.max()} "
+        f"(sum {its.sum()}), wall {secs * 1e3:.1f} ms, {B / secs:.1f} solves/s, "
+        f"{row['ms_per_iteration']:.2f} ms/iteration (f64 \"auto\" in phase 3b: "
+        f"{f64_run['solves_per_s']:.1f} solves/s, {f64_run['ms_per_iteration']:.2f} ms/iteration), "
+        f"{chol} Cholesky calls = {per_iteration:.2f} per iteration, "
+        f"objective vs f64 max rel {rel.max():.2e}")
+    assert solved == B, f"{label} f32: {solved}/{B} Solved"
+    assert rel.max() <= 1e-3, f"{label} f32: objective {rel.max():.3e} relative from f64"
+    assert ldl == 0
+    return row
+
+
+def repeat_solves(problem, method, times=2):
+    """Solve ``problem`` ``times`` times on the card at f64 through
+    ``method``; the objectives and x must be equal bit for bit."""
+    import clarabel_tpu_torch as tt
+
+    P, q, A, b, cones = problem
+    settings = tt.DefaultSettings(verbose=False, direct_solve_method=method)
+    sols = [tt.DefaultSolver(P, q, A, b, cones, settings, device="cuda").solve()
+            for _ in range(times)]
+    same = all(s.obj_val == sols[0].obj_val and np.array_equal(s.x, sols[0].x) for s in sols)
+    log(f"  SOCP {method} x{times}: objectives {[s.obj_val for s in sols]}, "
+        f"bitwise equal: {same}")
+    assert same, f"SOCP {method}: repeated solves differ"
+    return dict(method=method, objectives=[s.obj_val for s in sols], bitwise_equal=same)
+
+
+def time_segment_sums(problem, B, reps=100):
+    """The SOC segment sum of cones.ops (a padded gather and a sum over its
+    last dimension) against ``index_add_``, on [B, m_soc] f64 data of the
+    problem's cone layout: (ms, index_add_ ms)."""
+    from clarabel_tpu_torch.cones import api, ops
+    from clarabel_tpu_torch.cones.layout import ConeLayout
+
+    layout = ConeLayout(api.collapse_cones(problem[4]))
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(B, layout.m_soc)),
+                        dtype=torch.float64, device="cuda")
+    seg = layout.index_tensors("cuda")["soc_seg"]
+    zeros = torch.zeros((B, layout.num_soc), dtype=x.dtype, device=x.device)
+    padded = cuda_ms(lambda: ops._soc_sum(layout, x), reps)
+    index_add = cuda_ms(lambda: zeros.clone().index_add_(-1, seg, x), reps)
+    err = float((ops._soc_sum(layout, x) - zeros.clone().index_add_(-1, seg, x)).abs().max())
+    log(f"  segment sum B={B} SOCs {layout.soc_dims[:3]}{'...' if layout.num_soc > 3 else ''}: "
+        f"padded {padded * 1e3:.1f} us, index_add_ {index_add * 1e3:.1f} us, max|Δ| {err:.1e}")
+    return dict(B=B, m_soc=layout.m_soc, num_soc=layout.num_soc, padded_ms=padded,
+                index_add_ms=index_add, max_abs_diff=err)
+
+
+def schur_phase(seed, report, f64_objectives):
+    """Phase 3c.  f64: the n = 1000 portfolio QP through "schur_diag",
+    "schur_lr" and "schur", the n = 500 SOCP through "schur_lr" and "schur",
+    each within 1e-7 relative of the LU solve of phases 2-3 ("schur" on
+    these zero-cone layouts only printed: the JAX package's tests do not
+    hold it to Solved there).  f32 "auto": the same two problems (through
+    "schur_diag" and "schur_lr") within 1e-3 of LU, and phase 3b's box-QP
+    and SOCP batches, every lane within 1e-3 of its f64 solve.  Then the
+    SOCP twice through "pallas" and twice through "schur_lr" at f64, bit
+    for bit equal, and the segment sums against index_add_."""
+    qp = portfolio_qp(1000, 50, seed)
+    socp = portfolio_socp(500, 50, seed + 1)
+    qp_lu, socp_lu = report["qp"]["obj_lu"], report["socp"]["obj_lu"]
+    out = {"single": []}
+    for method in ("schur_diag", "schur_lr", "schur"):
+        out["single"].append(dict(problem="QP", **schur_single(
+            "QP", qp, method, "float64", qp_lu, 1e-7, gate=method != "schur")))
+    for method in ("schur_lr", "schur"):
+        out["single"].append(dict(problem="SOCP", **schur_single(
+            "SOCP", socp, method, "float64", socp_lu, 1e-7, gate=method != "schur")))
+    out["single"].append(dict(problem="QP", **schur_single(
+        "QP", qp, "schur_diag", "float32", qp_lu, 1e-3)))
+    out["single"].append(dict(problem="SOCP", **schur_single(
+        "SOCP", socp, "schur_lr", "float32", socp_lu, 1e-3)))
+    out["batches"] = {}
+    for label, method in F32_BATCHES.items():
+        problem = BATCHES[label][0](seed)
+        out["batches"][label] = schur_batch(label, problem, method, f64_objectives[label],
+                                            report["batches"][label]["auto"])
+    out["repeat"] = [repeat_solves(socp, method) for method in ("pallas", "schur_lr")]
+    out["segment_sums"] = [time_segment_sums(socp, 1),
+                           time_segment_sums(BATCHES["SOCP B=1024"][0](seed), 1024)]
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", help="also write every measurement to this JSON file")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="list the operations without a deterministic implementation")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.deterministic:
+        # cuBLAS repeats its results only with a fixed workspace
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            code = run(args)
+        found = sorted({str(w.message).splitlines()[0] for w in caught
+                        if "deterministic" in str(w.message)})
+        # on standard error: the last line of standard output stays the result
+        print(f"operations without a deterministic implementation: {len(found)}",
+              file=sys.stderr)
+        for line in found:
+            print("  " + line, file=sys.stderr)
+        return code
+    return run(args)
+
+
+def run(args) -> int:
     import clarabel_tpu_torch as tt
     from clarabel_tpu_torch.kkt import build, pallas_ldl as pl
     from clarabel_tpu_torch.solver import full_precision
@@ -591,11 +789,16 @@ def main(argv=None) -> int:
         # ---- phase 3b: batches, launches counted from zero for each solve
         log("phase 3b: batches through BatchSolver")
         report["batches"] = {}
+        f64_objectives = {}
         for label, (make, variant) in BATCHES.items():
             problem = make(args.seed)
-            report["batches"][label] = check_batch(label, problem, variant)
+            report["batches"][label], f64_objectives[label] = check_batch(label, problem, variant)
             if label == "box QP B=512":
                 report["sequential_box_qp"] = sequential_yardstick(problem, 16)
+
+        # ---- phase 3c: the Schur-complement paths, at f64 and f32
+        log("phase 3c: Schur paths")
+        report["schur"] = schur_phase(args.seed, report, f64_objectives)
 
     # ---- phase 4: launch counts and the kernels line
     log(f"phase 4: launches on the main path {launches}")

@@ -1,14 +1,15 @@
 """clarabel_tpu_torch: the interior-point conic solver on PyTorch and CUDA.
 
 A port of ``clarabel_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
-module for module.  It carries the dense single-problem solve in f64
-over zero, nonnegative and second-order cones: Ruiz equilibration, the
+module for module.  It carries the dense single-problem solve over zero,
+nonnegative and second-order cones: Ruiz equilibration, the
 homogeneous-embedding IPM with Mehrotra predictor-corrector steps and
 Nesterov-Todd scalings, certificate-producing infeasibility detection, and
-two KKT backends — pivoted LU (``direct_solve_method="auto"`` or ``"lu"``)
-and the hand-written quasidefinite LDLᵀ CUDA kernels
-(``direct_solve_method="pallas"``, the name the JAX package gives its TPU
-kernel) -- and the batched solve of many problems of one structure
+its KKT backends -- pivoted LU (``direct_solve_method="lu"``, "auto" at f64),
+the hand-written quasidefinite LDLᵀ CUDA kernels (``"pallas"``, the name the
+JAX package gives its TPU kernel) and the Schur-complement Cholesky paths
+(``"schur"``, ``"schur_diag"`` and ``"schur_lr"``, "auto" at f32, the only
+f32 paths) -- and the batched solve of many problems of one structure
 (:class:`BatchSolver`), which runs the same loop on a leading batch
 dimension.
 
@@ -23,7 +24,7 @@ from .settings import DefaultSettings, SettingsError
 from .solver import DefaultInfo, DefaultSolution, DefaultSolver
 from .statuses import SolverStatus
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = [
     "DefaultSolver",

@@ -24,6 +24,18 @@ from .api import ConeSpec
 _GROUP_ORDER = (api.ZERO, api.NONNEGATIVE, api.SOC, api.EXP, api.POW, api.GENPOW, api.PSD)
 
 
+def _padded_segments(starts, dims):
+    """([k, widest] int index, [k, widest] bool mask) of k contiguous
+    segments: row i holds ``starts[i] + 0 .. dims[i] - 1``, padded with the
+    segment's row 0 and masked off there."""
+    widest = max(dims, default=0)
+    offs = np.arange(widest)
+    dims = np.asarray(dims, np.int64).reshape(-1, 1)
+    mask = offs < dims
+    idx = np.where(mask, np.asarray(starts, np.int64).reshape(-1, 1) + offs, 0)
+    return idx, mask
+
+
 class ConeLayout:
     """Immutable layout of a composite cone over ``m`` constraint rows."""
 
@@ -96,26 +108,33 @@ class ConeLayout:
         self.num_genpow = sum(1 for c in self.cones if c.kind == api.GENPOW)
         self.num_psd = sum(1 for c in self.cones if c.kind == api.PSD)
 
-        # per-cone segment ids over the whole (permuted) m-vector, used by
-        # equilibration rectification; plus a mask of entries whose cone
-        # requires scalar (per-cone-constant) equilibration
-        seg_all = np.zeros(self.m, np.int32)
+        # the cones whose rows equilibration rectifies to their mean
+        # (reference: NN and Zero cones keep elementwise scaling,
+        # nonnegativecone.rs:53-56, zerocone.rs:50-53; all others rectify to
+        # the per-cone mean, socone.rs:97-101 etc.): a mask over the
+        # (permuted) m-vector, and each row's index among those cones
         rect = np.zeros(self.m, bool)
+        rect_seg = np.zeros(self.m, np.int32)
+        rect_starts, rect_dims = [], []
         pos = {k: self.group_slices[k].start for k in _GROUP_ORDER}
-        cone_id = 0
         for c in self.cones:
             k, w = c.kind, c.nvars
-            seg_all[pos[k] : pos[k] + w] = cone_id
-            # reference: NN and Zero cones keep elementwise scaling
-            # (nonnegativecone.rs:53-56, zerocone.rs:50-53); all others
-            # rectify to the per-cone mean (socone.rs:97-101 etc.)
             if k not in (api.ZERO, api.NONNEGATIVE):
                 rect[pos[k] : pos[k] + w] = True
+                rect_seg[pos[k] : pos[k] + w] = len(rect_dims)
+                rect_starts.append(pos[k])
+                rect_dims.append(w)
             pos[k] += w
-            cone_id += 1
-        self.cone_seg = seg_all
         self.rectify_mask = rect
-        self.num_cones = len(self.cones)
+        self.rect_seg = rect_seg
+        self.rect_dims = tuple(rect_dims)
+
+        # segment sums in a fixed order: each segment's rows gathered into a
+        # row of a [segments, widest] index, its pads masked (the SOCs'
+        # rows within the SOC group; the rectified cones' within the
+        # m-vector)
+        self.soc_pad_idx, self.soc_pad_mask = _padded_segments(self.soc_head_idx, soc_dims)
+        self.rect_pad_idx, self.rect_pad_mask = _padded_segments(rect_starts, rect_dims)
 
         self._device_index = {}
 
@@ -134,9 +153,25 @@ class ConeLayout:
                 "soc_seg": as_long(self.soc_seg),
                 "soc_head_idx": as_long(self.soc_head_idx),
                 "soc_head_mask": as_bool(self.soc_head_mask),
-                "cone_seg": as_long(self.cone_seg),
+                "soc_pad_idx": as_long(self.soc_pad_idx),
+                "soc_pad_mask": as_bool(self.soc_pad_mask),
                 "rectify_mask": as_bool(self.rectify_mask),
+                "rect_seg": as_long(self.rect_seg),
+                "rect_pad_idx": as_long(self.rect_pad_idx),
+                "rect_pad_mask": as_bool(self.rect_pad_mask),
+                "rect_dims": as_long(self.rect_dims),
             }
+        return self._device_index[key]
+
+    def zero_row_mask(self, dtype, device) -> torch.Tensor:
+        """1 on the zero-cone (equality) rows, which lead the row order, and
+        0 elsewhere: an [m] tensor of ``dtype`` on ``device``, made once per
+        dtype and device."""
+        key = (str(device), dtype)
+        if key not in self._device_index:
+            mask = torch.zeros(self.m, dtype=dtype, device=device)
+            mask[: self.n_zero] = 1.0
+            self._device_index[key] = mask
         return self._device_index[key]
 
     def __hash__(self):

@@ -3,9 +3,12 @@
 PyTorch port of the symmetric branches of ``clarabel_tpu/cones/ops.py``.
 Every operation is a plain function over the full permuted slack vector:
 contiguous group slices handle the per-kind math and heterogeneous
-second-order cones are vectorized with segment sums (``index_add_``), so the
-same code serves one cone or thousands.  Branches are ``torch.where``, as in
-the JAX package, so nothing here waits for the device.
+second-order cones are vectorized with segment sums, so the same code serves
+one cone or thousands.  A segment sum gathers each cone's rows into a padded
+[..., cones, widest] tensor and sums its last dimension in a fixed order, so
+a solve on the card repeats bit for bit (an ``index_add_`` on CUDA adds in
+no fixed order).  Branches are ``torch.where``, as in the JAX package, so
+nothing here waits for the device.
 
 Every function takes vectors ``[..., k]`` over any leading batch dimensions
 (none for one problem, ``[B]`` for a batch): the cone index is always the
@@ -17,6 +20,8 @@ yet; the solver rejects those cones before any of this runs.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -62,10 +67,24 @@ def _idx(layout: ConeLayout, device):
 # =================================================================
 
 
+def _segment_sum(x, idx, mask):
+    """Sum of each padded segment's entries of ``x`` over its last
+    dimension, ``x [..., k]`` -> ``[..., segments]``, in a fixed order: on
+    the card one reduction over the padded dimension; on the CPU left to
+    right, as a sequential scatter-add sums, which keeps the CPU results
+    within the parity tests' bounds of the JAX package's."""
+    g = torch.where(mask, x[..., idx], 0.0)
+    if g.is_cuda:
+        return g.sum(dim=-1)
+    out = torch.zeros(g.shape[:-1], dtype=g.dtype, device=g.device)
+    for j in range(g.shape[-1]):
+        out = out + g[..., j]
+    return out
+
+
 def _soc_sum(layout, x):
-    seg = _idx(layout, x.device)["soc_seg"]
-    out = torch.zeros(x.shape[:-1] + (layout.num_soc,), dtype=x.dtype, device=x.device)
-    return out.index_add_(-1, seg, x)
+    ix = _idx(layout, x.device)
+    return _segment_sum(x, ix["soc_pad_idx"], ix["soc_pad_mask"])
 
 
 def _heads(layout, x):
@@ -255,6 +274,42 @@ def hs_dense(layout: ConeLayout, state, dtype, device, batch=()):
         H[..., sl, sl] = blk
 
     return H
+
+
+def hs_diag(layout: ConeLayout, state, dtype, device, batch=()):
+    """diag(Hs) [..., m] for diagonal-Hs layouts (zero/NN cones only) --
+    the structured Schur path needs no other Hs data.  reference:
+    nonnegativecone.rs:96-101 (diag Hs = w²), zerocone.rs (Hs = 0)."""
+    h = torch.zeros(tuple(batch) + (layout.m,), dtype=dtype, device=device)
+    if layout.n_nn:
+        h[..., layout.slice_of(api.NONNEGATIVE)] = state["nn_w"] ** 2
+    return h
+
+
+def hs_diag_lowrank(layout: ConeLayout, state, dtype, device, batch=()):
+    """Diagonal plus per-SOC rank-1 form of Hs for the Woodbury Schur path
+    (zero/NN/SOC layouts): ``(h [..., m], U [..., m, k])`` with
+    Hs = diag(h) + U Uᵀ exactly, k = ``layout.num_soc``.
+
+    Each SOC's NT block WᵀW = η²(2wwᵀ − J) (socone.rs:227-245) is the signed
+    diagonal η²·(−1, +1, …, +1) plus (√2ηw)(√2ηw)ᵀ: U's column c is √2·η_c·w_c
+    on cone c's rows and zero elsewhere.  Each cone's Woodbury capacitance
+    1 + cᵀD⁻¹c = −1 analytically (w is normalized), so the correction is
+    perfectly conditioned.
+    """
+    h = hs_diag(layout, state, dtype, device, batch)
+    k = layout.num_soc
+    U = torch.zeros(tuple(batch) + (layout.m, k), dtype=dtype, device=device)
+    if k:
+        sl = layout.slice_of(api.SOC)
+        ix = _idx(layout, device)
+        seg = ix["soc_seg"]
+        w, eta = state["soc_w"], state["soc_eta"]
+        eta2 = (eta**2)[..., seg]
+        h[..., sl] = torch.where(ix["soc_head_mask"], -eta2, eta2)
+        rows = torch.arange(sl.start, sl.stop, device=device)
+        U[..., rows, seg] = math.sqrt(2.0) * eta[..., seg] * w
+    return h, U
 
 
 def mul_hs(layout: ConeLayout, state, x):
@@ -529,10 +584,6 @@ def rectify_equilibration(layout: ConeLayout, e):
     if not layout.rectify_mask.any():
         return torch.ones_like(e), False
     ix = _idx(layout, e.device)
-    seg = ix["cone_seg"]
-    zeros = torch.zeros(e.shape[:-1] + (layout.num_cones,), dtype=e.dtype, device=e.device)
-    sums = zeros.index_add(-1, seg, e)
-    counts = zeros.index_add(-1, seg, torch.ones_like(e))
-    mean = sums / torch.clamp(counts, min=1.0)
-    delta = torch.where(ix["rectify_mask"], mean[..., seg] / e, 1.0)
+    mean = _segment_sum(e, ix["rect_pad_idx"], ix["rect_pad_mask"]) / ix["rect_dims"]
+    delta = torch.where(ix["rectify_mask"], mean[..., ix["rect_seg"]] / e, 1.0)
     return delta, True

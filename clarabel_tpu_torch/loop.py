@@ -1,6 +1,7 @@
 """The interior-point iteration as a host loop over device tensors.
 
-PyTorch port of the f64 paths of ``clarabel_tpu/loop.py``: the reference
+PyTorch port of ``clarabel_tpu/loop.py`` at f64, and at f32 through the
+Schur-complement KKT paths ("schur_diag", "schur_lr"): the reference
 predictor-corrector loop and its strategy-checkpoint state machine
 (reference: src/solver/core/solver.rs:242-465, 525-666), the residual/info
 bookkeeping (implementations/default/residuals.rs, info.rs) and the
@@ -424,19 +425,43 @@ def _resolved_kkt_method(layout, settings, dtype, n, use_pallas=False):
     return method
 
 
+def _demoted_kkt_method(layout, method):
+    """The method ``_kkt_prepare`` runs: the structured Schur paths only
+    represent zero/NN (and, for "schur_lr", SOC) scalings, so an explicit
+    request on another layout falls back to "lu", as the JAX package's
+    ``_kkt_prepare`` does (clarabel_tpu/loop.py:715-723)."""
+    has_nonsym_or_psd = (
+        layout.num_exp or layout.num_pow or layout.num_genpow or layout.num_psd
+    )
+    if method == "schur_lr" and has_nonsym_or_psd:
+        return "lu"
+    if method == "schur_diag" and (has_nonsym_or_psd or layout.m_soc):
+        return "lu"
+    return method
+
+
 def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state):
     """Build KKT factors for the current scaling state.
 
-    Returns (factors, K_true, ok) with K_true the dense unregularized KKT
-    matrix for iterative refinement.
+    Returns (factors, K_true, ok) with K_true the unregularized KKT matrix
+    for iterative refinement: dense, or a matvec callable on the structured
+    Schur paths, which never materialize it.
     """
-    method = _resolved_kkt_method(layout, settings, dtype, n, use_pallas)
-    if method not in ("lu", "pallas") or dtype != torch.float64:
-        raise NotImplementedError(
-            f"the {method!r} KKT backend at {dtype} is not ported "
-            "(ROADMAP.md Queue 1 items 5 and 12)"
-        )
-    Hs = cone_ops.hs_dense(layout, scaling_state, dtype, P.device, P.shape[:-2])
+    method = _demoted_kkt_method(
+        layout, _resolved_kkt_method(layout, settings, dtype, n, use_pallas)
+    )
+    batch = P.shape[:-2]
+    if method == "schur_diag":
+        # diag(Hs) feeds the weighted Gram Schur factor; the zero cones
+        # lead the row order
+        hs_d = cone_ops.hs_diag(layout, scaling_state, dtype, P.device, batch)
+        eq_mask = layout.zero_row_mask(dtype, P.device) if layout.n_zero else None
+        return kkt_dense.prepare_schur_diag(P, A, hs_d, settings, eq_mask)
+    if method == "schur_lr":
+        h, U = cone_ops.hs_diag_lowrank(layout, scaling_state, dtype, P.device, batch)
+        return kkt_dense.prepare_schur_lowrank(P, A, h, U, settings, n_eq=layout.n_zero)
+
+    Hs = cone_ops.hs_dense(layout, scaling_state, dtype, P.device, batch)
     K, K_reg = kkt_dense.assemble(P, A, Hs, settings)
     factors, ok = _make_factor_fn(layout, settings, dtype, n, use_pallas, method)(K_reg)
     return factors, K, ok
@@ -444,13 +469,16 @@ def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state):
 
 def _make_factor_fn(layout, settings, dtype, n, use_pallas=False, method=None):
     """Select the dense factorization backend: the quasidefinite LDLᵀ
-    kernels for "pallas", pivoted LU otherwise."""
+    kernels for "pallas", the Schur-complement Cholesky for "schur", pivoted
+    LU otherwise ("lu" and its aliases "dense", "qdldl" and "faer")."""
     if method is None:
         method = _resolved_kkt_method(layout, settings, dtype, n, use_pallas)
     if method == "pallas":
         from .kkt import pallas_ldl
 
         return pallas_ldl.make_ldl_factor(n, layout.m, settings, dtype)
+    if method == "schur":
+        return lambda K_reg: kkt_dense.factor_schur(K_reg, n)
     return kkt_dense.factor
 
 
@@ -667,6 +695,18 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             is_combined=False, scaling=st.scaling,
         )
         sigma = (1.0 - alpha_aff) ** 3  # solver.rs:543-545
+        if dtype == torch.float32:
+            # the JAX package's f32 centering floor: Mehrotra's σ can aim
+            # at a σμ below both what tol_gap needs and what f32 iterates
+            # can represent, and the steps then collapse.  Aim no lower
+            # than a quarter of tol_gap_abs/(deg+1), on converging
+            # problems only (ktratio < 0.1: an infeasible one diverges to
+            # its certificate).  f64 keeps the reference's σ.
+            mu_floor = settings.tol_gap_abs / (layout.degree + 1) * 0.25
+            sigma_clamped = torch.clamp(
+                torch.maximum(sigma, torch.clamp(mu_floor / mu, max=1.0)), max=1.0
+            )
+            sigma = torch.where(st.ktratio < 0.1, sigma_clamped, sigma)
 
         # reduced Mehrotra correction on the first iteration
         # (solver.rs:380-382)

@@ -1,13 +1,14 @@
 """Scenario-batch data parallelism: B problems of one structure, one solve.
 
-PyTorch port of ``clarabel_tpu/parallel/batch.py`` on one device, at f64,
-over zero, nonnegative and second-order cones.  B conic programs with the
-same cones and shapes but different numbers (scenarios, MPC horizons,
-portfolio draws) solve as one run of the IPM loop on tensors with a leading
-batch dimension: every factorization factors the B KKT matrices at once
-(batched pivoted LU, or one launch of the hand-written LDLᵀ kernel for all
-of them), and the host reads the device as often as for one problem.
-Problems that have converged freeze while the others run on, as under the
+PyTorch port of ``clarabel_tpu/parallel/batch.py`` on one device over
+zero, nonnegative and second-order cones: at f64, and at f32 where the KKT
+method is a structured Schur path ("auto" picks "schur_diag" or
+"schur_lr").  B conic programs with the same cones and shapes but different
+numbers (scenarios, MPC horizons, portfolio draws) solve as one run of the
+IPM loop on tensors with a leading batch dimension: every factorization
+factors the B KKT matrices at once (batched pivoted LU or Cholesky, or one
+launch of the hand-written LDLᵀ kernel for all of them), and the host reads
+the device as often as for one problem.  Problems that have converged freeze while the others run on, as under the
 JAX package's ``jax.vmap``, so each problem's iterations and history equal
 its solve alone; the wall time is that of the slowest problem.
 
@@ -33,6 +34,7 @@ from ..solver import (
     build_solve_core,
     check_ported,
     check_ported_cones,
+    check_ported_dtype,
     full_precision,
     resolve_device,
 )
@@ -148,12 +150,14 @@ class BatchSolver:
 
         self.B, self.n, self.m = B, n, m
         self._p_is_zero = not np.any(P)
+        use_pallas = self._device.type == "cuda"
+        check_ported_dtype(self._layout, self.settings, self._dtype, n, use_pallas)
+        dtype = getattr(torch, self._dtype)
 
-        put = lambda v: torch.as_tensor(v, dtype=torch.float64, device=self._device)
+        put = lambda v: torch.as_tensor(v, dtype=dtype, device=self._device)
         self._P, self._q, self._A, self._b = put(P), put(q), put(A), put(b)
         self._solve_fn = build_solve_core(
-            self._layout, self.settings, n, self._p_is_zero, torch.float64,
-            use_pallas=self._device.type == "cuda",
+            self._layout, self.settings, n, self._p_is_zero, dtype, use_pallas=use_pallas,
         )
 
     # ------------------------------------------------------------------

@@ -15,7 +15,8 @@ Problems solve as
 The solve runs on a CUDA device unless the caller passes ``device="cpu"``;
 without a CUDA device and without that argument the constructor raises.
 f64 solves stay on the card, which runs f64 natively (the JAX package sends
-them to the host CPU instead).
+them to the host CPU instead).  ``dtype="float32"`` runs where the KKT
+method is a structured Schur path ("auto" picks one on the ported cones).
 """
 
 from __future__ import annotations
@@ -32,15 +33,19 @@ from . import equilibration, presolve
 from .cones import api
 from .cones.layout import ConeLayout
 from .infbound import get_infinity
-from .loop import _resolved_kkt_method, run_ipm
+from .kkt.dense import _amax0
+from .loop import _demoted_kkt_method, _resolved_kkt_method, run_ipm
 from .settings import DefaultSettings
 from .statuses import SolverStatus
 from .timers import Timers
 
-#: direct_solve_method values this port runs, and the ROADMAP items that
-#: port the others
-_PORTED_METHODS = ("auto", "lu", "pallas")
+#: direct_solve_method values this port runs ("dense", "qdldl" and "faer"
+#: are LU aliases), and the ROADMAP items that port the others
+_PORTED_METHODS = ("auto", "lu", "pallas", "schur", "schur_diag", "schur_lr",
+                   "dense", "qdldl", "faer")
 _METHOD_ITEMS = {"multifrontal": 14}
+#: the methods that run at f32: the others need the compensated f32 stack
+_F32_METHODS = ("schur_diag", "schur_lr")
 #: cone kinds this port runs, and the ROADMAP items that port the others
 _PORTED_CONES = (api.ZERO, api.NONNEGATIVE, api.SOC)
 _CONE_ITEMS = {api.EXP: 10, api.POW: 10, api.GENPOW: 10, api.PSD: 11}
@@ -217,13 +222,6 @@ def full_precision():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def _amax0(v):
-    """``jnp.max(jnp.abs(v), initial=0.0)`` over the last dimension."""
-    if v.shape[-1] == 0:
-        return torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
-    return torch.abs(v).amax(dim=-1)
-
-
 def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
                      n: int, p_is_zero: bool, dtype: torch.dtype,
                      use_pallas: bool = False):
@@ -300,24 +298,37 @@ def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
     return solve_core
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item):
     return NotImplementedError(
         f"{what} is not ported to clarabel_tpu_torch yet (ROADMAP.md Queue 1 item {item})"
     )
 
 
 def check_ported(settings: DefaultSettings, dtype: Optional[str]) -> str:
-    """The dtype name a solve runs at ("float64"); raises for a dtype or a
-    ``direct_solve_method`` this port does not run yet."""
+    """The dtype name a solve runs at ("float64" unless given); raises for a
+    dtype or a ``direct_solve_method`` this port does not run yet."""
     dtype = dtype or "float64"
-    if dtype == "float32":
-        raise _not_ported("dtype='float32' (the mixed-precision f32 stack)", 12)
-    if dtype != "float64":
+    if dtype not in ("float64", "float32"):
         raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
     method = settings.direct_solve_method
     if method not in _PORTED_METHODS:
         raise _not_ported(f"direct_solve_method={method!r}", _METHOD_ITEMS.get(method, 5))
     return dtype
+
+
+def check_ported_dtype(layout: ConeLayout, settings: DefaultSettings, dtype: str,
+                       n: int, use_pallas: bool) -> None:
+    """Raises for an f32 solve whose KKT method, resolved and demoted as
+    ``_kkt_prepare`` runs it, is not a structured Schur path: f32 through
+    "lu", "pallas", "schur" or an LU alias needs the compensated f32 stack."""
+    if dtype != "float32":
+        return
+    method = _demoted_kkt_method(layout, _resolved_kkt_method(
+        layout, settings, torch.float32, n, use_pallas))
+    if method not in _F32_METHODS:
+        raise _not_ported(
+            f"dtype='float32' through the {method!r} KKT method (the compensated "
+            "f32 refinement and the double-float LU)", "12b")
 
 
 def check_ported_cones(cones_int) -> None:
@@ -330,7 +341,8 @@ def check_ported_cones(cones_int) -> None:
 class DefaultSolver:
     """Interior-point solver for convex conic programs with quadratic
     objectives (reference: DefaultSolver, default/solver.rs:19-126), on the
-    dense f64 path with zero, nonnegative and second-order cones."""
+    dense path with zero, nonnegative and second-order cones: at f64 through
+    every ported KKT method, at f32 through "schur_diag" and "schur_lr"."""
 
     def __init__(
         self,
@@ -430,6 +442,8 @@ class DefaultSolver:
         self._b = put(b)
 
         self._use_pallas = self._device.type == "cuda"
+        check_ported_dtype(self._layout, self.settings, self._dtype, self._n_int,
+                           self._use_pallas)
 
         with self.timers.scope("kktinit"):
             self._solve_fn = build_solve_core(

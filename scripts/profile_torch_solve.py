@@ -5,8 +5,10 @@ Solves the portfolio problems of chip_smoke.py (QP: n = 1000, k = 50,
 N = 2001; SOCP: n = 500, k = 50, N = 1552; the small QP: n = 100, k = 10,
 N = 201, whose "pallas" solve runs the unblocked kernel) and, through
 BatchSolver, the JAX bench's box-QP batch (n = 32, m = 64, B = 2048, KKT
-N = 96) once through each KKT backend ("pallas" and "auto") under
-torch.profiler, after one untraced
+N = 96) once through each f64 KKT backend ("pallas" and "auto"), then the
+box-QP batch and the JAX bench's SOCP batch (n = 32, one
+SecondOrderConeT(33), B = 1024) at f32 through "auto" (the Schur paths
+"schur_diag" and "schur_lr"), each under torch.profiler after one untraced
 warm-up solve, and prints for each: the wall time, the summed device time
 of the kernels, the device's idle share (1 - device time / wall time; the
 kernels of one stream do not overlap), and the kernels that take the most
@@ -36,11 +38,14 @@ import clarabel_tpu_torch as tt  # noqa: E402
 from clarabel_tpu_torch.solver import full_precision  # noqa: E402
 
 
-def profile_solve(problem, method, top, solver_type=tt.DefaultSolver):
+def profile_solve(problem, method, top, solver_type=tt.DefaultSolver, dtype="float64"):
     P, q, A, b, cones = problem
-    settings = tt.DefaultSettings(verbose=False, direct_solve_method=method)
-    solver_type(P, q, A, b, cones, settings, device="cuda").solve()  # warm-up
-    solver = solver_type(P, q, A, b, cones, settings, device="cuda")
+    settings = (tt.DefaultSettings.for_float32(verbose=False, direct_solve_method=method)
+                if dtype == "float32"
+                else tt.DefaultSettings(verbose=False, direct_solve_method=method))
+    make = lambda: solver_type(P, q, A, b, cones, settings, dtype=dtype, device="cuda")
+    make().solve()  # warm-up
+    solver = make()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -57,7 +62,7 @@ def profile_solve(problem, method, top, solver_type=tt.DefaultSolver):
     else:
         status, iterations = sol.status.name, sol.iterations
     return dict(
-        method=method, status=status, iterations=iterations,
+        method=method, dtype=dtype, status=status, iterations=iterations,
         wall_ms=wall * 1e3, device_ms=device_us / 1e3,
         idle_share=1.0 - device_us / 1e6 / wall,
         kernels=[dict(name=e.key[:90], calls=e.count,
@@ -102,22 +107,26 @@ def main():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(f"card: {card}")
+    # label -> (problem, solver, [(method, dtype), ...])
+    f64 = [("pallas", "float64"), ("auto", "float64")]
     problems = {
-        "qp_n1000": (chip_smoke.portfolio_qp(1000, 50, args.seed), tt.DefaultSolver),
-        "socp_n500": (chip_smoke.portfolio_socp(500, 50, args.seed + 1), tt.DefaultSolver),
-        "qp_n100": (chip_smoke.portfolio_qp(100, 10, args.seed + 2), tt.DefaultSolver),
-        # the batch of chip_smoke.py's "box QP B=2048"
+        "qp_n1000": (chip_smoke.portfolio_qp(1000, 50, args.seed), tt.DefaultSolver, f64),
+        "socp_n500": (chip_smoke.portfolio_socp(500, 50, args.seed + 1), tt.DefaultSolver, f64),
+        "qp_n100": (chip_smoke.portfolio_qp(100, 10, args.seed + 2), tt.DefaultSolver, f64),
+        # the batches of chip_smoke.py's "box QP B=2048" and "SOCP B=1024"
         "box_qp_batch_B2048": (chip_smoke.box_qp_batch(2048, 32, args.seed + 1),
-                               tt.BatchSolver),
+                               tt.BatchSolver, f64 + [("auto", "float32")]),
+        "socp_batch_B1024": (chip_smoke.socp_batch(1024, 32, args.seed + 2),
+                             tt.BatchSolver, [("auto", "float32")]),
     }
     report = dict(card=card, runs=[])
     with full_precision():
-        for label, (problem, solver_type) in problems.items():
-            for method in ("pallas", "auto"):
-                r = profile_solve(problem, method, args.top, solver_type)
+        for label, (problem, solver_type, runs) in problems.items():
+            for method, dtype in runs:
+                r = profile_solve(problem, method, args.top, solver_type, dtype)
                 r["problem"] = label
                 report["runs"].append(r)
-                print(f"{label} {method}: {r['status']} in {r['iterations']} iterations, "
+                print(f"{label} {method} {dtype}: {r['status']} in {r['iterations']} iterations, "
                       f"wall {r['wall_ms']:.1f} ms, device {r['device_ms']:.1f} ms, "
                       f"idle {100 * r['idle_share']:.1f}%")
                 for k in r["kernels"]:

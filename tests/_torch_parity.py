@@ -13,6 +13,7 @@ import dataclasses
 import functools
 
 import numpy as np
+import torch
 
 import clarabel_tpu as ct
 import clarabel_tpu.kkt.pallas_ldl as jax_pallas_ldl
@@ -24,6 +25,12 @@ import test_basic_qp
 import test_basic_socp
 import test_basic_eq_and_unconstrained as test_basic_eq
 import test_batch
+
+
+# Every test_torch_* module imports this one.  The test workers share the
+# CPU's cores, and the problems here are small: one intra-op thread per
+# worker keeps PyTorch from oversubscribing the cores.
+torch.set_num_threads(1)
 
 
 def _lp_primal_infeasible():
@@ -78,7 +85,7 @@ def _eq(P, q, A, b, cones):
     return lambda: (P, np.asarray(q, float), A, np.asarray(b, float), cones)
 
 
-def _portfolio_qp(n=24, k=3, seed=0):
+def _portfolio_qp(n=12, k=3, seed=0):
     """Markowitz long-only portfolio: min ½xᵀ(γΣ)x − μᵀx, 1ᵀx = 1, x ≥ 0,
     Σ = F Fᵀ + D (Boyd & Vandenberghe §4.4.1)."""
     rng = np.random.default_rng(seed)
@@ -91,7 +98,7 @@ def _portfolio_qp(n=24, k=3, seed=0):
     return P, -mu, A, b, [ct.ZeroConeT(1), ct.NonnegativeConeT(n)]
 
 
-def _portfolio_socp(n=16, k=3, sigma=0.25, seed=1):
+def _portfolio_socp(n=8, k=3, sigma=0.25, seed=1):
     """Risk-constrained portfolio: max μᵀx s.t. 1ᵀx = 1, x ≥ 0,
     ‖[Fᵀx; D^{1/2}x]‖₂ ≤ σ."""
     rng = np.random.default_rng(seed)
@@ -108,6 +115,17 @@ def _portfolio_socp(n=16, k=3, sigma=0.25, seed=1):
     b = np.concatenate([[1.0], np.zeros(n), [sigma], np.zeros(k + n)])
     cones = [ct.ZeroConeT(1), ct.NonnegativeConeT(n), ct.SecondOrderConeT(1 + k + n)]
     return np.zeros((n, n)), -mu, A, b, cones
+
+
+def _random_socp(rng, n=8, p=2, n_nn=4, soc=5):
+    """The JAX package's test_schur_lowrank.py problem: zero, NN and one SOC."""
+    P = np.eye(n) * 0.5
+    q = rng.standard_normal(n)
+    A1 = rng.standard_normal((p, n))
+    A = np.vstack([A1, -np.eye(n)[:n_nn], rng.standard_normal((soc, n))])
+    b = np.concatenate([A1 @ np.ones(n), np.ones(n_nn) * 5, np.zeros(soc)])
+    b[p + n_nn] = 10.0
+    return P, q, A, b, [ct.ZeroConeT(p), ct.NonnegativeConeT(n_nn), ct.SecondOrderConeT(soc)]
 
 
 PROBLEMS = {
@@ -292,26 +310,27 @@ def _direction(v):
     return v / max(float(np.max(np.abs(v), initial=0.0)), 1e-300)
 
 
-def assert_port_matches_reference(name, method):
+def assert_port_matches_reference(name, method, pair=("auto", "pallas")):
     """Solve problem ``name`` through both packages and hold the port to
     the reference: the same status and KKT backend name, and
-    :func:`assert_lane_matches`."""
+    :func:`assert_lane_matches` with the backend spread taken between the
+    two methods of ``pair`` in each package."""
     ref, got = reference(name, method), port(name, method)
     assert got.solution.status == ref.solution.status
     assert got.info.linear_solver.name == ref.info.linear_solver.name
-    methods = ("auto", "pallas")
     assert_lane_matches(
         lane_of(ref), lane_of(got),
-        [lane_of(reference(name, m)) for m in methods],
-        [lane_of(port(name, m)) for m in methods],
+        [lane_of(reference(name, m)) for m in pair],
+        [lane_of(port(name, m)) for m in pair],
     )
 
 
 def assert_lane_matches(ref, got, ref_pair, got_pair):
     """Hold the port's solution ``got`` to the reference's ``ref``, each a
     :class:`Lane`; ``ref_pair`` and ``got_pair`` are the same problem's
-    solutions through the pivoted LU ("auto") and the LDLᵀ ("pallas") in
-    each package.
+    solutions through two KKT backends in each package: the pivoted LU
+    ("auto") and the LDLᵀ ("pallas"), or one method twice, which leaves no
+    spread.
 
     Always: the same status.  Solved: x, z and s within 1e-7 of the
     reference's inf-norm (at least 1) and the objectives within 1e-9
@@ -319,10 +338,10 @@ def assert_lane_matches(ref, got, ref_pair, got_pair):
 
     What comes out of an ill-conditioned KKT system is held to the
     packages' own reproducibility: the *spread*, the larger of the two
-    packages' differences between their own two KKT backends (pivoted LU
-    and the LDLᵀ) on the same problem.  The backends sum in different
-    orders, and near the end of a solve -- or all along, for a certificate
-    of infeasibility -- cond(K) amplifies that rounding.  Where the
+    packages' differences between their own two KKT backends on the same
+    problem.  The backends sum in different orders, and near the end of a
+    solve -- or all along, for a certificate of infeasibility -- cond(K)
+    amplifies that rounding.  Where the
     reference's backends agree on the iteration count, the port's count is
     equal; every history row before the terminating one lies within
     1e-6·|ref| + 1e-10 + 2·spread of the reference's (1e-10 is 100x below

@@ -1,7 +1,7 @@
 """The port's BatchSolver against the JAX package's, lane by lane, on the
-portfolio and second-order-cone batches: the Markowitz QP and the
-risk-constrained SOCP of tests/_torch_parity.py with B = 3 draws of the
-expected returns over one covariance, and the JAX bench's batched SOCP
+portfolio and second-order-cone batches: the Markowitz QP (n = 12) and the
+risk-constrained SOCP (n = 8) of tests/_torch_parity.py with B = 3 draws of
+the expected returns over one covariance, and the JAX bench's batched SOCP
 (bench.py:156-167) at n = 6, SecondOrderConeT(7), B = 4, through
 ``direct_solve_method`` "auto" and "pallas", both packages at f64 on the
 CPU."""

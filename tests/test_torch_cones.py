@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_parity  # noqa: F401  (pins torch's threads)
 import clarabel_tpu as ct
 from clarabel_tpu.cones import ops as jops
 from clarabel_tpu.cones.layout import ConeLayout as JaxLayout

@@ -14,6 +14,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import _torch_parity  # noqa: F401  (pins torch's threads)
 import clarabel_tpu as ct
 import clarabel_tpu_torch as tt
 from clarabel_tpu_torch import convert
@@ -74,12 +75,19 @@ def test_device_defaults_to_cuda(monkeypatch):
         tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(verbose=False))
 
 
+def _f32(method):
+    return dict(dtype="float32", settings=tt.DefaultSettings.for_float32(
+        verbose=False, direct_solve_method=method))
+
+
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(dtype="float32"), "item 12"),
-    (dict(settings=tt.DefaultSettings(direct_solve_method="schur_lr")), "item 5"),
+    # f32 runs only through the structured Schur paths
+    (_f32("lu"), "item 12b"),
+    (_f32("pallas"), "item 12b"),
+    (_f32("schur"), "item 12b"),
     (dict(settings=tt.DefaultSettings(direct_solve_method="multifrontal")), "item 14"),
     # BatchSolver: a batch of two copies of the same problem
-    (dict(batch=True, dtype="float32"), "item 12"),
+    (dict(batch=True, **_f32("lu")), "item 12b"),
     (dict(batch=True, mesh=object()), "item 16"),
     (dict(batch=True, warm_start=(np.zeros((2, 2)), np.ones((2, 5)), np.ones((2, 5)))),
      "item 18"),

@@ -22,6 +22,7 @@ import torch
 
 import clarabel_tpu.kkt.pallas_ldl as jl
 from clarabel_tpu.settings import DefaultSettings as JaxSettings
+import _torch_parity  # noqa: F401  (pins torch's threads)
 from clarabel_tpu_torch import convert
 from clarabel_tpu_torch.kkt import pallas_ldl as tl
 
@@ -41,9 +42,10 @@ def _kkt_batch(B, n, m, dtype, seed):
 # pivot (row 0) and a zero pivot (row 5) in the + block, and a positive pivot
 # in the - block (row n + 2).
 PIVOTS = [(0, -1.0), (5, 0.0), (22, 0.5)]
-# At n = m = 80: rows 0, 31, 32 and 63 (+ block) sit on the edges of the
-# port's 32-column panels, rows 127 and 128 (- block) on the edge of the
-# TPU kernel's 128-column panel too.
+# At n = 64, m = 65 (N = 129, the least N with a second 128-column TPU
+# panel): rows 0, 31, 32 and 63 (+ block) sit on the edges of the port's
+# 32-column panels, rows 127 and 128 (- block) on the edge of the TPU
+# kernel's 128-column panel too.
 PANEL_EDGE_PIVOTS = [(0, -1.0), (31, 0.0), (32, -1.0), (63, 0.0), (127, 0.5), (128, 0.0)]
 # Shared memory one block may use on the H100 (cudaDevAttrMaxSharedMemoryPerBlockOptin).
 H100_SMEM = 232448
@@ -132,15 +134,14 @@ def test_factor_and_solve_match_pallas(n, m, variant, dtype):
     assert np.abs(resid).max() <= (1e-10 if dtype == np.float64 else 1e-3) * scale
 
 
-@pytest.mark.parametrize("variant,n,pivots", [
-    pytest.param("unrolled", 20, PIVOTS, id="unrolled"),
-    pytest.param("fori", 20, PIVOTS, id="fori"),
-    pytest.param("blocked", 20, PIVOTS, id="blocked"),
-    pytest.param("blocked", 80, PANEL_EDGE_PIVOTS, id="blocked-panel-edges"),
-    pytest.param("fori", 128, SWITCH_PIVOTS, id="fori-n256-around-column-16"),
+@pytest.mark.parametrize("variant,n,m,pivots", [
+    pytest.param("unrolled", 20, 20, PIVOTS, id="unrolled"),
+    pytest.param("fori", 20, 20, PIVOTS, id="fori"),
+    pytest.param("blocked", 20, 20, PIVOTS, id="blocked"),
+    pytest.param("blocked", 64, 65, PANEL_EDGE_PIVOTS, id="blocked-panel-edges"),
+    pytest.param("fori", 128, 128, SWITCH_PIVOTS, id="fori-n256-around-column-16"),
 ])
-def test_dynamic_regularization_fires_on_the_same_pivots(variant, n, pivots):
-    m = n
+def test_dynamic_regularization_fires_on_the_same_pivots(variant, n, m, pivots):
     settings = JaxSettings()
     K = _with_irregular_pivots(_kkt_batch(2, n, m, np.float64, seed=3), pivots)
     ref, ref_ok = _reference(K, n, m, settings, variant)
