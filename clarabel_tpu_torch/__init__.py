@@ -2,7 +2,8 @@
 
 A port of ``clarabel_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
 module for module.  It carries the dense single-problem solve over zero,
-nonnegative and second-order cones: Ruiz equilibration, the
+nonnegative, second-order, exponential, power and generalized power cones,
+with data updates, warm starts and termination callbacks: Ruiz equilibration, the
 homogeneous-embedding IPM with Mehrotra predictor-corrector steps and
 Nesterov-Todd scalings, certificate-producing infeasibility detection, and
 its KKT backends -- pivoted LU (``direct_solve_method="lu"``, "auto" at f64),
@@ -17,14 +18,21 @@ Solves run on a CUDA device unless ``device="cpu"`` is passed; on the CPU the
 LDLᵀ kernels' plain PyTorch versions run in their place.
 """
 
-from .cones.api import NonnegativeConeT, SecondOrderConeT, ZeroConeT
+from .cones.api import (
+    ExponentialConeT,
+    GenPowerConeT,
+    NonnegativeConeT,
+    PowerConeT,
+    SecondOrderConeT,
+    ZeroConeT,
+)
 from .infbound import default_infinity, get_infinity, set_infinity
 from .parallel import BatchSolution, BatchSolver
 from .settings import DefaultSettings, SettingsError
 from .solver import DefaultInfo, DefaultSolution, DefaultSolver
 from .statuses import SolverStatus
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 __all__ = [
     "DefaultSolver",
@@ -38,6 +46,9 @@ __all__ = [
     "ZeroConeT",
     "NonnegativeConeT",
     "SecondOrderConeT",
+    "ExponentialConeT",
+    "PowerConeT",
+    "GenPowerConeT",
     "get_infinity",
     "set_infinity",
     "default_infinity",

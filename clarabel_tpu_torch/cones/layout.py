@@ -101,11 +101,42 @@ class ConeLayout:
             self.soc_head_idx = np.zeros(0, np.int32)
             self.soc_head_mask = np.zeros(0, bool)
 
-        # ---- counts of the cones this port does not run yet (the KKT
-        # backend resolution reads them; the solver rejects the cones)
+        # ---- 3-dimensional exponential / power cone metadata --------
         self.num_exp = sum(1 for c in self.cones if c.kind == api.EXP)
-        self.num_pow = sum(1 for c in self.cones if c.kind == api.POW)
-        self.num_genpow = sum(1 for c in self.cones if c.kind == api.GENPOW)
+        pow_alphas = [c.alpha[0] for c in self.cones if c.kind == api.POW]
+        self.num_pow = len(pow_alphas)
+        self.pow_alpha = np.asarray(pow_alphas, np.float64)
+
+        # ---- generalized power cone segment metadata ----------------
+        gp = [c for c in self.cones if c.kind == api.GENPOW]
+        self.genpow_cones = tuple(gp)
+        self.num_genpow = len(gp)
+        self.m_genpow = sum(c.nvars for c in gp)
+        if gp:
+            # each genpow cone occupies [alpha-part (dim1) | q-part (dim2)],
+            # stored consecutively; segments index cones
+            segs, part2, alphas = [], [], []
+            for gi, c in enumerate(gp):
+                d1, d2 = len(c.alpha), c.dim2
+                segs.append(np.full(d1 + d2, gi, np.int32))
+                part2.append(np.concatenate([np.zeros(d1, bool), np.ones(d2, bool)]))
+                alphas.append(np.asarray(c.alpha + (0.0,) * d2, np.float64))
+            self.genpow_seg = np.concatenate(segs)
+            self.genpow_is_q = np.concatenate(part2)
+            self.genpow_alpha = np.concatenate(alphas)
+        else:
+            self.genpow_seg = np.zeros(0, np.int32)
+            self.genpow_is_q = np.zeros(0, bool)
+            self.genpow_alpha = np.zeros(0, np.float64)
+        # per genpow cone: its barrier degree, and 1/‖α‖² of its primal
+        # gradient's Newton start (genpowcone.rs:409-441)
+        self.genpow_degree = np.asarray([len(c.alpha) + 1 for c in gp], np.float64)
+        self.genpow_psi = np.asarray([1.0 / sum(x * x for x in c.alpha) for c in gp], np.float64)
+        gp_dims = [c.nvars for c in gp]
+        self.gp_pad_idx, self.gp_pad_mask = _padded_segments(
+            np.cumsum([0] + gp_dims[:-1]), gp_dims)
+
+        # ---- PSD cones: counted only (the solver rejects them)
         self.num_psd = sum(1 for c in self.cones if c.kind == api.PSD)
 
         # the cones whose rows equilibration rectifies to their mean
@@ -143,12 +174,14 @@ class ConeLayout:
         return self.group_slices[kind]
 
     def index_tensors(self, device) -> dict:
-        """The SOC segment metadata and the equilibration segments as
-        tensors on ``device``, made once per device."""
+        """The SOC, power and generalized power cone metadata and the
+        equilibration segments as tensors on ``device``, made once per
+        device."""
         key = str(device)
         if key not in self._device_index:
             as_long = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
             as_bool = lambda a: torch.as_tensor(a, dtype=torch.bool, device=device)
+            as_f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
             self._device_index[key] = {
                 "soc_seg": as_long(self.soc_seg),
                 "soc_head_idx": as_long(self.soc_head_idx),
@@ -160,6 +193,14 @@ class ConeLayout:
                 "rect_pad_idx": as_long(self.rect_pad_idx),
                 "rect_pad_mask": as_bool(self.rect_pad_mask),
                 "rect_dims": as_long(self.rect_dims),
+                "pow_alpha": as_f64(self.pow_alpha),
+                "genpow_seg": as_long(self.genpow_seg),
+                "genpow_is_q": as_bool(self.genpow_is_q),
+                "genpow_alpha": as_f64(self.genpow_alpha),
+                "genpow_degree": as_f64(self.genpow_degree),
+                "genpow_psi": as_f64(self.genpow_psi),
+                "gp_pad_idx": as_long(self.gp_pad_idx),
+                "gp_pad_mask": as_bool(self.gp_pad_mask),
             }
         return self._device_index[key]
 

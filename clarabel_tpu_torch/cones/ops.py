@@ -1,6 +1,7 @@
-"""Composite-cone operations for the zero, nonnegative and second-order cones.
+"""Composite-cone operations for the zero, nonnegative, second-order,
+exponential, power and generalized power cones.
 
-PyTorch port of the symmetric branches of ``clarabel_tpu/cones/ops.py``.
+PyTorch port of ``clarabel_tpu/cones/ops.py`` without its PSD branches.
 Every operation is a plain function over the full permuted slack vector:
 contiguous group slices handle the per-kind math and heterogeneous
 second-order cones are vectorized with segment sums, so the same code serves
@@ -15,8 +16,9 @@ Every function takes vectors ``[..., k]`` over any leading batch dimensions
 last dimension, and a per-problem scalar has the batch shape itself (0-d
 for one problem, ``[B]`` for a batch).
 
-The exponential, power, generalized-power and PSD branches are not ported
-yet; the solver rejects those cones before any of this runs.
+The exponential, power and generalized power cones' branches call into
+``cones.nonsymmetric``, as the JAX package's do.  The PSD branches are not
+ported yet; the solver rejects PSD cones before any of this runs.
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ def _col(a):
 
 def _idx(layout: ConeLayout, device):
     return layout.index_tensors(device)
+
+
+def _has_nonsym(layout: ConeLayout) -> bool:
+    return bool(layout.num_exp or layout.num_pow or layout.num_genpow)
 
 
 # =================================================================
@@ -162,7 +168,12 @@ def unit_initialization(layout: ConeLayout, dtype, device, batch=()):
     z[..., nn] = 1.0
     if layout.num_soc:
         z[..., _idx(layout, device)["soc_head_idx"] + layout.slice_of(api.SOC).start] = 1.0
-    return z, z.clone()
+    s = z.clone()
+    if _has_nonsym(layout):
+        from . import nonsymmetric as _ns
+
+        z, s = _ns.unit_initialization(layout, z, s)
+    return z, s
 
 
 def set_identity_scaling(layout: ConeLayout, dtype, device, batch=()):
@@ -192,9 +203,9 @@ def update_scaling(layout: ConeLayout, state, s, z, mu, strategy):
 
     Returns (new_state, ok) with ``ok`` a bool per problem.  reference:
     compositecone.rs:226-243 and the per-cone ``update_scaling`` impls.
-    ``mu`` and ``strategy`` only matter to the nonsymmetric cones.
+    ``mu`` and ``strategy`` (per problem) only matter to the nonsymmetric
+    cones.
     """
-    del mu, strategy
     state = dict(state)
     ok = torch.ones(s.shape[:-1], dtype=torch.bool, device=s.device)
 
@@ -244,6 +255,12 @@ def update_scaling(layout: ConeLayout, state, s, z, mu, strategy):
         state["soc_eta"] = eta
         state["soc_lam"] = lam
 
+    if _has_nonsym(layout):
+        from . import nonsymmetric as _ns
+
+        state, ok_ns = _ns.update_scaling(layout, state, s, z, mu, strategy)
+        ok = ok & ok_ns
+
     return state, ok
 
 
@@ -272,6 +289,11 @@ def hs_dense(layout: ConeLayout, state, dtype, device, batch=()):
         diag = torch.where(ix["soc_head_mask"], -(eta[..., seg] ** 2), eta[..., seg] ** 2)
         blk = blk + torch.diag_embed(diag)
         H[..., sl, sl] = blk
+
+    if _has_nonsym(layout):
+        from . import nonsymmetric as _ns
+
+        H = _ns.hs_dense(layout, state, H)
 
     return H
 
@@ -331,12 +353,17 @@ def mul_hs(layout: ConeLayout, state, x):
         out = torch.where(ix["soc_head_mask"], -xi, xi) + c[..., seg] * w
         y[..., sl] = eta[..., seg] ** 2 * out
 
+    if _has_nonsym(layout):
+        from . import nonsymmetric as _ns
+
+        y = _ns.mul_hs(layout, state, x, y)
+
     return y
 
 
 def affine_ds(layout: ConeLayout, state, s):
-    """RHS ds for the affine step: λ∘λ for symmetric cones.  reference:
-    per-cone ``affine_ds``."""
+    """RHS ds for the affine step: λ∘λ for symmetric cones, s for
+    nonsymmetric ones.  reference: per-cone ``affine_ds``."""
     ds = torch.zeros_like(s)
 
     if layout.n_nn:
@@ -348,23 +375,31 @@ def affine_ds(layout: ConeLayout, state, s):
         lam = state["soc_lam"]
         ds[..., sl] = _soc_circ(layout, lam, lam)
 
+    if _has_nonsym(layout):
+        from . import nonsymmetric as _ns
+
+        ds = _ns.affine_ds(layout, ds, s)
+
     return ds
 
 
 def combined_ds_shift(layout: ConeLayout, state, step_z, step_s, sigma_mu, z):
-    """Mehrotra shift term for the combined step RHS: W⁻¹Δs ∘ WΔz − σμe
-    (reference: symmetric_common.rs:53-84).  ``z`` only matters to the
-    nonsymmetric cones; ``sigma_mu`` is a per-problem scalar."""
-    del z
+    """Mehrotra shift term for the combined step RHS.
+
+    Symmetric cones: W⁻¹Δs ∘ WΔz − σμe  (reference:
+    symmetric_common.rs:53-84).  Nonsymmetric cones: σμ·g(z) plus the
+    third-order correction (reference: expcone.rs:131-151).  ``sigma_mu``
+    is a per-problem scalar.
+    """
     shift = torch.zeros_like(step_z)
-    sigma_mu = _col(sigma_mu)
+    sm = _col(sigma_mu)
 
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
         w = state["nn_w"]
         wz = w * step_z[..., sl]
         wis = step_s[..., sl] / w
-        shift[..., sl] = wis * wz - sigma_mu
+        shift[..., sl] = wis * wz - sm
 
     if layout.num_soc:
         sl = layout.slice_of(api.SOC)
@@ -373,14 +408,20 @@ def combined_ds_shift(layout: ConeLayout, state, step_z, step_s, sigma_mu, z):
         wis = _soc_mul_w(layout, w, eta, step_s[..., sl], inverse=True)
         out = _soc_circ(layout, wis, wz)
         head_mask = _idx(layout, step_z.device)["soc_head_mask"]
-        shift[..., sl] = torch.where(head_mask, out - sigma_mu, out)
+        shift[..., sl] = torch.where(head_mask, out - sm, out)
+
+    if _has_nonsym(layout):
+        from . import nonsymmetric as _ns
+
+        shift = _ns.combined_ds_shift(layout, state, shift, step_z, step_s, sigma_mu, z)
 
     return shift
 
 
 def ds_from_dz_offset(layout: ConeLayout, state, ds, z):
     """Constant part of Δs as a function of Δz: Wᵀ(λ \\ ds) for symmetric
-    cones.  reference: per-cone ``Δs_from_Δz_offset``."""
+    cones, ds itself for nonsymmetric ones.  reference: per-cone
+    ``Δs_from_Δz_offset``."""
     out = torch.zeros_like(ds)
 
     if layout.n_nn:
@@ -412,7 +453,13 @@ def ds_from_dz_offset(layout: ConeLayout, state, ds, z):
         v = v / lam0[..., seg]
         out[..., sl] = v
 
-    # zero cones contribute zero
+    # nonsymmetric cones pass ds through unchanged (expcone.rs:149-151,
+    # powcone.rs:142-144, genpowcone.rs:215-217); zero cones contribute zero
+    if _has_nonsym(layout):
+        from . import nonsymmetric as _ns
+
+        for sl in _ns._present_slices(layout):
+            out[..., sl] = ds[..., sl]
     return out
 
 
@@ -470,9 +517,12 @@ def _soc_step_component(layout, x, dx, big):
 
 
 def step_length(layout: ConeLayout, state, dz, ds, z, s, settings, alpha_max):
-    """Composite maximum step length to the cone boundary (closed form for
-    the symmetric cones), per problem.  reference: compositecone.rs:300-340"""
-    del state, settings
+    """Composite maximum step length to the cone boundary, per problem.
+
+    Symmetric cones first (closed form); nonsymmetric cones then shrink the
+    result further, after backing off from 1 by √ε.
+    reference: compositecone.rs:300-340
+    """
     big = _big(z)
     alpha = alpha_max
 
@@ -486,13 +536,22 @@ def step_length(layout: ConeLayout, state, dz, ds, z, s, settings, alpha_max):
         alpha = torch.minimum(alpha, _soc_step_component(layout, z[..., sl], dz[..., sl], big))
         alpha = torch.minimum(alpha, _soc_step_component(layout, s[..., sl], ds[..., sl], big))
 
+    if not layout.is_symmetric:
+        from . import nonsymmetric as _ns
+
+        eps = torch.finfo(z.dtype).eps
+        alpha = torch.clamp(alpha, max=1.0 - math.sqrt(eps))
+        alpha = _ns.step_length(layout, state, dz, ds, z, s, settings, alpha)
+
     return alpha
 
 
 def compute_barrier(layout: ConeLayout, state, z, s, dz, ds, alpha):
     """Combined barrier at (z+αdz, s+αds).  reference: per-cone
     ``compute_barrier``, per problem; used by the asymmetric backtracking
-    line search."""
+    line search.  ``alpha`` may carry one more trailing dimension than the
+    problems' batch shape (candidate step lengths), when (z, s, dz, ds)
+    carry a matching dimension of size 1 before their last."""
     del state
     barrier = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
     a = _col(alpha)
@@ -510,6 +569,11 @@ def compute_barrier(layout: ConeLayout, state, z, s, dz, ds, alpha):
         good = (res_s > 0) & (res_z > 0)
         term = torch.where(good, -0.5 * _logsafe(res_s * res_z), torch.inf)
         barrier = barrier + torch.sum(term, dim=-1)
+
+    if _has_nonsym(layout):
+        from . import nonsymmetric as _ns
+
+        barrier = barrier + _ns.compute_barrier(layout, z, s, dz, ds, a)
 
     return barrier
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from . import pallas_ldl
+from ..timers import host_read
 
 
 def matvec(M, v):
@@ -366,7 +367,7 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
     # has swept k times, so the sweep cap is the host's k
     active = (~done) & ~(norme <= tol)
     # one device read per sweep: the loop condition
-    while k < maxiter and bool(active.any()):
+    while k < maxiter and host_read(active.any()):
         dx = _raw_solve(factors, e)
         xnew = x + dx
         enew, normenew = error_norm(xnew)

@@ -11,8 +11,14 @@ The JAX package runs the loop as one ``lax.while_loop``.  Here the state is a
 ``SolverState`` of tensors on the problem's device, every data-dependent
 choice inside an iteration stays a ``torch.where`` as in the JAX package, and
 the host reads the device twice per iteration: for the loop condition and for
-whether the iteration takes a step.  The iterative refinement inside each KKT
-solve reads one scalar per sweep (``kkt.dense.solve_refined``).
+whether the iteration takes a step (with nonsymmetric cones the second read
+also brings back whether any problem runs under dual scaling).  A
+termination callback adds one read per iteration, of the progress values it
+is given.  The iterative refinement inside each KKT solve reads one scalar
+per sweep (``kkt.dense.solve_refined``); the Newton-Raphson primal
+gradients of the power cones one every few steps
+(``cones.nonsymmetric._newton_raphson``).  Every read goes through
+``timers.host_read``, which counts them.
 
 The data may carry one leading batch dimension (P [B, n, n], q [B, n],
 A [B, m, n], b [B, m]): every vector is then [B, k] and every per-problem
@@ -30,11 +36,13 @@ from typing import NamedTuple
 
 import torch
 
+from .cones import nonsymmetric as _ns
 from .cones import ops as cone_ops
 from .cones.ops import _col
 from .kkt import dense as kkt_dense
 from .kkt.dense import dot as _dot, matvec as _mv
 from .statuses import SCALING_DUAL, SCALING_PRIMAL_DUAL, SolverStatus
+from .timers import host_read
 
 _UNSOLVED = int(SolverStatus.Unsolved)
 
@@ -279,8 +287,13 @@ def calc_mu(layout, r: Residuals, tau, kappa):
     return (r.dot_sz + tau * kappa) / (layout.degree + 1)
 
 
-def calc_step_length(layout, state, step, variables, settings, is_combined, scaling):
-    """reference: variables.rs:117-154 + solver.rs:547-584"""
+def calc_step_length(layout, state, step, variables, settings, is_combined, scaling,
+                     any_dual=True):
+    """reference: variables.rs:117-154 + solver.rs:547-584
+
+    ``scaling`` is each problem's strategy; ``any_dual`` (a host bool) says
+    whether any problem that takes this step runs under dual scaling, the
+    only problems the barrier backtracking changes."""
     x, s, z, tau, kappa = variables
     dx, ds, dz, dtau, dkappa = step
 
@@ -295,24 +308,29 @@ def calc_step_length(layout, state, step, variables, settings, is_combined, scal
         alpha = alpha * settings.max_step_fraction
 
     # additional barrier limit for asymmetric cones under dual-only scaling
-    # (solver.rs:560-584): a host loop, one device read per backtrack
-    if not layout.is_symmetric and is_combined and bool(scaling == SCALING_DUAL):
-        def barrier_at(a):
-            cur_tau = tau + a * dtau
-            cur_kappa = kappa + a * dkappa
-            sz = (z + a * dz) @ (s + a * ds)
-            mu = (sz + cur_tau * cur_kappa) / (layout.degree + 1)
-            barrier = (
-                (layout.degree + 1) * cone_ops._logsafe(mu)
-                - cone_ops._logsafe(cur_tau)
-                - cone_ops._logsafe(cur_kappa)
-            )
-            return barrier + cone_ops.compute_barrier(layout, state, z, s, dz, ds, a)
-
-        k = 0
-        while k < 50 and bool(barrier_at(alpha) >= 1.0):
-            alpha = alpha * settings.linesearch_backtrack_step
-            k += 1
+    # (solver.rs:560-584).  The JAX package backtracks every problem in a
+    # while loop of at most 50 steps and keeps the result on the problems
+    # under dual scaling.  Here the 51 candidate α of each problem are
+    # built as that loop builds them and their barriers evaluated at once;
+    # each problem takes its first candidate whose barrier is below 1 (the
+    # last one if none is), with no device read.
+    if not layout.is_symmetric and is_combined and any_dual:
+        a = _ns.backtrack_candidates(alpha, settings.linesearch_backtrack_step, 50)
+        cur_tau = tau.unsqueeze(-1) + a * dtau.unsqueeze(-1)
+        cur_kappa = kappa.unsqueeze(-1) + a * dkappa.unsqueeze(-1)
+        row = lambda v: v.unsqueeze(-2)  # [..., 1, m]: broadcasts over the candidates
+        ac = a.unsqueeze(-1)
+        sz = _dot(row(z) + ac * row(dz), row(s) + ac * row(ds))
+        mu = (sz + cur_tau * cur_kappa) / (layout.degree + 1)
+        barrier = (
+            (layout.degree + 1) * cone_ops._logsafe(mu)
+            - cone_ops._logsafe(cur_tau)
+            - cone_ops._logsafe(cur_kappa)
+        )
+        barrier = barrier + cone_ops.compute_barrier(
+            layout, state, row(z), row(s), row(dz), row(ds), a)
+        backtracked = _ns.take(a, _ns.first_stop(~(barrier >= 1.0)))
+        alpha = torch.where(scaling == SCALING_DUAL, backtracked, alpha)
     return alpha
 
 
@@ -522,7 +540,11 @@ def default_start(layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas=Fal
 
 
 def _shift_to_cone_interior(layout, v, pd, floor=1.0):
-    """reference: variables.rs:231-256 (cold start: unit-distance floor)."""
+    """reference: variables.rs:231-256.  ``floor`` is the minimum shift
+    target: 1.0 for cold starts (the reference's unit-distance rule for an
+    arbitrary iterate), small for warm starts -- a converged iterate sits on
+    the cone boundary, and a unit shift would erase what the warm start
+    carries (the JAX package's loop.py:872-879)."""
     mn, pos = cone_ops.margins(layout, v, pd)
     degree = max(layout.degree, 1)
     target = torch.clamp(0.1 * pos / degree, min=floor)
@@ -558,9 +580,27 @@ def _write_history_row(history, iterations, row, active):
     h[lanes, at] = torch.where(active.reshape(-1, 1), row.reshape(h.shape[0], -1), h[lanes, at])
 
 
+#: the progress values a termination callback receives, in this order
+CALLBACK_KEYS = ("iterations", "cost_primal", "cost_dual", "gap_abs", "gap_rel",
+                 "res_primal", "res_dual", "ktratio", "mu", "step_length")
+
+
 def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
-            use_pallas=False):
+            use_pallas=False, warm_start=None, callback=None):
     """The main loop.  Returns the final SolverState.
+
+    ``warm_start``, when given, is an (x0, s0, z0) triple in the internal
+    (equilibrated, permuted) frame used as the initial iterate, after
+    shifting (s0, z0) strictly into the cone interior with a small floor;
+    τ = κ = 1.  The reference always cold starts; the JAX package adds this
+    for re-solve loops (its loop.py:911-927).
+
+    ``callback``, when given, is a host function (dict of the progress
+    values named in ``CALLBACK_KEYS``) -> bool, called once per iteration
+    of a single problem (no batch dimension); returning True ends the solve
+    with CallbackTerminated, whatever status the iteration reached
+    (reference: callbacks.rs:93-96, solver.rs:311-314).  It costs one
+    device read per iteration.
 
     reference: solver.rs:242-465
     """
@@ -568,10 +608,22 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
     batch = q.shape[:-1]
     asym = not layout.is_symmetric
     device = q.device
+    if callback is not None and batch:
+        raise ValueError("a termination callback runs on a single problem, not a batch")
 
-    x, s, z, tau, kappa = default_start(
-        layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas,
-    )
+    if warm_start is not None:
+        x = warm_start[0]
+        # small interiority floor: a warm iterate lives near the boundary
+        wfloor = 1e-2
+        s = _shift_to_cone_interior(layout, warm_start[1], cone_ops.PRIMAL, floor=wfloor)
+        z = _shift_to_cone_interior(layout, warm_start[2], cone_ops.DUAL, floor=wfloor)
+        # κ stays at the cold value, as in the JAX package
+        tau = torch.ones(batch, dtype=dtype, device=device)
+        kappa = torch.ones(batch, dtype=dtype, device=device)
+    else:
+        x, s, z, tau, kappa = default_start(
+            layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas,
+        )
 
     f = lambda v: torch.full(batch, v, dtype=dtype, device=device)
     i32 = lambda v: torch.full(batch, v, dtype=torch.int32, device=device)
@@ -628,6 +680,16 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         if timed and (time.monotonic() - time_start) > settings.time_limit:
             status = _status(status == _UNSOLVED, int(SolverStatus.MaxTime), status)
 
+        # user termination callback, checked before the internal statuses
+        # win (solver.rs:310-314): one device read of its progress values
+        if callback is not None:
+            progress = dict(st._asdict(), mu=mu)
+            values = host_read(torch.stack([progress[k].to(dtype) for k in CALLBACK_KEYS]))
+            snapshot = dict(zip(CALLBACK_KEYS, values))
+            snapshot["iterations"] = int(snapshot["iterations"])
+            if callback(snapshot):
+                status = torch.full_like(status, int(SolverStatus.CallbackTerminated))
+
         # --- strategy checkpoint: insufficient progress (solver.rs:586-609)
         is_ip = status == int(SolverStatus.InsufficientProgress)
         retry_ip = is_ip & asym & (st.scaling == SCALING_PRIMAL_DUAL)
@@ -645,13 +707,20 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         scaling = torch.where(retry_ip, SCALING_DUAL, st.scaling).to(torch.int32)
         st = st._replace(status=status, scaling=scaling)
 
-        # the JAX package's lax.cond(proceed, do_step, ...), per problem
+        # the JAX package's lax.cond(proceed, do_step, ...), per problem;
+        # with nonsymmetric cones the same read says whether any problem
+        # that steps runs under dual scaling
         proceed = active & (status == _UNSOLVED) & ~retry_ip
-        if bool(proceed.any()):
-            st = _select_state(proceed, _step(st, r, mu), st)
+        if asym:
+            any_step, any_dual = host_read(torch.stack(
+                [proceed.any(), (proceed & (scaling == SCALING_DUAL)).any()]))
+        else:
+            any_step, any_dual = host_read(proceed.any()), False
+        if any_step:
+            st = _select_state(proceed, _step(st, r, mu, any_dual), st)
         return _select_state(active, st, st_in)
 
-    def _step(st: SolverState, r: Residuals, mu):
+    def _step(st: SolverState, r: Residuals, mu, any_dual):
         # --- cone scaling update (solver.rs:327-338)
         scaling_state, ok_scale = cone_ops.update_scaling(
             layout, cone_ops.set_identity_scaling(layout, dtype, device, batch),
@@ -741,7 +810,7 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
 
         alpha = calc_step_length(
             layout, scaling_state, comb, variables, settings,
-            is_combined=True, scaling=st.scaling,
+            is_combined=True, scaling=st.scaling, any_dual=any_dual,
         )
 
         # direction finiteness: a non-finite direction or step length is a
@@ -811,7 +880,7 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             scaling=scaling,
         )
 
-    while bool((st.status == _UNSOLVED).any()):
+    while host_read((st.status == _UNSOLVED).any()):
         st = body(st)
 
     # "almost solved" tier on error / iteration-limit exits

@@ -1,9 +1,9 @@
 """Scenario-batch data parallelism: B problems of one structure, one solve.
 
 PyTorch port of ``clarabel_tpu/parallel/batch.py`` on one device over
-zero, nonnegative and second-order cones: at f64, and at f32 where the KKT
-method is a structured Schur path ("auto" picks "schur_diag" or
-"schur_lr").  B conic programs with the same cones and shapes but different
+zero, nonnegative, second-order, exponential, power and generalized power
+cones: at f64, and at f32 where the KKT method is a structured Schur path
+("auto" picks "schur_diag" or "schur_lr" on the symmetric cones).  B conic programs with the same cones and shapes but different
 numbers (scenarios, MPC horizons, portfolio draws) solve as one run of the
 IPM loop on tensors with a leading batch dimension: every factorization
 factors the B KKT matrices at once (batched pivoted LU or Cholesky, or one
@@ -154,20 +154,21 @@ class BatchSolver:
         check_ported_dtype(self._layout, self.settings, self._dtype, n, use_pallas)
         dtype = getattr(torch, self._dtype)
 
-        put = lambda v: torch.as_tensor(v, dtype=dtype, device=self._device)
-        self._P, self._q, self._A, self._b = put(P), put(q), put(A), put(b)
+        self._put = lambda v: torch.tensor(v, dtype=dtype, device=self._device)
+        self._P, self._q, self._A, self._b = (self._put(v) for v in (P, q, A, b))
         self._solve_fn = build_solve_core(
             self._layout, self.settings, n, self._p_is_zero, dtype, use_pallas=use_pallas,
         )
 
     # ------------------------------------------------------------------
     def solve(self, warm_start=None) -> BatchSolution:
-        """Solve the batch (a cold start)."""
-        if warm_start is not None:
-            raise _not_ported("warm starts of a batch (solve(warm_start=...))", 18)
+        """Solve the batch.  ``warm_start`` is a previous
+        :class:`BatchSolution` or an (x, s, z) triple of [B, ...] arrays
+        used as initial iterates per lane (MPC/scenario re-solve loops)."""
         t0 = time.perf_counter()
         with full_precision():
-            out = self._solve_fn(self._P, self._q, self._A, self._b)
+            ws = None if warm_start is None else self._warm_iterates(warm_start)
+            out = self._solve_fn(self._P, self._q, self._A, self._b, ws)
             out = {k: v.detach().cpu().numpy() for k, v in out.items()}
         solve_time = time.perf_counter() - t0
 
@@ -190,6 +191,22 @@ class BatchSolver:
             r_dual=out["r_dual"],
             solve_time=solve_time,
         )
+
+    def _warm_iterates(self, warm_start):
+        """The warm start's [B, ·] (x, s, z) as tensors on the device, s and z
+        in the layout's row order (the JAX package's ``_solve_warm``)."""
+        if isinstance(warm_start, BatchSolution):
+            x0, s0, z0 = warm_start.x, warm_start.s, warm_start.z
+        else:
+            x0, s0, z0 = warm_start
+        x0 = np.asarray(x0, np.float64)
+        s0 = np.asarray(s0, np.float64)
+        z0 = np.asarray(z0, np.float64)
+        if x0.shape != (self.B, self.n) or s0.shape != (self.B, self.m) \
+                or z0.shape != (self.B, self.m):
+            raise ValueError("warm start has wrong batch dimensions")
+        perm = self._layout.perm
+        return self._put(x0), self._put(s0[:, perm]), self._put(z0[:, perm])
 
     def iteration_history(self):
         """Per-lane progress tables [B, max_iter+1, 9] from the last solve

@@ -47,8 +47,8 @@ _METHOD_ITEMS = {"multifrontal": 14}
 #: the methods that run at f32: the others need the compensated f32 stack
 _F32_METHODS = ("schur_diag", "schur_lr")
 #: cone kinds this port runs, and the ROADMAP items that port the others
-_PORTED_CONES = (api.ZERO, api.NONNEGATIVE, api.SOC)
-_CONE_ITEMS = {api.EXP: 10, api.POW: 10, api.GENPOW: 10, api.PSD: 11}
+_PORTED_CONES = (api.ZERO, api.NONNEGATIVE, api.SOC, api.EXP, api.POW, api.GENPOW)
+_CONE_ITEMS = {api.PSD: 11}
 
 
 @dataclasses.dataclass
@@ -224,14 +224,17 @@ def full_precision():
 
 def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
                      n: int, p_is_zero: bool, dtype: torch.dtype,
-                     use_pallas: bool = False):
-    """The solve function (P, q, A, b) -> outputs, with the same output
-    dictionary as the JAX package's (clarabel_tpu/solver.py:246-272).  The
-    tensors stay on their device.  It solves one problem, or a batch of
-    problems when the data carry a leading batch dimension (P [B, n, n],
-    q [B, n], A [B, m, n], b [B, m]); every output then has it too."""
+                     use_pallas: bool = False, callback=None):
+    """The solve function (P, q, A, b, warm_start=None) -> outputs, with the
+    same output dictionary as the JAX package's
+    (clarabel_tpu/solver.py:246-272).  The tensors stay on their device.  It
+    solves one problem, or a batch of problems when the data carry a leading
+    batch dimension (P [B, n, n], q [B, n], A [B, m, n], b [B, m]); every
+    output then has it too.  ``warm_start`` is an (x0, s0, z0) initial
+    iterate in the user frame (rows in the layout's order), ``callback`` a
+    per-iteration termination callback of a single problem (``loop.run_ipm``)."""
 
-    def solve_core(P, q, A, b):
+    def solve_core(P, q, A, b, warm_start=None):
         triu_mask = torch.triu(torch.ones((n, n), dtype=dtype, device=P.device))
         # unscaled inf-norms of the linear terms, cached before
         # equilibration (problemdata.rs:147-148)
@@ -244,9 +247,15 @@ def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
         dinv, einv, cinv = 1.0 / d, 1.0 / e, 1.0 / c_scale
         equil = (d, e, dinv, einv, cinv)
 
+        if warm_start is not None:
+            # scale the user-frame iterate into the equilibrated frame (the
+            # inverse of the unscaling below, at τ = 1)
+            x0, s0, z0 = warm_start
+            warm_start = (x0 * dinv, s0 * e, z0 * c_scale.unsqueeze(-1) * einv)
+
         st = run_ipm(
             layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
-            use_pallas=use_pallas,
+            use_pallas=use_pallas, warm_start=warm_start, callback=callback,
         )
 
         # ---- solution post-processing (solution.rs:68-111,
@@ -341,8 +350,12 @@ def check_ported_cones(cones_int) -> None:
 class DefaultSolver:
     """Interior-point solver for convex conic programs with quadratic
     objectives (reference: DefaultSolver, default/solver.rs:19-126), on the
-    dense path with zero, nonnegative and second-order cones: at f64 through
-    every ported KKT method, at f32 through "schur_diag" and "schur_lr"."""
+    dense path with zero, nonnegative, second-order, exponential, power and
+    generalized power cones: at f64 through every ported KKT method (the
+    Schur paths fall back to LU on the nonsymmetric cones, as in the JAX
+    package), at f32 through "schur_diag" and "schur_lr" on the symmetric
+    cones.  Its data can be updated between solves, a solve warm-started
+    and stopped by a callback."""
 
     def __init__(
         self,
@@ -382,6 +395,14 @@ class DefaultSolver:
                     f"cone dimensions sum to {m_cones}, but A/b have {m} rows"
                 )
 
+            # the triu CSC structure of P and the CSC structure of A, for
+            # nzval-indexed updates (the internal P is the triu part treated
+            # as symmetric)
+            import scipy.sparse as sp
+
+            self._P_csc = sp.triu(P_csc, format="csc")
+            self._P_csc.sort_indices()
+            self._A_csc = A_csc
             self._nnzA = int(A_csc.nnz)
 
             if _wants_sparse(self.settings, P_csc, A_csc, n, m, cones):
@@ -394,6 +415,7 @@ class DefaultSolver:
         self.solution: Optional[DefaultSolution] = None
         self.equilibration: Optional[EquilibrationData] = None
         self.iteration_history: Optional[np.ndarray] = None
+        self._callback = None
 
     # ------------------------------------------------------------------
     def _setup_dense(self, P, A, q, b, cones):
@@ -412,6 +434,12 @@ class DefaultSolver:
 
             # cap b at the infinity bound (problemdata.rs:126-131)
             b = np.minimum(b, get_infinity())
+
+            # user-frame copies (after presolve) for data updating
+            self._np_P = P
+            self._np_q = q.copy()
+            self._np_A = A.copy()
+            self._np_b = b.copy()
 
             # chordal decomposition of large sparse PSD cones
             # (problemdata.rs:94-112): never applies to the cones ported
@@ -433,13 +461,10 @@ class DefaultSolver:
         self._p_is_zero = not np.any(P)
         self._torch_dtype = getattr(torch, self._dtype)
 
-        put = lambda v: torch.as_tensor(
-            np.asarray(v, np.float64), dtype=self._torch_dtype, device=self._device
-        )
-        self._P = put(P)
-        self._q = put(q)
-        self._A = put(A)
-        self._b = put(b)
+        self._P = self._put(P)
+        self._q = self._put(q)
+        self._A = self._put(A)
+        self._b = self._put(b)
 
         self._use_pallas = self._device.type == "cuda"
         check_ported_dtype(self._layout, self.settings, self._dtype, self._n_int,
@@ -462,12 +487,23 @@ class DefaultSolver:
             dim=N,
         )
 
+    def _put(self, v) -> torch.Tensor:
+        """A copy of a host array as a tensor of the solve's dtype on its
+        device (never a view of the caller's array)."""
+        return torch.tensor(np.asarray(v, np.float64), dtype=self._torch_dtype,
+                            device=self._device)
+
     # ------------------------------------------------------------------
-    def solve(self) -> DefaultSolution:
-        """Solve the problem (a cold start, as the reference always does)."""
+    def solve(self, warm_start=None) -> DefaultSolution:
+        """Solve the problem.
+
+        ``warm_start`` (optional) is a previous :class:`DefaultSolution` or
+        an (x, s, z) triple in the user frame, used as the initial iterate
+        (the reference always cold starts)."""
         t0 = time.perf_counter()
         with self.timers.scope("solve"), full_precision():
-            out = self._solve_fn(self._P, self._q, self._A, self._b)
+            ws = None if warm_start is None else self._warm_iterate(warm_start)
+            out = self._solve_fn(self._P, self._q, self._A, self._b, ws)
             out = {k: v.detach().cpu().numpy() for k, v in out.items()}
         solve_time = time.perf_counter() - t0
         self._raw_out = out  # full core outputs (permuted frame)
@@ -531,6 +567,183 @@ class DefaultSolver:
         self.iteration_history = np.asarray(out["history"])
 
         return self.solution
+
+    # ------------------------------------------------------------------
+    def _warm_iterate(self, warm_start):
+        """The warm start's (x, s, z) as tensors on the device, s and z in
+        the layout's row order (the JAX package's ``_solve_warm``)."""
+        if isinstance(warm_start, DefaultSolution):
+            x0, s0, z0 = warm_start.x, warm_start.s, warm_start.z
+        else:
+            x0, s0, z0 = warm_start
+        x0 = np.asarray(x0, np.float64).ravel()
+        s0 = np.asarray(s0, np.float64).ravel()
+        z0 = np.asarray(z0, np.float64).ravel()
+        if x0.shape[0] != self.n or s0.shape[0] != self.m_full or z0.shape[0] != self.m_full:
+            raise ValueError("warm start has wrong dimensions")
+        if self._presolver is not None:
+            # map the user-frame iterate through the presolve reduction:
+            # eliminated rows carry s = inf, z = 0 and simply drop
+            # (presolver.rs:134-154 reversed)
+            keep = self._presolver.keep_logical
+            s0 = s0[keep]
+            z0 = z0[keep]
+        perm = self._layout.perm
+        return self._put(x0), self._put(s0[perm]), self._put(z0[perm])
+
+    # ------------------------------------------------------------------
+    # data updating (reference: data_updating.rs:68-160)
+    # ------------------------------------------------------------------
+
+    def is_data_update_allowed(self) -> bool:
+        """Updates are disallowed after presolve reduction or chordal
+        decomposition (data_updating.rs:10-24, 153+)."""
+        return self._presolver is None and self._chordal is None
+
+    def _check_update_allowed(self):
+        if not self.is_data_update_allowed():
+            raise ValueError(
+                "problem data cannot be updated after presolve reduction; "
+                "construct the solver with presolve_enable=False to use "
+                "parametric updates"
+            )
+
+    @staticmethod
+    def _apply_matrix_update(dense, csc, data, symmetric):
+        """Apply a full-matrix / nzval-vector / (index, value) update to the
+        host copy ``dense``; ``csc`` is the structure the nzval indices
+        refer to."""
+        if hasattr(data, "tocsc") or (isinstance(data, np.ndarray) and data.ndim == 2):
+            new = _to_csc(data, "update").toarray()
+            if symmetric:
+                new = _symmetrize_triu(new)
+            if new.shape != dense.shape:
+                raise ValueError("updated matrix has wrong shape")
+            dense[...] = new
+            return
+        if isinstance(data, tuple) and len(data) == 2:
+            idx, vals = data
+            idx = np.asarray(idx, np.int64).ravel()
+            vals = np.asarray(vals, np.float64).ravel()
+        else:
+            vals = np.asarray(data, np.float64).ravel()
+            if vals.shape[0] != csc.nnz:
+                raise ValueError(f"expected {csc.nnz} values for full nzval update")
+            idx = np.arange(csc.nnz)
+        # map nzval indices -> (row, col) through the stored CSC structure
+        rows = csc.indices[idx]
+        cols = np.searchsorted(csc.indptr, idx, side="right") - 1
+        dense[rows, cols] = vals
+        if symmetric:
+            dense[cols, rows] = vals
+
+    @staticmethod
+    def _apply_vector_update(vec, data):
+        if isinstance(data, tuple) and len(data) == 2:
+            idx, vals = data
+            vec[np.asarray(idx, np.int64).ravel()] = np.asarray(vals, np.float64).ravel()
+        else:
+            vals = np.asarray(data, np.float64).ravel()
+            if vals.shape[0] != vec.shape[0]:
+                raise ValueError("updated vector has wrong length")
+            vec[...] = vals
+
+    def _push_data(self):
+        """Copy the host data to the device; a change of whether P is zero
+        rebuilds the solve function, whose start depends on it."""
+        perm = self._layout.perm
+        self._P = self._put(self._np_P)
+        self._q = self._put(self._np_q)
+        self._A = self._put(self._np_A[perm, :])
+        self._b = self._put(np.minimum(self._np_b, get_infinity())[perm])
+        p_is_zero = not np.any(self._np_P)
+        if p_is_zero != self._p_is_zero:
+            self._p_is_zero = p_is_zero
+            self._rebuild_solve_fn()
+
+    def update_P(self, data):
+        """Update the P matrix: full matrix, full nzval vector of its upper
+        triangle, or (nzval-indices, values).  reference:
+        data_updating.rs:98-116"""
+        self._check_update_allowed()
+        self._apply_matrix_update(self._np_P, self._P_csc, data, symmetric=True)
+        self._push_data()
+
+    def update_A(self, data):
+        """reference: data_updating.rs:118-132"""
+        self._check_update_allowed()
+        self._apply_matrix_update(self._np_A, self._A_csc, data, symmetric=False)
+        self._push_data()
+
+    def update_q(self, data):
+        """reference: data_updating.rs:135-146"""
+        self._check_update_allowed()
+        self._apply_vector_update(self._np_q, data)
+        self._push_data()
+
+    def update_b(self, data):
+        """reference: data_updating.rs:148-160"""
+        self._check_update_allowed()
+        self._apply_vector_update(self._np_b, data)
+        self._push_data()
+
+    def update_data(self, P=None, q=None, A=None, b=None):
+        """Combined update (reference: data_updating.rs:68-86)."""
+        self._check_update_allowed()
+        if P is not None:
+            self._apply_matrix_update(self._np_P, self._P_csc, P, symmetric=True)
+        if A is not None:
+            self._apply_matrix_update(self._np_A, self._A_csc, A, symmetric=False)
+        if q is not None:
+            self._apply_vector_update(self._np_q, q)
+        if b is not None:
+            self._apply_vector_update(self._np_b, b)
+        self._push_data()
+
+    # ------------------------------------------------------------------
+    # settings and callbacks
+    # ------------------------------------------------------------------
+
+    def _rebuild_solve_fn(self):
+        self._solve_fn = build_solve_core(
+            self._layout, self.settings, self._n_int, self._p_is_zero,
+            self._torch_dtype, self._use_pallas, callback=self._callback,
+        )
+
+    def update_settings(self, settings: DefaultSettings):
+        """Replace settings between solves; structure-determining settings
+        are immutable (settings.rs:259-335)."""
+        settings.validate_as_update(self.settings)
+        self.settings = settings
+        self._rebuild_solve_fn()
+
+    def set_termination_callback(self, callback):
+        """Install a per-iteration termination callback.  The callback
+        receives a ``DefaultInfo`` and returns True to stop the solver
+        (reference: callbacks.rs, solver.rs:310-314).  It costs one device
+        read per iteration."""
+
+        def host_cb(snapshot):
+            info = DefaultInfo(
+                mu=float(snapshot["mu"]),
+                step_length=float(snapshot["step_length"]),
+                iterations=int(snapshot["iterations"]),
+                cost_primal=float(snapshot["cost_primal"]),
+                cost_dual=float(snapshot["cost_dual"]),
+                res_primal=float(snapshot["res_primal"]),
+                res_dual=float(snapshot["res_dual"]),
+                gap_abs=float(snapshot["gap_abs"]),
+                gap_rel=float(snapshot["gap_rel"]),
+                ktratio=float(snapshot["ktratio"]),
+            )
+            return bool(callback(info))
+
+        self._callback = host_cb
+        self._rebuild_solve_fn()
+
+    def unset_termination_callback(self):
+        self._callback = None
+        self._rebuild_solve_fn()
 
     # ------------------------------------------------------------------
     # printing (reference: info_print.rs)

@@ -57,3 +57,15 @@ class Timers:
                 rec(c, depth + 1)
 
         rec(self._root, 0)
+
+
+def host_read(t):
+    """``t.tolist()``: the host waits for the device and reads ``t`` (a
+    Python bool for a 0-d bool tensor).  Every read of the device inside a
+    solve goes through here, and ``host_read.count`` counts them (a caller
+    sets it to 0 to count from there)."""
+    host_read.count += 1
+    return t.tolist()
+
+
+host_read.count = 0

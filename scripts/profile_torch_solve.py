@@ -8,12 +8,17 @@ BatchSolver, the JAX bench's box-QP batch (n = 32, m = 64, B = 2048, KKT
 N = 96) once through each f64 KKT backend ("pallas" and "auto"), then the
 box-QP batch and the JAX bench's SOCP batch (n = 32, one
 SecondOrderConeT(33), B = 1024) at f32 through "auto" (the Schur paths
-"schur_diag" and "schur_lr"), each under torch.profiler after one untraced
-warm-up solve, and prints for each: the wall time, the summed device time
-of the kernels, the device's idle share (1 - device time / wall time; the
-kernels of one stream do not overlap), and the kernels that take the most
-device time.  Then it profiles the LDLᵀ factor alone, f64: the blocked
-variant at the two large problems' KKT shapes (1 x 2001², 1 x 1552²) and
+"schur_diag" and "schur_lr"), and chip_smoke.py's entropy maximization
+(n = 500, 500 exponential cones, N = 2540) through "pallas" and "auto",
+each under torch.profiler after one untraced warm-up solve, and prints for
+each: the wall time, the summed device time of the kernels, the device's
+idle share (1 - device time / wall time; the kernels of one stream do not
+overlap), and the kernels that take the most device time.  For the
+entropy solves it also splits the host's wall time over the loop's parts
+(an untraced solve with each part's function wrapped by a host clock:
+inclusive times, device waits included) and counts the device reads.
+Then it profiles the LDLᵀ factor alone, f64: the blocked variant at the
+three large problems' KKT shapes (1 x 2001², 1 x 1552², 1 x 2540²) and
 the unblocked one at 1 x 201², 8 x 200², 1 x 256² and the box-QP batch's
 2048 x 96², and prints each kernel's device time and launches per factor.
 
@@ -70,6 +75,56 @@ def profile_solve(problem, method, top, solver_type=tt.DefaultSolver, dtype="flo
     )
 
 
+def host_split(problem, method):
+    """One untraced solve with the loop's parts wrapped by a host clock:
+    {part: (calls, inclusive host ms)}, the wall time and the device reads.
+    The parts nest: the step length contains the cones' feasibility
+    backtracking and, on the combined step, the barrier backtracking, whose
+    barriers run the Newton-Raphson loops of the power cones."""
+    from clarabel_tpu_torch import loop
+    from clarabel_tpu_torch.cones import nonsymmetric as ns, ops
+    from clarabel_tpu_torch.kkt import dense
+    from clarabel_tpu_torch.timers import host_read
+
+    parts = {"kkt factor (loop._kkt_prepare)": (loop, "_kkt_prepare"),
+             "refined solves (kkt.dense.solve_refined)": (dense, "solve_refined"),
+             "scaling update (cones.ops.update_scaling)": (ops, "update_scaling"),
+             "step length (loop.calc_step_length)": (loop, "calc_step_length"),
+             "feasibility backtracking (nonsymmetric.step_length)": (ns, "step_length"),
+             "Newton-Raphson (nonsymmetric._newton_raphson)": (ns, "_newton_raphson")}
+    totals = {k: [0, 0.0] for k in parts}
+    saved = {k: getattr(mod, name) for k, (mod, name) in parts.items()}
+
+    def wrap(key, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                totals[key][0] += 1
+                totals[key][1] += (time.perf_counter() - t0) * 1e3
+        return timed
+
+    P, q, A, b, cones = problem
+    settings = tt.DefaultSettings(verbose=False, direct_solve_method=method)
+    solver = tt.DefaultSolver(P, q, A, b, cones, settings, device="cuda")
+    for key, (mod, name) in parts.items():
+        setattr(mod, name, wrap(key, saved[key]))
+    try:
+        torch.cuda.synchronize()
+        host_read.count = 0
+        t0 = time.perf_counter()
+        sol = solver.solve()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for key, (mod, name) in parts.items():
+            setattr(mod, name, saved[key])
+    return dict(method=method, iterations=sol.iterations, wall_ms=wall,
+                device_reads=host_read.count,
+                parts={k: dict(calls=c, host_ms=ms) for k, (c, ms) in totals.items()})
+
+
 def profile_factor(n, m, seed, variant="blocked", B=1, reps=5):
     """Device time and launches per factor of each kernel that one LDLᵀ
     factor of ``variant`` runs on B (n + m)² f64 KKT matrices, the
@@ -118,6 +173,9 @@ def main():
                                tt.BatchSolver, f64 + [("auto", "float32")]),
         "socp_batch_B1024": (chip_smoke.socp_batch(1024, 32, args.seed + 2),
                              tt.BatchSolver, [("auto", "float32")]),
+        # chip_smoke.py phase 3d's entropy maximization
+        "entropy_n500": (chip_smoke.entropy_max(500, 20, 20, args.seed + 20),
+                         tt.DefaultSolver, f64),
     }
     report = dict(card=card, runs=[])
     with full_precision():
@@ -131,10 +189,19 @@ def main():
                       f"idle {100 * r['idle_share']:.1f}%")
                 for k in r["kernels"]:
                     print(f"    {k['device_ms']:9.3f} ms  {k['calls']:6d}x  {k['name']}")
+        report["host_split"] = []
+        for method in ("pallas", "auto"):
+            r = host_split(problems["entropy_n500"][0], method)
+            report["host_split"].append(r)
+            print(f"entropy_n500 {method} host split: {r['iterations']} iterations, wall "
+                  f"{r['wall_ms']:.1f} ms, {r['device_reads']} device reads")
+            for key, part in r["parts"].items():
+                print(f"    {part['host_ms']:9.1f} ms  {part['calls']:5d}x  {key}")
         report["factors"] = []
         for variant, B, n, m in (("blocked", 1, 1000, 1001), ("blocked", 1, 500, 1052),
                                  ("unrolled", 1, 100, 101), ("fori", 8, 100, 100),
-                                 ("unrolled", 1, 128, 128), ("unrolled", 2048, 32, 64)):
+                                 ("unrolled", 1, 128, 128), ("unrolled", 2048, 32, 64),
+                                 ("blocked", 1, 1000, 1540)):
             r = profile_factor(n, m, args.seed, variant, B)
             report["factors"].append(r)
             print(f"{variant} factor {B}x{r['N']}² f64, per factor:")

@@ -45,6 +45,14 @@ def test_solve_imports_no_jax():
         "    s = tt.DefaultSolver(P, np.ones(2), A, b, [tt.ZeroConeT(1), tt.NonnegativeConeT(4)],\n"
         "        tt.DefaultSettings(verbose=False, direct_solve_method=method), device='cpu')\n"
         "    assert s.solve().status == tt.SolverStatus.Solved\n"
+        "    assert s.solve(warm_start=s.solution).status == tt.SolverStatus.Solved\n"
+        "# an exponential and a power cone (cones/nonsymmetric.py)\n"
+        "A = np.vstack([-np.eye(3), [[0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], -np.eye(3)[::-1]])\n"
+        "b = np.array([0.0, 0.0, 0.0, 1.0, np.exp(5.0), 0.0, 0.0, 0.0])\n"
+        "cones = [tt.ExponentialConeT(), tt.ZeroConeT(2), tt.PowerConeT(0.5)]\n"
+        "s = tt.DefaultSolver(np.zeros((3, 3)), np.array([-1.0, 0.0, 0.0]), A, b, cones,\n"
+        "    tt.DefaultSettings(verbose=False), device='cpu')\n"
+        "assert s.solve().status == tt.SolverStatus.Solved\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'clarabel_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -89,18 +97,19 @@ def _f32(method):
     # BatchSolver: a batch of two copies of the same problem
     (dict(batch=True, **_f32("lu")), "item 12b"),
     (dict(batch=True, mesh=object()), "item 16"),
-    (dict(batch=True, warm_start=(np.zeros((2, 2)), np.ones((2, 5)), np.ones((2, 5)))),
-     "item 18"),
+    # f32 on a nonsymmetric layout: "auto" resolves to "lu" there
+    (dict(batch=True, cones=[tt.ZeroConeT(1), tt.NonnegativeConeT(1),
+                             tt.GenPowerConeT([0.5, 0.5], 1)], **_f32("auto")), "item 12b"),
 ])
 def test_unported_options_raise(kwargs, item):
     P, q, A, b, cones = _tiny_qp()
     kwargs = dict(kwargs)
     kwargs.setdefault("settings", tt.DefaultSettings(verbose=False))
+    cones = kwargs.pop("cones", cones)
     with pytest.raises(NotImplementedError, match=item):
         if kwargs.pop("batch", False):
-            warm_start = kwargs.pop("warm_start", None)
             P, q, A, b = (np.stack([v, v]) for v in (P, q, A, b))
-            tt.BatchSolver(P, q, A, b, cones, device="cpu", **kwargs).solve(warm_start=warm_start)
+            tt.BatchSolver(P, q, A, b, cones, device="cpu", **kwargs).solve()
         else:
             tt.DefaultSolver(P, q, A, b, cones, device="cpu", **kwargs)
 
@@ -115,16 +124,19 @@ def test_batch_solver_defaults_to_cuda_and_has_no_time_limit(monkeypatch):
         tt.BatchSolver(P, q, A, b, cones, tt.DefaultSettings(verbose=False))
 
 
-@pytest.mark.parametrize("cone, item", [
-    (api.PSDTriangleConeT(2), "item 11"),
-    (api.ExponentialConeT(), "item 10"),
-    (api.PowerConeT(0.3), "item 10"),
+@pytest.mark.parametrize("cone, kwargs, item", [
+    (api.PSDTriangleConeT(2), {}, "item 11"),
+    # the exponential and power cones run at f64 only
+    (api.ExponentialConeT(), _f32("auto"), "item 12b"),
+    (api.PowerConeT(0.3), _f32("pallas"), "item 12b"),
 ])
-def test_unported_cones_raise(cone, item):
+def test_unported_cones_raise(cone, kwargs, item):
     m = cone.nvars
+    kwargs = dict(kwargs)
+    settings = kwargs.pop("settings", tt.DefaultSettings(verbose=False))
     with pytest.raises(NotImplementedError, match=item):
         tt.DefaultSolver(np.eye(2), np.ones(2), np.ones((m, 2)), np.ones(m), [cone],
-                         tt.DefaultSettings(verbose=False), device="cpu")
+                         settings, device="cpu", **kwargs)
 
 
 def test_sparse_auto_route_raises():

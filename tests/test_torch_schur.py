@@ -227,15 +227,24 @@ def test_f64_explicit_schur_lr_oracle_accuracy():
 
 
 def test_schur_lr_on_an_exp_layout_raises_for_the_cone():
-    """The JAX package demotes schur_lr to LU on an exponential-cone layout;
-    the port does not run that cone yet, and says so."""
+    """The JAX package demotes schur_lr to LU on an exponential-cone layout.
+    At f64 the port does too, bit for bit its "lu" solve; at f32 the
+    demoted LU needs the compensated f32 stack, so the port raises for the
+    cone's layout, naming item 12b."""
     A = np.vstack([-np.eye(3), [[0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]])
     b = np.concatenate([np.zeros(3), [1.0, np.exp(5.0)]])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tt.DefaultSolver(np.zeros((3, 3)), np.array([-1.0, 0.0, 0.0]), A, b,
-                         [tapi.ExponentialConeT(), tapi.ZeroConeT(2)],
-                         tt.DefaultSettings(verbose=False, direct_solve_method="schur_lr"),
-                         device="cpu")
+    cones = [tapi.ExponentialConeT(), tapi.ZeroConeT(2)]
+    solve = lambda method: tt.DefaultSolver(
+        np.zeros((3, 3)), np.array([-1.0, 0.0, 0.0]), A, b, cones,
+        tt.DefaultSettings(verbose=False, direct_solve_method=method), device="cpu").solve()
+    lr, lu = solve("schur_lr"), solve("lu")
+    assert lr.status == tt.SolverStatus.Solved and lr.iterations == lu.iterations
+    np.testing.assert_array_equal(lr.x, lu.x)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        tt.DefaultSolver(np.zeros((3, 3)), np.array([-1.0, 0.0, 0.0]), A, b, cones,
+                         tt.DefaultSettings.for_float32(verbose=False,
+                                                        direct_solve_method="schur_lr"),
+                         dtype="float32", device="cpu")
 
 
 def test_schur_diag_on_an_soc_layout_runs_lu():
