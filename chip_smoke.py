@@ -8,11 +8,12 @@ Phases:
      hand-written kernels (clarabel_tpu_torch/kkt/csrc/ldl.cu) into build/;
   1. each LDLᵀ kernel against its plain PyTorch version on the card, at f64
      and f32, at the shapes the solvers give it (the batch phase's
-     512 and 2048 x 96², 1024 x 129², 64 x 201² and 4 x 2001² among them), with
-     the solve's backward error, the kernel's and the plain version's times
-     and, as yardsticks the port never calls, torch.linalg.ldl_factor
-     (pivoted, so another function) and torch.linalg.lu_factor; the
-     unblocked kernel (K2/K3) bit for bit equal to its twin, also at the
+     512 and 2048 x 96², 1024 x 129², 64 x 201² and 4 x 2001², phase 3e's
+     1 x 10200², the chordal max-cut's 1 x N² and 64 and 2048 x 58² among
+     them), with the solve's backward error, the kernel's and the plain
+     version's times and, as yardsticks the port never calls,
+     torch.linalg.ldl_factor (pivoted, so another function; not at
+     N = 10200) and torch.linalg.lu_factor; the unblocked kernel (K2/K3) bit for bit equal to its twin, also at the
      edges of its shared-memory design (N = 1, 2; N = 240, the widest f64
      triangle that fits; N = 241 and 256, which start in device memory; 264
      matrices of N = 64, more than the card's SMs; f32 N = 256, B = 8); the
@@ -55,7 +56,25 @@ Phases:
      QP and of the entropy problem after a 1 % update of q or b, equal to
      their cold re-solves; and a termination callback that stops at
      iteration 3;
-  4. the launch counts of phases 2-3, 3b and 3d and one JSON line per
+  3e. the PSD triangle cone and chordal decomposition: the max-cut SDP
+     relaxation in primal form over a random graph of order 100 (one
+     PSDTriangleConeT(100) and a ZeroConeT(100), KKT N = 10200, K1) through
+     "pallas" and "auto" (which takes the JAX package's route: tentatively
+     sparse for its PSD block, dense after the chordal analysis), within
+     1e-7 and 1 iteration; the dual max-cut relaxation of a random graph of
+     order 124 and average degree 3, decomposed into its cliques, through
+     "pallas" (K1) and "lu", each within 1e-7 of its solve without the
+     decomposition and with a completed dual PSD to 1e-7, through "auto"
+     (dense or the multifrontal engine's NotImplementedError, as the JAX
+     package routes it), and a warm re-solve through the clique transform
+     after a 1 % change of q; the JAX bench's strictly complementary SDP
+     batch (n = 16, NonnegativeConeT(32) + PSDTriangleConeT(4), N = 58, K2)
+     at B = 64 and 2048, checked as phase 3b checks its batches, each lane's
+     iterations within 4 between the backends and between a lane alone and
+     in the batch (the JAX package's own spread on those lanes); every
+     solve prints its device reads and every device wait the sync debug
+     mode sees;
+  4. the launch counts of phases 2-3, 3b, 3d and 3e and one JSON line per
      kernel and shape.
 
 With --deterministic the run also sets torch.use_deterministic_algorithms
@@ -71,6 +90,7 @@ script fails before it prints anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -158,7 +178,17 @@ def cuda_ms(fn, reps):
 
 def kkt_batch(B, n, m, dtype, seed, device):
     """Quasidefinite [[P, Aᵀ], [A, -I]] with P = MMᵀ/n + I, as the JAX
-    package's bench builds them (bench.py:275-279)."""
+    package's bench builds them (bench.py:275-279); drawn on the device
+    where n > 2000, whose n³ products numpy would take minutes over."""
+    if n > 2000:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        M = torch.randn((B, n, n), generator=gen, dtype=torch.float64, device=device) / n**0.5
+        P = M @ M.mT + torch.eye(n, dtype=torch.float64, device=device)
+        del M
+        A = torch.randn((B, m, n), generator=gen, dtype=torch.float64, device=device)
+        eye = torch.eye(m, dtype=torch.float64, device=device).expand(B, m, m)
+        return torch.cat([torch.cat([P, A.mT], dim=2), torch.cat([A, -eye], dim=2)],
+                         dim=1).to(dtype)
     rng = np.random.default_rng(seed)
     M = rng.normal(size=(B, n, n)) / np.sqrt(n)
     P = np.einsum("bij,bkj->bik", M, M) + np.eye(n)
@@ -246,6 +276,94 @@ def portfolio_socp(n, k, seed, sigma=0.05):
     return np.zeros((n, n)), -mu, A, b, cones
 
 
+def _svec(X):
+    """svec of [..., d, d]: the upper triangle column by column, the
+    off-diagonal entries times √2 (the reference's packing)."""
+    d = X.shape[-1]
+    return np.stack([X[..., i, j] * (1.0 if i == j else np.sqrt(2.0))
+                     for j in range(d) for i in range(j + 1)], axis=-1)
+
+
+def random_graph_laplacian(order, edges, rng):
+    """The Laplacian of a random graph of ``order`` vertices and ``edges``
+    unit-weight edges."""
+    pairs = np.array([(i, j) for j in range(order) for i in range(j)])
+    pick = pairs[rng.choice(len(pairs), size=edges, replace=False)]
+    W = np.zeros((order, order))
+    W[pick[:, 0], pick[:, 1]] = W[pick[:, 1], pick[:, 0]] = 1.0
+    return np.diag(W.sum(axis=1)) - W
+
+
+def maxcut_primal(order, edges, seed):
+    """The max-cut SDP relaxation (Goemans-Williamson) in primal form, of
+    a random graph of ``order`` vertices (SDPLIB mcp100's order: 100) and
+    ``edges`` unit-weight edges: minimize <C, X> over X ⪰ 0 with diag(X) = 1, C = -L/4.  x = svec(X):
+    tri(order) variables, one PSDTriangleConeT(order) on s = x and a
+    ZeroConeT(order) on the diagonal.  Every entry of X is a variable, so
+    the PSD cone has no sparsity to decompose."""
+    from clarabel_tpu_torch import PSDTriangleConeT, ZeroConeT
+
+    L = random_graph_laplacian(order, edges, np.random.default_rng(seed))
+    tri = order * (order + 1) // 2
+    diag = np.array([j * (j + 1) // 2 + j for j in range(order)])
+    A_eq = np.zeros((order, tri))
+    A_eq[np.arange(order), diag] = 1.0
+    A = np.vstack([-np.eye(tri), A_eq])
+    b = np.concatenate([np.zeros(tri), np.ones(order)])
+    return (np.zeros((tri, tri)), _svec(-L / 4.0), A, b,
+            [PSDTriangleConeT(order), ZeroConeT(order)])
+
+
+def maxcut_dual(order, degree, seed):
+    """The dual of the max-cut relaxation of a random sparse graph with
+    SDPLIB mcp124's order (124) at average degree ``degree``: minimize Σ yᵢ
+    subject to Diag(y) - L/4 ⪰ 0, as s = svec(Diag(y) - L/4) in one
+    PSDTriangleConeT(order): b = svec(-L/4), A y = -svec(Diag(y)).  Its
+    aggregate sparsity is the graph's, so chordal decomposition splits the
+    cone into cliques."""
+    from clarabel_tpu_torch import PSDTriangleConeT
+
+    L = random_graph_laplacian(order, order * degree // 2, np.random.default_rng(seed))
+    tri = order * (order + 1) // 2
+    A = np.zeros((tri, order))
+    A[[j * (j + 1) // 2 + j for j in range(order)], np.arange(order)] = -1.0
+    return (np.zeros((order, order)), np.ones(order), A, _svec(-L / 4.0),
+            [PSDTriangleConeT(order)])
+
+
+def sdp_batch(B, n, dmat, seed):
+    """The JAX bench's batched SDP (bench.py:194-256), B strictly
+    complementary instances built from a known primal-dual optimal pair:
+    interior x*, complementary s* ⊥ z* on NonnegativeConeT(2n) (a quarter
+    of the rows active) and on PSDTriangleConeT(dmat) (S*, Z* PSD on
+    orthogonal complements), then b = Ax* + s*, q = -(Px* + Aᵀz*)."""
+    from clarabel_tpu_torch import NonnegativeConeT, PSDTriangleConeT
+
+    tri = dmat * (dmat + 1) // 2
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(B, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", M, M) + 0.5 * np.eye(n)
+    Apsd = np.zeros((tri, n))
+    Apsd[:tri, :min(tri, n)] = -np.eye(tri)[:, :min(tri, n)]
+    A = np.tile(np.vstack([np.eye(n), -np.eye(n), Apsd]), (B, 1, 1))
+    x_star = 0.5 * rng.normal(size=(B, n))
+    s_nn = rng.uniform(0.5, 1.5, (B, 2 * n))
+    z_nn = np.zeros((B, 2 * n))
+    act = rng.uniform(size=(B, 2 * n)) < 0.25
+    z_nn[act] = rng.uniform(0.5, 1.5, act.sum())
+    s_nn[act] = 0.0
+    Qo, _ = np.linalg.qr(rng.normal(size=(B, dmat, dmat)))
+    k = dmat // 2
+    S = np.einsum("bik,bk,bjk->bij", Qo[:, :, :k], rng.uniform(0.5, 1.5, (B, k)), Qo[:, :, :k])
+    Z = np.einsum("bik,bk,bjk->bij", Qo[:, :, k:], rng.uniform(0.5, 1.5, (B, dmat - k)),
+                  Qo[:, :, k:])
+    s_star = np.concatenate([s_nn, _svec(S)], axis=1)
+    z_star = np.concatenate([z_nn, _svec(Z)], axis=1)
+    b = np.einsum("bmn,bn->bm", A, x_star) + s_star
+    q = -(np.einsum("bij,bj->bi", P, x_star) + np.einsum("bmn,bm->bn", A, z_star))
+    return P, q, A, b, [NonnegativeConeT(2 * n), PSDTriangleConeT(dmat)]
+
+
 # -----------------------------------------------------------------
 # phase 1: kernels against their plain versions
 # -----------------------------------------------------------------
@@ -309,8 +427,9 @@ def check_kernel(variant, B, n, m, dtype, seed, device, settings, reps, sm_hz):
     row["ms"] = cuda_ms(lambda: pl.ldl_factor(K, n, m, settings, variant), reps)
     row["plain_ms"] = cuda_ms(lambda: plain(K, sign, eps, delta), 1)
     # the pivoted LDLᵀ factors one matrix after another, seconds at B = 1024
+    # and at N = 10200
     row["ldl_factor_ms"] = (cuda_ms(lambda: torch.linalg.ldl_factor_ex(K), reps)
-                            if B <= 64 else None)
+                            if B <= 64 and N <= 4000 else None)
     row["lu_factor_ms"] = cuda_ms(lambda: torch.linalg.lu_factor_ex(K), reps)
     row["bound_ms"], row["bound_by"] = bound_ms(B, N, dtype)
     if variant != "blocked":
@@ -388,6 +507,10 @@ def entropy_max(n, p, q, seed):
 #: backends: lanes by |Δ| 0-6 = 175, 229, 75, 26, 4, 2, 1; a lane alone and
 #: in the batch up to 3 apart (scripts/entropy_lane_spread.py, on the CPU)
 ENTROPY_ITERATIONS_APART = 6
+#: the same for phase 3e's B = 2048 SDP lanes (at --seed 0): LU against
+#: LDLᵀ, lanes by |Δ| 0-4 = 2039, 7, 1, 0, 1; a lane alone and in the batch
+#: up to 3 apart (scripts/entropy_lane_spread.py --problem sdp, on the CPU)
+SDP_ITERATIONS_APART = 4
 
 
 def entropy_batch(B, n, p, q, seed):
@@ -512,10 +635,11 @@ BATCHES = {
 }
 
 
-def batch_solve(problem, method):
+def batch_solve(problem, method, syncs=None):
     """One BatchSolver solve on the card; (solver, solution, wall seconds,
     the LDLᵀ launches it made by variant), the counts set to 0 just before
-    it."""
+    it.  With ``syncs`` (a dict) the solve runs under a :class:`SyncCounter`
+    and ``syncs["count"]`` gets its device waits."""
     import clarabel_tpu_torch as tt
     from clarabel_tpu_torch.kkt import pallas_ldl as pl
 
@@ -525,15 +649,18 @@ def batch_solve(problem, method):
     torch.cuda.synchronize()
     for v in pl.ldl_factor.launches:
         pl.ldl_factor.launches[v] = 0
-    t0 = time.perf_counter()
-    sol = solver.solve()
-    seconds = time.perf_counter() - t0
+    with SyncCounter() if syncs is not None else contextlib.nullcontext() as counter:
+        t0 = time.perf_counter()
+        sol = solver.solve()
+        seconds = time.perf_counter() - t0
+    if syncs is not None:
+        syncs["count"] = counter.count
     launches = dict(pl.ldl_factor.launches)
     assert np.all(np.isfinite(sol.x)) and sol.x.shape == q.shape
     return solver, sol, seconds, launches
 
 
-def check_batch(label, problem, variant, iterations_apart=1):
+def check_batch(label, problem, variant, iterations_apart=1, count_syncs=False):
     """Solve a batch through "pallas" and "auto"; every lane Solved, the
     backends within 1e-7 relative in objective and ``iterations_apart`` in
     each lane's iterations, lanes 0, B/2, the slowest and B - 1 equal to
@@ -546,7 +673,9 @@ def check_batch(label, problem, variant, iterations_apart=1):
     problem class whose end game amplifies rounding it is the JAX package's
     own spread on the same lanes (ENTROPY_ITERATIONS_APART).  A lane alone
     and in the batch start one rounding apart: a matrix-vector product of
-    one lane and of a batch sum in different orders (printed below)."""
+    one lane and of a batch sum in different orders (printed below).
+    ``count_syncs`` also counts each batch solve's device waits
+    (:class:`SyncCounter`)."""
     import clarabel_tpu_torch as tt
 
     P, q, A, b, cones = problem
@@ -554,18 +683,22 @@ def check_batch(label, problem, variant, iterations_apart=1):
     N = n + b.shape[1]
     runs = {}
     for method in ("pallas", "auto"):
-        solver, sol, secs, launches = batch_solve(problem, method)
+        syncs = {} if count_syncs else None
+        solver, sol, secs, launches = batch_solve(problem, method, syncs)
         its = sol.iterations
         statuses = sol.statuses()
         runs[method] = dict(sol=sol, history=solver.iteration_history(), wall_ms=secs * 1e3,
                             solves_per_s=B / secs,
                             ms_per_iteration=secs * 1e3 / max(int(its.max()), 1),
                             iterations_sum=int(its.sum()), iterations_max=int(its.max()),
-                            iterations_min=int(its.min()), launches=launches)
+                            iterations_min=int(its.min()), launches=launches,
+                            syncs=None if syncs is None else syncs["count"])
         log(f"  {label} N={N} {method}: {sum(s.name == 'Solved' for s in statuses)}/{B} Solved, "
             f"iterations {its.min()}-{its.max()} (sum {its.sum()}), wall {secs * 1e3:.1f} ms, "
             f"{B / secs:.1f} solves/s, {secs * 1e3 / max(int(its.max()), 1):.2f} ms/iteration, "
-            f"LDLᵀ launches {launches}")
+            f"LDLᵀ launches {launches}"
+            + ("" if syncs is None else f", device waits {syncs['count']} "
+               f"({syncs['count'] / max(int(its.max()), 1):.1f}/iteration)"))
         assert all(s == tt.SolverStatus.Solved for s in statuses), f"{label} {method}: {statuses}"
     lu, ldl = runs["auto"]["sol"], runs["pallas"]["sol"]
     rel = np.abs(ldl.obj_val - lu.obj_val) / np.maximum(1.0, np.abs(lu.obj_val))
@@ -882,6 +1015,160 @@ def nonsym_phase(seed):
     return out, launches
 
 
+# -----------------------------------------------------------------
+# phase 3e: PSD cones and chordal decomposition
+# -----------------------------------------------------------------
+
+
+class SyncCounter:
+    """Counts the operations that make the host wait for the device, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them, inside a
+    ``with`` block; the reads through ``timers.host_read`` are among them."""
+
+    def __enter__(self):
+        self._caught = warnings.catch_warnings(record=True)
+        self._records = self._caught.__enter__()
+        warnings.simplefilter("always")
+        self._mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(self._mode)
+        self.count = sum("synchroniz" in str(w.message) for w in self._records)
+        self._caught.__exit__(*exc)
+        return False
+
+
+def psd_solve(label, problem, method, **settings):
+    """One DefaultSolver solve on the card, built first; (solver, solution,
+    report) with the wall time, the LDLᵀ launches by variant, the device
+    reads through ``host_read`` and every device wait the sync debug mode
+    sees, each counted from 0 just before the solve."""
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+    from clarabel_tpu_torch.timers import host_read
+
+    P, q, A, b, cones = problem
+    solver = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(
+        verbose=False, direct_solve_method=method, **settings), device="cuda")
+    torch.cuda.synchronize()
+    for v in pl.ldl_factor.launches:
+        pl.ldl_factor.launches[v] = 0
+    host_read.count = 0
+    with SyncCounter() as syncs:
+        t0 = time.perf_counter()
+        sol = solver.solve()
+        seconds = time.perf_counter() - t0
+    assert np.all(np.isfinite(sol.x)) and sol.x.shape == (q.shape[0],)
+    its = max(sol.iterations, 1)
+    info = solver.info.linear_solver
+    row = dict(method=method, kkt=info.name, N=info.dim, status=sol.status.name,
+               iterations=sol.iterations, obj=sol.obj_val, ms=seconds * 1e3,
+               ms_per_iteration=seconds * 1e3 / its, launches=dict(pl.ldl_factor.launches),
+               reads=host_read.count, syncs=syncs.count)
+    log(f"  {label} {method} ({info.name}, N={info.dim}): {sol.status.name}, "
+        f"{sol.iterations} iterations, obj {sol.obj_val:.12e}, {seconds * 1e3:.1f} ms "
+        f"({row['ms_per_iteration']:.2f} ms/iteration), LDLᵀ launches {row['launches']}, "
+        f"device reads {host_read.count} ({host_read.count / its:.1f}/iteration), device waits "
+        f"{syncs.count} ({syncs.count / its:.1f}/iteration)")
+    return solver, sol, row
+
+
+def min_eig_ratio(z_svec):
+    """min eigenvalue / largest |eigenvalue| of the symmetric matrix whose
+    svec is ``z_svec``."""
+    d = int((np.sqrt(8 * len(z_svec) + 1) - 1) / 2)
+    Z = np.zeros((d, d))
+    k = 0
+    for j in range(d):
+        for i in range(j + 1):
+            Z[i, j] = Z[j, i] = z_svec[k] if i == j else z_svec[k] / np.sqrt(2.0)
+            k += 1
+    e = np.linalg.eigvalsh(Z)
+    return float(e.min() / np.abs(e).max())
+
+
+def psd_phase(seed):
+    """Phase 3e; returns (report, the LDLᵀ launches of its "pallas" runs by
+    problem)."""
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch.cones import api
+
+    out = {}
+    # max-cut, primal: one dense PSD(100) block, N = 10200, K1
+    maxcut = maxcut_primal(100, 248, seed + 30)
+    runs = {m: psd_solve("max-cut n=100", maxcut, m) for m in ("pallas", "auto")}
+    (_, ldl, r_ldl), (_, lu, r_lu) = runs["pallas"], runs["auto"]
+    assert ldl.status == lu.status == tt.SolverStatus.Solved
+    assert abs(ldl.obj_val - lu.obj_val) <= 1e-7 * max(1.0, abs(lu.obj_val))
+    assert abs(ldl.iterations - lu.iterations) <= 1
+    assert r_ldl["launches"]["blocked"] >= ldl.iterations and r_lu["kkt"] == "lu"
+    out["maxcut"] = {"pallas": r_ldl, "auto": r_lu}
+
+    # max-cut, dual: PSD(124) of a sparse graph, decomposed into cliques
+    dual = maxcut_dual(124, 3, seed + 31)
+    _, plain, r_plain = psd_solve("chordal max-cut n=124, not decomposed", dual, "lu",
+                                  chordal_decomposition_enable=False)
+    assert plain.status == tt.SolverStatus.Solved
+    out["chordal"] = {"undecomposed_lu": r_plain}
+    decomposed = {}
+    for method in ("pallas", "lu"):
+        solver, sol, row = psd_solve("chordal max-cut n=124", dual, method)
+        decomposed[method] = sol
+        assert solver._chordal is not None and sol.status == tt.SolverStatus.Solved
+        rel = abs(sol.obj_val - plain.obj_val) / max(1.0, abs(plain.obj_val))
+        ratio = min_eig_ratio(sol.z)
+        cones = [c for c in solver._layout.cones if c.kind == api.PSD]
+        row.update(rel_obj_vs_undecomposed=rel, completed_dual_min_eig_ratio=ratio,
+                   psd_cones=len(cones), buckets=len(solver._layout.psd_buckets),
+                   largest=max(c.dim for c in cones))
+        log(f"    {len(cones)} PSD cones in {row['buckets']} buckets, the largest "
+            f"{row['largest']}x{row['largest']}; objective {rel:.2e} from the undecomposed "
+            f"solve; completed dual: min eigenvalue {ratio:.2e} of the largest")
+        assert rel <= 1e-7, f"chordal {method}: objective {rel:.3e} from the undecomposed solve"
+        assert ratio >= -1e-7, f"chordal {method}: completed dual min eigenvalue {ratio:.3e}"
+        out["chordal"][method] = row
+    # "auto": the JAX package's route, dense or its multifrontal engine
+    try:
+        _, sol, row = psd_solve("chordal max-cut n=124", dual, "auto")
+        assert sol.status == tt.SolverStatus.Solved
+        assert abs(sol.obj_val - plain.obj_val) <= 1e-7 * max(1.0, abs(plain.obj_val))
+        out["chordal"]["auto"] = row
+    except NotImplementedError as e:
+        assert "item 14" in str(e)
+        log(f"  chordal max-cut n=124 auto: routes to the multifrontal engine ({e})")
+        out["chordal"]["auto"] = dict(route="multifrontal", raised=str(e))
+    # a warm re-solve through the clique transform after a 1 % change of q
+    P, q, A, b, cones = dual
+    changed = (P, q * 1.01, A, b, cones)
+    _, cold, r_cold = psd_solve("chordal max-cut, q + 1 %, cold", changed, "pallas")
+    solver = tt.DefaultSolver(*changed, tt.DefaultSettings(verbose=False,
+                                                           direct_solve_method="pallas"),
+                              device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = solver.solve(warm_start=decomposed["pallas"])
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  chordal max-cut, q + 1 %, warm from the first solve: {warm.status.name}, "
+        f"{warm.iterations} iterations ({warm_ms:.1f} ms), obj {warm.obj_val:.12e}; "
+        f"cold {cold.iterations}")
+    assert cold.status == tt.SolverStatus.Solved
+    out["chordal"]["resolve"] = dict(cold=r_cold, warm=dict(
+        status=warm.status.name, iterations=warm.iterations, obj=warm.obj_val, ms=warm_ms))
+
+    # the bench's batched SDP, K2 at N = 58
+    out["batches"] = {}
+    for label, B in (("SDP B=64", 64), ("SDP B=2048", 2048)):
+        out["batches"][label], _ = check_batch(label, sdp_batch(B, 16, 4, seed + 32 + B),
+                                               "unrolled", SDP_ITERATIONS_APART,
+                                               count_syncs=True)
+        batch = out["batches"][label]
+        log(f"  {label}: {batch['pallas']['solves_per_s']:.1f} solves/s through \"pallas\", "
+            f"{batch['auto']['solves_per_s']:.1f} through \"auto\"")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -960,6 +1247,15 @@ def run(args) -> int:
                                   ("unrolled", 64, 100, 101), ("blocked", 4, 1000, 1001)]
         # phase 3d's shapes: entropy, p-norm, geometric means, entropy batch
         shapes[torch.float64] += [(v, B, n, m) for v, B, n, m in NONSYM_SHAPES.values()]
+        # phase 3e's shapes: the max-cut SDP, the chordal max-cut as its
+        # decomposition gives it, the SDP batches
+        chordal = tt.DefaultSolver(*maxcut_dual(124, 3, args.seed + 31),
+                                   tt.DefaultSettings(direct_solve_method="pallas"), device=device)
+        psd_shapes = {"maxcut": ("blocked", 1, 5050, 5150),
+                      "chordal": ("blocked", 1, chordal._n_int, chordal.m),
+                      "SDP B=64": ("unrolled", 64, 16, 42),
+                      "SDP B=2048": ("unrolled", 2048, 16, 42)}
+        shapes[torch.float64] += list(psd_shapes.values())
         rows = []
         for dtype, cases in shapes.items():
             for variant, B, n, m in cases:
@@ -1029,6 +1325,14 @@ def run(args) -> int:
         report["nonsym"]["seconds"] = time.perf_counter() - t0
         log(f"  phase 3d took {report['nonsym']['seconds']:.1f} s")
 
+        # ---- phase 3e: PSD cones and chordal decomposition; the LDLᵀ
+        # launches counted from zero for each solve
+        log("phase 3e: PSD cones, chordal decomposition")
+        t0 = time.perf_counter()
+        report["psd"] = psd_phase(args.seed)
+        report["psd"]["seconds"] = time.perf_counter() - t0
+        log(f"  phase 3e took {report['psd']['seconds']:.1f} s")
+
     # ---- phase 4: launch counts and the kernels line
     log(f"phase 4: launches on the main path {launches}")
     main_shape = {"blocked": (1, 1000, 1001), "unrolled": (1, 100, 101), "fori": (8, 100, 100)}
@@ -1083,6 +1387,25 @@ def run(args) -> int:
         ))
     log(f"  K1 (blocked) and K2 (unrolled) launches in phase 3d: "
         f"{launches_3d['blocked']} and {launches_3d['unrolled']}")
+    # phase 3e's path: one row per problem at its kernel's shape, with the
+    # launches of its "pallas" solve
+    psd = report["psd"]
+    runs_3e = {"maxcut": psd["maxcut"]["pallas"], "chordal": psd["chordal"]["pallas"],
+               **{label: psd["batches"][label]["pallas"] for label in psd["batches"]}}
+    for label, (variant, B, n, m) in psd_shapes.items():
+        count = runs_3e[label]["launches"][variant]
+        assert count > 0, f"{KERNELS[variant]['name']} never launched by phase 3e's {label}"
+        row = next(r for r in rows if r["variant"] == variant and r["B"] == B
+                   and r["N"] == n + m and r["dtype"] == "float64")
+        kernels.append(dict(
+            name=KERNELS[variant]["name"], route="cuda", source=SOURCE,
+            replaces=KERNELS[variant]["replaces"], launches=count,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            shape=[B, n + m, n + m], dtype="float64", path=f"phase 3e {label}",
+            yardstick_ldl_factor_ms=row["ldl_factor_ms"],
+            yardstick_lu_factor_ms=row["lu_factor_ms"],
+        ))
     report["launches"] = launches
     report["launches_3d"] = launches_3d
     if args.out:

@@ -2,8 +2,9 @@
 
 A port of ``clarabel_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
 module for module.  It carries the dense single-problem solve over zero,
-nonnegative, second-order, exponential, power and generalized power cones,
-with data updates, warm starts and termination callbacks: Ruiz equilibration, the
+nonnegative, second-order, exponential, power, generalized power and PSD
+triangle cones (large sparse PSD cones decomposed into their cliques), with
+data updates, warm starts and termination callbacks: Ruiz equilibration, the
 homogeneous-embedding IPM with Mehrotra predictor-corrector steps and
 Nesterov-Todd scalings, certificate-producing infeasibility detection, and
 its KKT backends -- pivoted LU (``direct_solve_method="lu"``, "auto" at f64),
@@ -23,6 +24,7 @@ from .cones.api import (
     GenPowerConeT,
     NonnegativeConeT,
     PowerConeT,
+    PSDTriangleConeT,
     SecondOrderConeT,
     ZeroConeT,
 )
@@ -32,7 +34,7 @@ from .settings import DefaultSettings, SettingsError
 from .solver import DefaultInfo, DefaultSolution, DefaultSolver
 from .statuses import SolverStatus
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 __all__ = [
     "DefaultSolver",
@@ -49,6 +51,7 @@ __all__ = [
     "ExponentialConeT",
     "PowerConeT",
     "GenPowerConeT",
+    "PSDTriangleConeT",
     "get_infinity",
     "set_infinity",
     "default_infinity",

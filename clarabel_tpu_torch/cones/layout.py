@@ -24,6 +24,61 @@ from .api import ConeSpec
 _GROUP_ORDER = (api.ZERO, api.NONNEGATIVE, api.SOC, api.EXP, api.POW, api.GENPOW, api.PSD)
 
 
+class PSDBucket:
+    """All PSD cones sharing one matrix dimension ``n`` (the JAX package's
+    ``PSDBucket``, without the f32 hi/lo scale splits).
+
+    ``svec`` packing follows the reference convention (column-major upper
+    triangle with √2-scaled off-diagonals; src/algebra/dense/types.rs), so
+    Frobenius inner products equal svec dot products.
+    """
+
+    def __init__(self, n: int, offsets):
+        self.n = n
+        self.tri = (n * (n + 1)) // 2
+        self.count = len(offsets)
+        # gather index [count, tri] into the PSD group vector
+        self.gather = np.asarray(
+            [np.arange(o, o + self.tri) for o in offsets], np.int64
+        ).reshape(self.count, self.tri)
+        # svec position p <-> (row I[p], col J[p]) with I <= J
+        I, J = [], []
+        for col in range(n):
+            for row in range(col + 1):
+                I.append(row)
+                J.append(col)
+        self.I = np.asarray(I, np.int64)
+        self.J = np.asarray(J, np.int64)
+        self.is_diag = self.I == self.J
+        self.diag_pos = np.nonzero(self.is_diag)[0]
+        # svec->mat divides the off-diagonal entries by √2
+        self.unpack_scale = np.where(self.is_diag, 1.0, 1.0 / np.sqrt(2.0))
+        # the svec position of each matrix entry (i, j): the gather that
+        # unpacks an svec into its symmetric matrix
+        pos = np.zeros((n, n), np.int64)
+        pos[self.I, self.J] = np.arange(self.tri)
+        pos[self.J, self.I] = np.arange(self.tri)
+        self.mat_pos = pos
+
+    def tensors(self, dtype, device) -> dict:
+        """The bucket's index and scale arrays as tensors on ``device``
+        (scales in ``dtype``)."""
+        as_long = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
+        return {
+            "gather": as_long(self.gather),
+            "I": as_long(self.I),
+            "J": as_long(self.J),
+            "is_diag": torch.as_tensor(self.is_diag, device=device),
+            "diag_pos": as_long(self.diag_pos),
+            "mat_pos": as_long(self.mat_pos),
+            "mat_scale": torch.as_tensor(self.unpack_scale[self.mat_pos], dtype=dtype,
+                                         device=device),
+            # the skron's 1/√2 on each diagonal svec position
+            "skron_f": torch.as_tensor(np.where(self.is_diag, 1.0 / np.sqrt(2.0), 1.0),
+                                       dtype=dtype, device=device),
+        }
+
+
 def _padded_segments(starts, dims):
     """([k, widest] int index, [k, widest] bool mask) of k contiguous
     segments: row i holds ``starts[i] + 0 .. dims[i] - 1``, padded with the
@@ -136,8 +191,23 @@ class ConeLayout:
         self.gp_pad_idx, self.gp_pad_mask = _padded_segments(
             np.cumsum([0] + gp_dims[:-1]), gp_dims)
 
-        # ---- PSD cones: counted only (the solver rejects them)
-        self.num_psd = sum(1 for c in self.cones if c.kind == api.PSD)
+        # ---- PSD triangle cone metadata ------------------------------
+        # cones are bucketed by matrix dimension n; each bucket batches all
+        # its cones into [..., k, n, n] tensors
+        self.psd_dims = tuple(c.dim for c in self.cones if c.kind == api.PSD)
+        self.num_psd = len(self.psd_dims)
+        self.m_psd = sum(api._triangular_number(d) for d in self.psd_dims)
+        self.psd_buckets = []  # list of PSDBucket, by increasing n
+        if self.num_psd:
+            # svec order within the PSD group follows cone order; bucket
+            # cones of equal n together with gather indices into the group
+            by_n = {}
+            off = 0
+            for d in self.psd_dims:
+                by_n.setdefault(d, []).append(off)
+                off += api._triangular_number(d)
+            for n_mat, offs in sorted(by_n.items()):
+                self.psd_buckets.append(PSDBucket(n_mat, offs))
 
         # the cones whose rows equilibration rectifies to their mean
         # (reference: NN and Zero cones keep elementwise scaling,
@@ -176,7 +246,7 @@ class ConeLayout:
     def index_tensors(self, device) -> dict:
         """The SOC, power and generalized power cone metadata and the
         equilibration segments as tensors on ``device``, made once per
-        device."""
+        device (the PSD buckets': :meth:`psd_tensors`)."""
         key = str(device)
         if key not in self._device_index:
             as_long = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
@@ -202,6 +272,14 @@ class ConeLayout:
                 "gp_pad_idx": as_long(self.gp_pad_idx),
                 "gp_pad_mask": as_bool(self.gp_pad_mask),
             }
+        return self._device_index[key]
+
+    def psd_tensors(self, dtype, device) -> list:
+        """:meth:`PSDBucket.tensors` of each PSD bucket, made once per dtype
+        and device."""
+        key = ("psd", str(device), dtype)
+        if key not in self._device_index:
+            self._device_index[key] = [b.tensors(dtype, device) for b in self.psd_buckets]
         return self._device_index[key]
 
     def zero_row_mask(self, dtype, device) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Composite-cone operations for the zero, nonnegative, second-order,
-exponential, power and generalized power cones.
+exponential, power, generalized power and PSD triangle cones.
 
-PyTorch port of ``clarabel_tpu/cones/ops.py`` without its PSD branches.
+PyTorch port of ``clarabel_tpu/cones/ops.py``, without its f32
+double-float PSD paths (``mul_hs_df``) and the sparse path's Hs values.
 Every operation is a plain function over the full permuted slack vector:
 contiguous group slices handle the per-kind math and heterogeneous
 second-order cones are vectorized with segment sums, so the same code serves
@@ -17,8 +18,8 @@ last dimension, and a per-problem scalar has the batch shape itself (0-d
 for one problem, ``[B]`` for a batch).
 
 The exponential, power and generalized power cones' branches call into
-``cones.nonsymmetric``, as the JAX package's do.  The PSD branches are not
-ported yet; the solver rejects PSD cones before any of this runs.
+``cones.nonsymmetric``, the PSD cones' into ``cones.psd``, as the JAX
+package's do, and at the same places.
 """
 
 from __future__ import annotations
@@ -173,6 +174,10 @@ def unit_initialization(layout: ConeLayout, dtype, device, batch=()):
         from . import nonsymmetric as _ns
 
         z, s = _ns.unit_initialization(layout, z, s)
+    if layout.num_psd:
+        from . import psd as _psd
+
+        z, s = _psd.unit_initialization(layout, z, s)
     return z, s
 
 
@@ -195,6 +200,11 @@ def set_identity_scaling(layout: ConeLayout, dtype, device, batch=()):
         state["soc_w"] = w
         state["soc_eta"] = torch.ones(shape(layout.num_soc), **kw)
         state["soc_lam"] = torch.zeros(shape(layout.m_soc), **kw)
+    if layout.num_psd:
+        from . import psd as _psd
+
+        state.update(_psd.set_identity_scaling(layout, dtype, device, batch))
+    # nonsymmetric cones never take the symmetric initialization path
     return state
 
 
@@ -261,6 +271,12 @@ def update_scaling(layout: ConeLayout, state, s, z, mu, strategy):
         state, ok_ns = _ns.update_scaling(layout, state, s, z, mu, strategy)
         ok = ok & ok_ns
 
+    if layout.num_psd:
+        from . import psd as _psd
+
+        state, ok_psd = _psd.update_scaling(layout, state, s, z)
+        ok = ok & ok_psd
+
     return state, ok
 
 
@@ -294,6 +310,11 @@ def hs_dense(layout: ConeLayout, state, dtype, device, batch=()):
         from . import nonsymmetric as _ns
 
         H = _ns.hs_dense(layout, state, H)
+
+    if layout.num_psd:
+        from . import psd as _psd
+
+        H = _psd.hs_dense(layout, state, H)
 
     return H
 
@@ -358,6 +379,11 @@ def mul_hs(layout: ConeLayout, state, x):
 
         y = _ns.mul_hs(layout, state, x, y)
 
+    if layout.num_psd:
+        from . import psd as _psd
+
+        y = _psd.mul_hs(layout, state, x, y)
+
     return y
 
 
@@ -379,6 +405,11 @@ def affine_ds(layout: ConeLayout, state, s):
         from . import nonsymmetric as _ns
 
         ds = _ns.affine_ds(layout, ds, s)
+
+    if layout.num_psd:
+        from . import psd as _psd
+
+        ds = _psd.affine_ds(layout, state, ds)
 
     return ds
 
@@ -414,6 +445,11 @@ def combined_ds_shift(layout: ConeLayout, state, step_z, step_s, sigma_mu, z):
         from . import nonsymmetric as _ns
 
         shift = _ns.combined_ds_shift(layout, state, shift, step_z, step_s, sigma_mu, z)
+
+    if layout.num_psd:
+        from . import psd as _psd
+
+        shift = _psd.combined_ds_shift(layout, state, shift, step_z, step_s, sigma_mu)
 
     return shift
 
@@ -460,6 +496,12 @@ def ds_from_dz_offset(layout: ConeLayout, state, ds, z):
 
         for sl in _ns._present_slices(layout):
             out[..., sl] = ds[..., sl]
+
+    if layout.num_psd:
+        from . import psd as _psd
+
+        out = _psd.ds_from_dz_offset(layout, state, out, ds)
+
     return out
 
 
@@ -536,6 +578,11 @@ def step_length(layout: ConeLayout, state, dz, ds, z, s, settings, alpha_max):
         alpha = torch.minimum(alpha, _soc_step_component(layout, z[..., sl], dz[..., sl], big))
         alpha = torch.minimum(alpha, _soc_step_component(layout, s[..., sl], ds[..., sl], big))
 
+    if layout.num_psd:
+        from . import psd as _psd
+
+        alpha = _psd.step_length(layout, state, dz, ds, z, s, alpha, big)
+
     if not layout.is_symmetric:
         from . import nonsymmetric as _ns
 
@@ -575,6 +622,11 @@ def compute_barrier(layout: ConeLayout, state, z, s, dz, ds, alpha):
 
         barrier = barrier + _ns.compute_barrier(layout, z, s, dz, ds, a)
 
+    if layout.num_psd:
+        from . import psd as _psd
+
+        barrier = barrier + _psd.compute_barrier(layout, z, s, dz, ds, a)
+
     return barrier
 
 
@@ -609,6 +661,11 @@ def margins(layout: ConeLayout, z, pd):
         mn = torch.minimum(mn, _min_init(a, big))
         total = total + torch.sum(torch.clamp(a, min=0.0), dim=-1)
 
+    if layout.num_psd:
+        from . import psd as _psd
+
+        mn, total = _psd.margins(layout, z, mn, total)
+
     # zero cones: (+inf, 0) contribution — no-op on (mn, total)
     return mn, total
 
@@ -633,6 +690,11 @@ def scaled_unit_shift(layout: ConeLayout, z, alpha, pd):
         sl = layout.slice_of(api.SOC)
         heads = _idx(layout, z.device)["soc_head_idx"] + sl.start
         z[..., heads] = z[..., heads] + alpha
+
+    if layout.num_psd:
+        from . import psd as _psd
+
+        z = _psd.scaled_unit_shift(layout, z, alpha)
 
     return z
 

@@ -1,14 +1,16 @@
 """Scenario-batch data parallelism: B problems of one structure, one solve.
 
 PyTorch port of ``clarabel_tpu/parallel/batch.py`` on one device over
-zero, nonnegative, second-order, exponential, power and generalized power
-cones: at f64, and at f32 where the KKT method is a structured Schur path
-("auto" picks "schur_diag" or "schur_lr" on the symmetric cones).  B conic programs with the same cones and shapes but different
-numbers (scenarios, MPC horizons, portfolio draws) solve as one run of the
-IPM loop on tensors with a leading batch dimension: every factorization
-factors the B KKT matrices at once (batched pivoted LU or Cholesky, or one
-launch of the hand-written LDLᵀ kernel for all of them), and the host reads
-the device as often as for one problem.  Problems that have converged freeze while the others run on, as under the
+zero, nonnegative, second-order, exponential, power, generalized power and
+PSD triangle cones: at f64, and at f32 where the KKT method is a structured
+Schur path ("auto" picks "schur_diag" or "schur_lr" on the zero,
+nonnegative and second-order cones).  B conic programs with the same cones
+and shapes but different numbers (scenarios, MPC horizons, portfolio
+draws) solve as one run of the IPM loop on tensors with a leading batch
+dimension: every factorization factors the B KKT matrices at once (batched
+pivoted LU or Cholesky, or one launch of the hand-written LDLᵀ kernel for
+all of them), and the host reads the device as often as for one problem.
+Problems that have converged freeze while the others run on, as under the
 JAX package's ``jax.vmap``, so each problem's iterations and history equal
 its solve alone; the wall time is that of the slowest problem.
 
@@ -33,7 +35,6 @@ from ..solver import (
     _not_ported,
     build_solve_core,
     check_ported,
-    check_ported_cones,
     check_ported_dtype,
     full_precision,
     resolve_device,
@@ -133,7 +134,6 @@ class BatchSolver:
         if sum(c.nvars for c in cones) != m:
             raise ValueError("cone dims do not match b")
         cones_int = api.collapse_cones(cones)
-        check_ported_cones(cones_int)
 
         # symmetrize-by-triu per instance (matches DefaultSolver semantics)
         U = np.triu(P)

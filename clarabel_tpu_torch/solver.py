@@ -3,9 +3,9 @@
 PyTorch port of the dense path of ``clarabel_tpu/solver.py``: host-side
 orchestration mirroring the reference setup pipeline (reference:
 src/solver/implementations/default/solver.rs:57-126): dimension checks ->
-cone collapsing -> presolve -> cone layout (a row permutation groups the
-cones by kind) -> one solve on the device covering equilibration, the IPM
-loop and solution unscaling.
+cone collapsing -> presolve -> chordal decomposition of sparse PSD cones ->
+cone layout (a row permutation groups the cones by kind) -> one solve on
+the device covering equilibration, the IPM loop and solution unscaling.
 
 Problems solve as
 
@@ -46,9 +46,6 @@ _PORTED_METHODS = ("auto", "lu", "pallas", "schur", "schur_diag", "schur_lr",
 _METHOD_ITEMS = {"multifrontal": 14}
 #: the methods that run at f32: the others need the compensated f32 stack
 _F32_METHODS = ("schur_diag", "schur_lr")
-#: cone kinds this port runs, and the ROADMAP items that port the others
-_PORTED_CONES = (api.ZERO, api.NONNEGATIVE, api.SOC, api.EXP, api.POW, api.GENPOW)
-_CONE_ITEMS = {api.PSD: 11}
 
 
 @dataclasses.dataclass
@@ -148,7 +145,8 @@ def _symmetrize_triu(P: np.ndarray) -> np.ndarray:
 
 
 # the JAX package's gate for its sparse multifrontal auto route
-# (clarabel_tpu/solver.py:320-382); the port raises where it would route
+# (clarabel_tpu/solver.py:320-382); the port raises where that route goes
+# on to the multifrontal engine
 _SPARSE_AUTO_MIN_DIM = 3000
 _SPARSE_AUTO_MAX_DENSITY = 0.02
 
@@ -340,22 +338,18 @@ def check_ported_dtype(layout: ConeLayout, settings: DefaultSettings, dtype: str
             "f32 refinement and the double-float LU)", "12b")
 
 
-def check_ported_cones(cones_int) -> None:
-    """Raises for a (collapsed) cone this port does not run yet."""
-    for c in cones_int:
-        if c.kind not in _PORTED_CONES:
-            raise _not_ported(f"the {c!r} cone", _CONE_ITEMS[c.kind])
-
-
 class DefaultSolver:
     """Interior-point solver for convex conic programs with quadratic
     objectives (reference: DefaultSolver, default/solver.rs:19-126), on the
-    dense path with zero, nonnegative, second-order, exponential, power and
-    generalized power cones: at f64 through every ported KKT method (the
-    Schur paths fall back to LU on the nonsymmetric cones, as in the JAX
-    package), at f32 through "schur_diag" and "schur_lr" on the symmetric
-    cones.  Its data can be updated between solves, a solve warm-started
-    and stopped by a callback."""
+    dense path with zero, nonnegative, second-order, exponential, power,
+    generalized power and PSD triangle cones, large sparse PSD cones
+    decomposed into their cliques (chordal decomposition): at f64 through
+    every ported KKT method (the structured Schur paths fall back to LU on
+    the nonsymmetric and PSD cones, as in the JAX package), at f32 through
+    "schur_diag" and "schur_lr" on the zero, nonnegative and second-order
+    cones.  Its data can be updated between solves (unless presolve or the
+    decomposition changed the problem), a solve warm-started and stopped by
+    a callback."""
 
     def __init__(
         self,
@@ -405,7 +399,11 @@ class DefaultSolver:
             self._A_csc = A_csc
             self._nnzA = int(A_csc.nnz)
 
-            if _wants_sparse(self.settings, P_csc, A_csc, n, m, cones):
+            # the JAX package routes large sparse problems to its
+            # multifrontal engine; a problem sent there only tentatively,
+            # for its PSD blocks, may come back to the dense path
+            if _wants_sparse(self.settings, P_csc, A_csc, n, m, cones) and \
+                    not self._sparse_route_returns_dense(q, b, cones):
                 raise _not_ported("the sparse multifrontal auto route", 14)
             self._setup_dense(
                 _symmetrize_triu(P_csc.toarray()), A_csc.toarray(), q, b, cones,
@@ -418,12 +416,43 @@ class DefaultSolver:
         self._callback = None
 
     # ------------------------------------------------------------------
+    def _sparse_route_returns_dense(self, q, b, cones) -> bool:
+        """Whether the JAX package's sparse setup sends this problem back to
+        the dense path before its multifrontal symbolic analysis
+        (clarabel_tpu/solver.py:697-807): the same presolve, chordal
+        decomposition and augmentation on the sparse data, then its
+        post-chordal density re-check, run only for a problem with PSD
+        cones and no explicit "multifrontal" request."""
+        import scipy.sparse as sp
+
+        if self.settings.direct_solve_method == "multifrontal":
+            return False
+        cones_int = api.collapse_cones(cones)
+        A_work = self._A_csc.tocsr()
+        presolver = presolve.try_presolve(A_work, b, cones_int, self.settings)
+        if presolver is not None:
+            A_work, b, cones_int = presolve.apply_presolve(presolver, A_work, b, cones_int)
+        if not any(c.kind == api.PSD for c in cones_int):
+            return False
+        b = np.minimum(b, get_infinity())
+        P_full = (self._P_csc + sp.triu(self._P_csc, 1).T).tocsc()
+
+        from .chordal import try_chordal_info
+
+        chordal = try_chordal_info(A_work, b, cones_int, self.settings)
+        if chordal is not None:
+            P_s, q, A_s, b, cones_int = chordal.decomp_augment(
+                P_full, q, A_work, b, self.settings)
+            P_full, A_work = P_s.tocsc(), A_s.tocsr()
+        N = P_full.shape[0] + sum(c.nvars for c in cones_int)
+        nnz = 2 * P_full.nnz + A_work.nnz + N + _estimate_hs_nnz(cones_int)
+        return nnz >= _SPARSE_AUTO_MAX_DENSITY * float(N) * float(N)
+
     def _setup_dense(self, P, A, q, b, cones):
         n, m = q.shape[0], b.shape[0]
         with self.timers.scope("presolve"):
             # cone collapsing (supportedcone.rs:105-161)
             cones_int = api.collapse_cones(cones)
-            check_ported_cones(cones_int)
 
             # presolve reduction (problemdata.rs:85-90)
             self._presolver = presolve.try_presolve(A, b, cones_int, self.settings)
@@ -435,17 +464,22 @@ class DefaultSolver:
             # cap b at the infinity bound (problemdata.rs:126-131)
             b = np.minimum(b, get_infinity())
 
-            # user-frame copies (after presolve) for data updating
+            # user-frame copies (after presolve, before the chordal
+            # decomposition) for data updating
             self._np_P = P
             self._np_q = q.copy()
             self._np_A = A.copy()
             self._np_b = b.copy()
 
             # chordal decomposition of large sparse PSD cones
-            # (problemdata.rs:94-112): never applies to the cones ported
+            # (problemdata.rs:94-112)
             from .chordal import try_chordal_info
 
             self._chordal = try_chordal_info(A, b, cones_int, self.settings)
+            if self._chordal is not None:
+                P, q, A, b, cones_int = self._chordal.decomp_augment(
+                    P, q, A, b, self.settings
+                )
 
             self._layout = ConeLayout(cones_int)
 
@@ -456,8 +490,8 @@ class DefaultSolver:
 
         self.n = n  # original variable count
         self.m_full = m  # original constraint count
-        self.m = self._layout.m  # internal (reduced) count
-        self._n_int = P.shape[0]
+        self.m = self._layout.m  # internal (reduced / augmented) count
+        self._n_int = P.shape[0]  # internal variable count (chordal adds)
         self._p_is_zero = not np.any(P)
         self._torch_dtype = getattr(torch, self._dtype)
 
@@ -525,6 +559,13 @@ class DefaultSolver:
         s_int[self._layout.perm] = out["s"]
         x_int = np.asarray(out["x"], np.float64)
 
+        # undo the chordal decomposition (+ PSD dual completion) before
+        # the presolve reversal (solution.rs:92-105)
+        if self._chordal is not None:
+            x_int, z_int, s_int = self._chordal.decomp_reverse(
+                x_int, z_int, s_int, self.settings
+            )
+
         # undo presolve (solution.rs:96-105)
         if self._presolver is not None:
             z, s = presolve.reverse_presolve(self._presolver, z_int, s_int)
@@ -588,6 +629,10 @@ class DefaultSolver:
             keep = self._presolver.keep_logical
             s0 = s0[keep]
             z0 = z0[keep]
+        if self._chordal is not None:
+            # forward-map through the clique transform (per-clique gather
+            # and exact/zero overlap split; decomp.decomp_warm_start)
+            x0, s0, z0 = self._chordal.decomp_warm_start(x0, s0, z0)
         perm = self._layout.perm
         return self._put(x0), self._put(s0[perm]), self._put(z0[perm])
 

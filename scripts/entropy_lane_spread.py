@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""How far apart rounding alone puts the iteration counts of the entropy
-lanes that chip_smoke.py's phase 3d solves as one BatchSolver batch.
+"""How far apart rounding alone puts the iteration counts of the lanes
+that chip_smoke.py solves as one BatchSolver batch: phase 3d's entropy
+lanes, or (``--problem sdp``) phase 3e's SDP lanes.
 
 Builds chip_smoke.py's entropy batch (B = 512 maximizations of n = 40,
 p = q = 4, KKT N = 208, one draw of (F, g, G, h) per lane, from its
-default seed) and solves it on the CPU at f64 through the JAX package's
+default seed), or its SDP batch (the JAX bench's strictly complementary
+SDP at n = 16, NonnegativeConeT(32) + PSDTriangleConeT(4), N = 58, B =
+2048, from its default seed), and solves it on the CPU at f64 through the JAX package's
 BatchSolver -- "auto" (pivoted LU) and "pallas" (the LDLᵀ kernel in
 interpret mode), in chunks of lanes -- and through the port's BatchSolver
 (the plain twins).  For lanes 0, B/2, B - 1 and the slowest lane under
@@ -13,12 +16,14 @@ DefaultSolver.  It prints, for each package, the lanes by the difference
 of their iteration counts (0, 1, 2, ...): LU against LDLᵀ in one batch,
 and a lane alone against the same lane in the batch through one backend.
 The JAX package's largest difference is the allowance chip_smoke.py gives
-each lane of that batch on the card (ENTROPY_ITERATIONS_APART).
+each lane of that batch on the card (ENTROPY_ITERATIONS_APART,
+SDP_ITERATIONS_APART).
 
-    python3 scripts/entropy_lane_spread.py [--lanes B] [--chunk C] [--out FILE]
+    python3 scripts/entropy_lane_spread.py [--problem entropy|sdp] [--lanes B]
+                                           [--chunk C] [--out FILE]
 
-About 6 minutes at the defaults (B = 512, C = 64) on an 8-core CPU; the
-JAX package runs with ``JAX_PLATFORMS=cpu``.
+About 6 minutes at the entropy defaults (B = 512, C = 64) on an 8-core
+CPU; the JAX package runs with ``JAX_PLATFORMS=cpu``.
 """
 
 from __future__ import annotations
@@ -50,11 +55,20 @@ jax_pallas_ldl.make_ldl_factor = functools.partial(jax_pallas_ldl.make_ldl_facto
                                                    interpret=True)
 
 N_VARS, P_ROWS, Q_ROWS, SEED = 40, 4, 4, 23  # chip_smoke.py's phase 3d at --seed 0
+SDP_N, SDP_DMAT, SDP_SEED = 16, 4, 32  # phase 3e at --seed 0: seed + 32 + B
 METHODS = ("auto", "pallas")
 
 
-def _jax_cones():
-    return [ct.ExponentialConeT()] * N_VARS + [ct.ZeroConeT(P_ROWS), ct.NonnegativeConeT(Q_ROWS)]
+def _problem(name, lanes):
+    """(P, q, A, b, the port's cones, the JAX package's cones)."""
+    if name == "entropy":
+        P, q, A, b, cones = chip_smoke.entropy_batch(lanes, N_VARS, P_ROWS, Q_ROWS, SEED)
+        jax_cones = [ct.ExponentialConeT()] * N_VARS + [ct.ZeroConeT(P_ROWS),
+                                                         ct.NonnegativeConeT(Q_ROWS)]
+    else:
+        P, q, A, b, cones = chip_smoke.sdp_batch(lanes, SDP_N, SDP_DMAT, SDP_SEED + lanes)
+        jax_cones = [ct.NonnegativeConeT(2 * SDP_N), ct.PSDTriangleConeT(SDP_DMAT)]
+    return P, q, A, b, cones, jax_cones
 
 
 def _histogram(a, b):
@@ -85,14 +99,17 @@ def alone_iterations(package, P, q, A, b, cones, method, lanes):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--lanes", type=int, default=512)
+    parser.add_argument("--problem", choices=("entropy", "sdp"), default="entropy")
+    parser.add_argument("--lanes", type=int)
     parser.add_argument("--chunk", type=int, default=64)
     parser.add_argument("--out", help="also write the readings to this JSON file")
     args = parser.parse_args(argv)
+    if args.lanes is None:
+        args.lanes = 512 if args.problem == "entropy" else 2048
 
-    P, q, A, b, port_cones = chip_smoke.entropy_batch(args.lanes, N_VARS, P_ROWS, Q_ROWS, SEED)
+    P, q, A, b, port_cones, jax_cones = _problem(args.problem, args.lanes)
     out = {}
-    for name, package, cones in (("jax", ct, _jax_cones()), ("port", tt, port_cones)):
+    for name, package, cones in (("jax", ct, jax_cones), ("port", tt, port_cones)):
         t0 = time.perf_counter()
         its = {}
         for method in METHODS:

@@ -8,21 +8,29 @@ BatchSolver, the JAX bench's box-QP batch (n = 32, m = 64, B = 2048, KKT
 N = 96) once through each f64 KKT backend ("pallas" and "auto"), then the
 box-QP batch and the JAX bench's SOCP batch (n = 32, one
 SecondOrderConeT(33), B = 1024) at f32 through "auto" (the Schur paths
-"schur_diag" and "schur_lr"), and chip_smoke.py's entropy maximization
-(n = 500, 500 exponential cones, N = 2540) through "pallas" and "auto",
+"schur_diag" and "schur_lr"), chip_smoke.py's entropy maximization
+(n = 500, 500 exponential cones, N = 2540) and its PSD problems -- the
+max-cut SDP (one PSDTriangleConeT(100), N = 10200), the chordal max-cut
+(PSDTriangleConeT(124) of a sparse graph, decomposed into its cliques) and
+the bench's SDP batch at B = 2048 (N = 58) -- through "pallas" and "auto",
 each under torch.profiler after one untraced warm-up solve, and prints for
 each: the wall time, the summed device time of the kernels, the device's
 idle share (1 - device time / wall time; the kernels of one stream do not
-overlap), and the kernels that take the most device time.  For the
-entropy solves it also splits the host's wall time over the loop's parts
-(an untraced solve with each part's function wrapped by a host clock:
-inclusive times, device waits included) and counts the device reads.
-Then it profiles the LDLᵀ factor alone, f64: the blocked variant at the
-three large problems' KKT shapes (1 x 2001², 1 x 1552², 1 x 2540²) and
-the unblocked one at 1 x 201², 8 x 200², 1 x 256² and the box-QP batch's
-2048 x 96², and prints each kernel's device time and launches per factor.
+overlap), the kernels that take the most device time, and, from a second
+untraced solve, the device reads through ``timers.host_read`` and every
+device wait ``torch.cuda.set_sync_debug_mode`` reports (the reads among
+them; on PSD layouts the SVDs and eigenvalue solves add theirs).  For the
+entropy and max-cut solves it also splits the host's wall time over the
+loop's parts (an untraced solve with each part's function wrapped by a host
+clock: inclusive times, device waits included) and counts the device
+reads.  Then it profiles the LDLᵀ factor alone, f64: the blocked variant
+at the large problems' KKT shapes (1 x 2001², 1 x 1552², 1 x 2540²,
+1 x 10200²) and the unblocked one at 1 x 201², 8 x 200², 1 x 256² and the
+batches' 2048 x 96² and 2048 x 58², and prints each kernel's device time
+and launches per factor.
 
     python3 scripts/profile_torch_solve.py [--seed S] [--top K] [--out FILE]
+                                           [--problems LABEL,...]
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ def profile_solve(problem, method, top, solver_type=tt.DefaultSolver, dtype="flo
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_us = sum(e.self_device_time_total for e in events)
     kernels = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    waits = device_waits(make)
     if solver_type is tt.BatchSolver:  # the slowest lane's iterations
         solved = sum(s == tt.SolverStatus.Solved for s in sol.statuses())
         status, iterations = f"{solved}/{len(sol.status)} Solved", int(sol.iterations.max())
@@ -69,10 +78,46 @@ def profile_solve(problem, method, top, solver_type=tt.DefaultSolver, dtype="flo
     return dict(
         method=method, dtype=dtype, status=status, iterations=iterations,
         wall_ms=wall * 1e3, device_ms=device_us / 1e3,
-        idle_share=1.0 - device_us / 1e6 / wall,
+        idle_share=1.0 - device_us / 1e6 / wall, **waits,
         kernels=[dict(name=e.key[:90], calls=e.count,
                       device_ms=e.self_device_time_total / 1e3) for e in kernels],
     )
+
+
+def device_waits(make):
+    """One untraced solve of a new solver from ``make``: its device reads
+    through ``timers.host_read`` and the device waits of every kind, as
+    chip_smoke.SyncCounter counts them."""
+    from clarabel_tpu_torch.timers import host_read
+
+    solver = make()
+    torch.cuda.synchronize()
+    host_read.count = 0
+    with chip_smoke.SyncCounter() as syncs:
+        solver.solve()
+    return dict(device_reads=host_read.count, device_waits=syncs.count)
+
+
+def waits_per_call():
+    """The device waits one call of each linear-algebra function of the PSD
+    path makes (chip_smoke.SyncCounter), at the max-cut's and the chordal
+    max-cut's shapes, f64."""
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for shape in ((1, 100, 100), (10, 21, 21), (2048, 1, 4, 4)):
+        M = torch.randn(shape, generator=rng, dtype=torch.float64, device="cuda")
+        S = M @ M.mT + torch.eye(shape[-1], dtype=torch.float64, device="cuda")
+        calls = {"svd": lambda: torch.linalg.svd(M, full_matrices=False),
+                 "eigvalsh": lambda: torch.linalg.eigvalsh(S),
+                 "cholesky_ex": lambda: torch.linalg.cholesky_ex(S),
+                 "lu_factor_ex": lambda: torch.linalg.lu_factor_ex(S)}
+        for name, fn in calls.items():
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            with chip_smoke.SyncCounter() as syncs:
+                fn()
+            out[f"{name} {list(shape)}"] = syncs.count
+    return out
 
 
 def host_split(problem, method):
@@ -87,6 +132,7 @@ def host_split(problem, method):
     from clarabel_tpu_torch.timers import host_read
 
     parts = {"kkt factor (loop._kkt_prepare)": (loop, "_kkt_prepare"),
+             "Hs assembly (cones.ops.hs_dense)": (ops, "hs_dense"),
              "refined solves (kkt.dense.solve_refined)": (dense, "solve_refined"),
              "scaling update (cones.ops.update_scaling)": (ops, "update_scaling"),
              "step length (loop.calc_step_length)": (loop, "calc_step_length"),
@@ -153,6 +199,8 @@ def main():
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--top", type=int, default=12)
     parser.add_argument("--out")
+    parser.add_argument("--problems", help="profile only these problems (comma-separated "
+                        "labels, e.g. maxcut_n100,sdp_batch_B2048)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_solve: no CUDA device", file=sys.stderr)
@@ -176,32 +224,51 @@ def main():
         # chip_smoke.py phase 3d's entropy maximization
         "entropy_n500": (chip_smoke.entropy_max(500, 20, 20, args.seed + 20),
                          tt.DefaultSolver, f64),
+        # chip_smoke.py phase 3e's PSD problems
+        "maxcut_n100": (chip_smoke.maxcut_primal(100, 248, args.seed + 30), tt.DefaultSolver, f64),
+        # "auto" raises here: the JAX package's route needs its multifrontal
+        # analysis (ROADMAP item 14)
+        "chordal_maxcut_n124": (chip_smoke.maxcut_dual(124, 3, args.seed + 31),
+                                tt.DefaultSolver, [("pallas", "float64"), ("lu", "float64")]),
+        "sdp_batch_B2048": (chip_smoke.sdp_batch(2048, 16, 4, args.seed + 32 + 2048),
+                            tt.BatchSolver, f64),
     }
+    chosen = set(problems if args.problems is None else args.problems.split(","))
     report = dict(card=card, runs=[])
     with full_precision():
         for label, (problem, solver_type, runs) in problems.items():
+            if label not in chosen:
+                continue
             for method, dtype in runs:
                 r = profile_solve(problem, method, args.top, solver_type, dtype)
                 r["problem"] = label
                 report["runs"].append(r)
+                its = max(r["iterations"], 1)
                 print(f"{label} {method} {dtype}: {r['status']} in {r['iterations']} iterations, "
                       f"wall {r['wall_ms']:.1f} ms, device {r['device_ms']:.1f} ms, "
-                      f"idle {100 * r['idle_share']:.1f}%")
+                      f"idle {100 * r['idle_share']:.1f}%, device reads "
+                      f"{r['device_reads'] / its:.1f} and waits {r['device_waits'] / its:.1f} "
+                      f"per iteration")
                 for k in r["kernels"]:
                     print(f"    {k['device_ms']:9.3f} ms  {k['calls']:6d}x  {k['name']}")
+        report["waits_per_call"] = waits_per_call()
+        print("device waits per call:", report["waits_per_call"])
         report["host_split"] = []
-        for method in ("pallas", "auto"):
-            r = host_split(problems["entropy_n500"][0], method)
-            report["host_split"].append(r)
-            print(f"entropy_n500 {method} host split: {r['iterations']} iterations, wall "
-                  f"{r['wall_ms']:.1f} ms, {r['device_reads']} device reads")
-            for key, part in r["parts"].items():
-                print(f"    {part['host_ms']:9.1f} ms  {part['calls']:5d}x  {key}")
+        for label in chosen & {"entropy_n500", "maxcut_n100"}:
+            for method in ("pallas", "auto"):
+                r = host_split(problems[label][0], method)
+                r["problem"] = label
+                report["host_split"].append(r)
+                print(f"{label} {method} host split: {r['iterations']} iterations, wall "
+                      f"{r['wall_ms']:.1f} ms, {r['device_reads']} device reads")
+                for key, part in r["parts"].items():
+                    print(f"    {part['host_ms']:9.1f} ms  {part['calls']:5d}x  {key}")
         report["factors"] = []
         for variant, B, n, m in (("blocked", 1, 1000, 1001), ("blocked", 1, 500, 1052),
                                  ("unrolled", 1, 100, 101), ("fori", 8, 100, 100),
                                  ("unrolled", 1, 128, 128), ("unrolled", 2048, 32, 64),
-                                 ("blocked", 1, 1000, 1540)):
+                                 ("blocked", 1, 1000, 1540), ("blocked", 1, 5050, 5150),
+                                 ("unrolled", 2048, 16, 42)):
             r = profile_factor(n, m, args.seed, variant, B)
             report["factors"].append(r)
             print(f"{variant} factor {B}x{r['N']}² f64, per factor:")

@@ -26,6 +26,7 @@ import test_basic_socp
 import test_basic_eq_and_unconstrained as test_basic_eq
 import test_basic_expcone
 import test_basic_powcone
+import test_basic_sdp
 import test_batch
 
 
@@ -81,6 +82,26 @@ def _socp_infeasible():
     P, q, A, b, cones = test_basic_socp.socp_data()
     b[6] = -10.0
     return P, q, A, b, cones
+
+
+def _sdp_empty_cone():
+    P, q, A, b, cones = test_basic_sdp.sdp_data()
+    return P, q, A, b, cones + [ct.PSDTriangleConeT(0)]
+
+
+def _sdp_primal_infeasible():
+    P, q, A, b, cones = test_basic_sdp.sdp_data()
+    return (P, q, np.vstack([A, -A]), np.concatenate([b, np.zeros(6)]),
+            cones + [ct.PSDTriangleConeT(3)])
+
+
+def _sdp_mixed_with_soc():
+    """test_basic_sdp.py's PSD + SOC mixture: b is 5·I in svec form, so
+    x = 0 is strictly feasible for both blocks."""
+    P, _, A, _, cones = test_basic_sdp.sdp_data()
+    b = np.array([5.0, 0.0, 5.0, 0.0, 0.0, 5.0])
+    return (P, np.ones(6), np.vstack([A, -np.eye(6)]), np.concatenate([b, np.zeros(6)]),
+            cones + [ct.SecondOrderConeT(6)])
 
 
 def _eq(P, q, A, b, cones):
@@ -226,6 +247,11 @@ PROBLEMS = {
     # retries under dual scaling), as test_mixed_conic.py re-solves it
     "mixed_conic_dual_scaling": _mixed_conic,
     "entropy": entropy_max,
+    # the PSD triangle cone: test_basic_sdp.py
+    "sdp_feasible": test_basic_sdp.sdp_data,
+    "sdp_empty_cone": _sdp_empty_cone,
+    "sdp_primal_infeasible": _sdp_primal_infeasible,
+    "sdp_mixed_with_soc": _sdp_mixed_with_soc,
 }
 
 #: settings a problem of PROBLEMS is solved with, besides the method
@@ -234,8 +260,22 @@ PROBLEM_SETTINGS = {"mixed_conic_dual_scaling": dict(min_switch_step_length=0.99
 #: problems (of PROBLEMS, and batches of BATCHES) whose solution the
 #: default tolerances pin only loosely: the reference's own "auto" and
 #: "pallas" solutions differ there beyond the contract's 1e-7 (exp_feasible's
-#: z by 1.5e-5 at scale 4, 37x the bound; entropy's z by up to 1,300x)
-PINNED_BY_TOLERANCE = {"exp_feasible", "entropy"}
+#: z by 1.5e-5 at scale 4, 37x the bound; entropy's z by up to 1,300x;
+#: sdp_mixed_with_soc's x, z and s by 5.9e-7, each 3.7e-6 from the optimum)
+PINNED_BY_TOLERANCE = {"exp_feasible", "entropy", "sdp_mixed_with_soc", "bench_sdp"}
+#: of those, the problems whose objective the default tolerances pin only
+#: loosely too: the reference's own "auto" and "pallas" objectives of
+#: sdp_mixed_with_soc differ by 2.1e-9 (its last step's length is set by
+#: a PSD block whose z is 1e-12, rounding noise), beyond the contract's
+#: 1e-9; those of bench_sdp's lane 2 by 9.7e-10, each 1.3e-9 from the
+#: optimum's
+OBJECTIVE_PINNED_BY_TOLERANCE = {"sdp_mixed_with_soc", "bench_sdp"}
+#: of those, the problems whose x, z and s the optimum pins no better than
+#: the reference's own backends reproduce them: bench_sdp at n = 6 leaves
+#: four of the ten PSD rows out of A, so complementarity alone pins their
+#: z, and the reference's "auto" and "pallas" z differ there by 1.5e-4,
+#: each on its own side of the optimum
+SOLUTION_PINNED_BY_SPREAD = {"bench_sdp"}
 
 #: the tolerances of the reference's solve that stands in for the problem's
 #: optimum: 100x below the defaults (on exp_feasible it lands within 9e-7
@@ -273,6 +313,39 @@ def _mu_draws(problem, B, seed):
     mu = np.random.default_rng(seed).normal(0.05, 0.1, size=(B, n))
     tile = lambda v: np.tile(v, (B,) + (1,) * v.ndim)
     return tile(P), -mu, tile(A), tile(b), cones
+
+
+def bench_sdp_batch(B=4, n=6, dmat=4, seed=2):
+    """The JAX bench's batched SDP (bench.py:194-256): strictly complementary
+    instances built from a known primal-dual optimal pair -- interior x*,
+    complementary s* ⊥ z* on NonnegativeConeT(2n) (a quarter of the rows
+    active) and on PSDTriangleConeT(dmat) (S*, Z* PSD on orthogonal
+    complements), then b = Ax* + s*, q = -(Px* + Aᵀz*)."""
+    tri = dmat * (dmat + 1) // 2
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(B, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", M, M) + 0.5 * np.eye(n)
+    Apsd = np.zeros((tri, n))
+    Apsd[:tri, :min(tri, n)] = -np.eye(tri)[:, :min(tri, n)]
+    A = np.tile(np.vstack([np.eye(n), -np.eye(n), Apsd]), (B, 1, 1))
+    x_star = 0.5 * rng.normal(size=(B, n))
+    s_nn = rng.uniform(0.5, 1.5, (B, 2 * n))
+    z_nn = np.zeros((B, 2 * n))
+    act = rng.uniform(size=(B, 2 * n)) < 0.25
+    z_nn[act] = rng.uniform(0.5, 1.5, act.sum())
+    s_nn[act] = 0.0
+    Qo, _ = np.linalg.qr(rng.normal(size=(B, dmat, dmat)))
+    k = dmat // 2
+    S = np.einsum("bik,bk,bjk->bij", Qo[:, :, :k], rng.uniform(0.5, 1.5, (B, k)), Qo[:, :, :k])
+    Z = np.einsum("bik,bk,bjk->bij", Qo[:, :, k:], rng.uniform(0.5, 1.5, (B, dmat - k)),
+                  Qo[:, :, k:])
+    svec = lambda X: np.stack([X[:, i, j] * (1.0 if i == j else np.sqrt(2.0))
+                               for j in range(dmat) for i in range(j + 1)], axis=-1)
+    s_star = np.concatenate([s_nn, svec(S)], axis=1)
+    z_star = np.concatenate([z_nn, svec(Z)], axis=1)
+    b = np.einsum("bmn,bn->bm", A, x_star) + s_star
+    q = -(np.einsum("bij,bj->bi", P, x_star) + np.einsum("bmn,bm->bn", A, z_star))
+    return P, q, A, b, [ct.NonnegativeConeT(2 * n), ct.PSDTriangleConeT(dmat)]
 
 
 def _bench_socp_batch(B=4, n=6, seed=1):
@@ -328,6 +401,8 @@ BATCHES = {
     # B = k = 3 exponential / generalized power cones
     "entropy": _entropy_batch,
     "genpow": _genpow_batch,
+    # B = 4 lanes of the bench's strictly complementary SDP at n = 6
+    "bench_sdp": bench_sdp_batch,
 }
 
 
@@ -470,10 +545,12 @@ def assert_port_matches_reference(name, method, pair=("auto", "pallas")):
         [lane_of(reference(name, m)) for m in pair],
         [lane_of(port(name, m)) for m in pair],
         optimum=reference_optimum(name),
+        pin_objective=name in OBJECTIVE_PINNED_BY_TOLERANCE,
     )
 
 
-def assert_lane_matches(ref, got, ref_pair, got_pair, optimum=None):
+def assert_lane_matches(ref, got, ref_pair, got_pair, optimum=None, pin_objective=False,
+                        pin_by_spread=False):
     """Hold the port's solution ``got`` to the reference's ``ref``, each a
     :class:`Lane`; ``ref_pair`` and ``got_pair`` are the same problem's
     solutions through two KKT backends in each package: the pivoted LU
@@ -507,7 +584,11 @@ def assert_lane_matches(ref, got, ref_pair, got_pair, optimum=None):
     lies from the optimum: the distance two solutions can have when each is
     as accurate as the reference.  It is a quantity of the reference alone,
     so a fault of the port cannot widen its own bound.  The objectives keep
-    1e-9.
+    1e-9, unless ``pin_objective`` (a problem of
+    OBJECTIVE_PINNED_BY_TOLERANCE) gives them the same allowance: twice the
+    reference objective's distance from the optimum's.  ``pin_by_spread`` (a
+    problem of SOLUTION_PINNED_BY_SPREAD) adds to the bound of each entry of
+    x, z and s twice its spread.
     """
     assert got.status == ref.status
 
@@ -532,10 +613,13 @@ def assert_lane_matches(ref, got, ref_pair, got_pair, optimum=None):
             r, p = getattr(ref, v), getattr(got, v)
             scale = max(1.0, float(np.max(np.abs(r), initial=0.0)))
             accuracy = 0.0 if optimum is None else np.abs(r - getattr(optimum, v))
+            if pin_by_spread:
+                accuracy = accuracy + spread(lambda s: getattr(s, v))
             assert np.all(np.abs(p - r) <= 1e-7 * scale + 2.0 * accuracy), v
         for v in ("obj_val", "obj_val_dual"):
             r, p = getattr(ref, v), getattr(got, v)
-            assert abs(p - r) <= 1e-9 * max(1.0, abs(r)), v
+            accuracy = abs(r - getattr(optimum, v)) if pin_objective else 0.0
+            assert abs(p - r) <= 1e-9 * max(1.0, abs(r)) + 2.0 * accuracy, v
     elif ref.status.is_infeasible():
         cert = "z" if ref.status == ct.SolverStatus.PrimalInfeasible else "x"
         unit = lambda s: _direction(getattr(s, cert))
@@ -556,7 +640,9 @@ def assert_batch_matches_reference(name, method):
     assert len(got[method]) == len(ref[method])
     for i, (r, g) in enumerate(zip(ref[method], got[method])):
         assert_lane_matches(r, g, [ref[m][i] for m in methods], [got[m][i] for m in methods],
-                            optimum=optimum[i])
+                            optimum=optimum[i],
+                            pin_objective=name in OBJECTIVE_PINNED_BY_TOLERANCE,
+                            pin_by_spread=name in SOLUTION_PINNED_BY_SPREAD)
         for lane in (r, g):
             assert np.all(np.isnan(lane.history[lane.iterations + 1:])), i
             assert not np.any(np.all(np.isnan(lane.history[:lane.iterations + 1]), axis=1)), i

@@ -53,6 +53,15 @@ def test_solve_imports_no_jax():
         "s = tt.DefaultSolver(np.zeros((3, 3)), np.array([-1.0, 0.0, 0.0]), A, b, cones,\n"
         "    tt.DefaultSettings(verbose=False), device='cpu')\n"
         "assert s.solve().status == tt.SolverStatus.Solved\n"
+        "# a PSD cone decomposed into its cliques (cones/psd.py, chordal/)\n"
+        "n = 6\n"
+        "pairs = [(i, j) for j in range(n) for i in range(j + 1) if j - i <= 1]\n"
+        "A = np.zeros((21, len(pairs)))\n"
+        "for k, (i, j) in enumerate(pairs):\n"
+        "    A[j * (j + 1) // 2 + i, k] = -1.0\n"
+        "s = tt.DefaultSolver(np.eye(len(pairs)), -np.ones(len(pairs)), A, np.zeros(21),\n"
+        "    [tt.PSDTriangleConeT(n)], tt.DefaultSettings(verbose=False), device='cpu')\n"
+        "assert s._chordal is not None and s.solve().status == tt.SolverStatus.Solved\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'clarabel_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -125,8 +134,8 @@ def test_batch_solver_defaults_to_cuda_and_has_no_time_limit(monkeypatch):
 
 
 @pytest.mark.parametrize("cone, kwargs, item", [
-    (api.PSDTriangleConeT(2), {}, "item 11"),
-    # the exponential and power cones run at f64 only
+    # the PSD, exponential and power cones run at f64 only
+    (api.PSDTriangleConeT(2), _f32("auto"), "item 12b"),
     (api.ExponentialConeT(), _f32("auto"), "item 12b"),
     (api.PowerConeT(0.3), _f32("pallas"), "item 12b"),
 ])
@@ -155,7 +164,7 @@ def test_convert_round_trips_settings_and_cones():
     with pytest.raises(ValueError):
         convert.settings_from_dict({"no_such_setting": 1})
     cones = [ct.ZeroConeT(1), ct.SecondOrderConeT(3), ct.PowerConeT(0.25),
-             ct.GenPowerConeT([0.5, 0.5], 2)]
+             ct.GenPowerConeT([0.5, 0.5], 2), ct.PSDTriangleConeT(4)]
     got = convert.cones_from_specs(convert.cone_specs(cones))
     assert [(c.kind, c.dim, c.alpha, c.dim2) for c in got] == \
         [(c.kind, c.dim, c.alpha, c.dim2) for c in cones]
