@@ -65,8 +65,8 @@ Phases:
      order 124 and average degree 3, decomposed into its cliques, through
      "pallas" (K1) and "lu", each within 1e-7 of its solve without the
      decomposition and with a completed dual PSD to 1e-7, through "auto"
-     (dense or the multifrontal engine's NotImplementedError, as the JAX
-     package routes it), and a warm re-solve through the clique transform
+     (dense or the multifrontal engine, as the card's cost model routes
+     it, within 1e-7 too), and a warm re-solve through the clique transform
      after a 1 % change of q; the JAX bench's strictly complementary SDP
      batch (n = 16, NonnegativeConeT(32) + PSDTriangleConeT(4), N = 58, K2)
      at B = 64 and 2048, checked as phase 3b checks its batches, each lane's
@@ -74,8 +74,27 @@ Phases:
      in the batch (the JAX package's own spread on those lanes); every
      solve prints its device reads and every device wait the sync debug
      mode sees;
-  4. the launch counts of phases 2-3, 3b, 3d and 3e and one JSON line per
-     kernel and shape.
+  3f. the sparse multifrontal KKT path at f64: the JAX bench's banded QP
+     (bench.py:307-342: n = 20000, P banded at offsets 0, ±1, ±7,
+     A = [I; -I], KKT N = 60000) through "multifrontal" and "auto" (which
+     must route it there), each Solved with host-side KKT residuals from
+     scipy of at most 1e-7; the same family at n = 2000 (N = 6000) through
+     "multifrontal" and "lu", objectives within 1e-7, the multifrontal
+     solve repeated bit for bit; the bench's banded
+     SDP (bench.py:420-463: PSDTriangleConeT(250), 499 variables, 31,375
+     rows) through "auto" and "multifrontal", each Solved within 1e-7 of
+     "lu" on the chordally decomposed dense path, printing the route the
+     card's cost model took; for each solve the iterations, ms/iteration,
+     one factor and one solve timed with CUDA events, the plan (levels,
+     buckets, nnzL, flops), the symbolic analysis' seconds, the cost model's
+     measured constants and predictions, device reads and waits per
+     iteration and the unblocked kernel's launches per factor (the fronts'
+     diagonal blocks, per-matrix signs); phase 1 holds that kernel with
+     [B, N] signs against its twin, bit for bit, at the fronts' shapes
+     (287 x 32², the QP's widest bucket; 35 x 32², the SDP's; 7 x 1², 17²
+     and 32²);
+  4. the launch counts of phases 2-3, 3b, 3d, 3e and 3f and one JSON line
+     per kernel and shape.
 
 With --deterministic the run also sets torch.use_deterministic_algorithms
 (warn only) and lists each operation PyTorch reports as having no
@@ -134,6 +153,10 @@ KERNELS = {
     "fori": dict(name="ldl_fori", replaces="clarabel_tpu/kkt/pallas_ldl.py:191"),
 }
 SOURCE = "clarabel_tpu_torch/kkt/csrc/ldl.cu"
+#: (B, N) of the unblocked kernel with per-matrix signs: the diagonal-block
+#: batches of phase 3f's multifrontal solves (the banded QP's widest bucket,
+#: 287 fronts; the banded SDP's, 35) and edge widths
+FRONT_SHAPES = ((287, 32), (35, 32), (7, 1), (7, 17), (7, 32))
 
 
 def log(*args):
@@ -473,6 +496,62 @@ def check_regularization(variant, n, pivots, device, settings):
         assert torch.equal(packed, ref), f"{variant}: not bitwise equal, max|Δ| {err:.3e}"
     log(f"  {variant:8s} N={n + m} regularization fires on pivots "
         f"{fired[0].nonzero().flatten().tolist()} in both, max|Δ| {err:.2e}")
+
+
+def front_blocks(B, N, seed, device):
+    """B symmetric N x N blocks as the multifrontal engine hands them to the
+    unblocked kernel, with their [B, N] expected signs: each block
+    diagonally dominant in its own mixed signs, and two pivots that fire
+    the regularization (block 0's first, tiny and decoupled; the last
+    block's last, of the wrong sign)."""
+    rng = np.random.default_rng(seed)
+    sign = np.where(rng.random((B, N)) < 0.5, 1.0, -1.0)
+    K = rng.normal(size=(B, N, N))
+    K = K + np.swapaxes(K, 1, 2)
+    K[:, np.arange(N), np.arange(N)] = 4.0 * N * sign
+    K[0, 0, :] = K[0, :, 0] = 0.0
+    K[0, 0, 0] = 1e-15 * sign[0, 0]
+    K[-1, -1, -1] = -5.0 * sign[-1, -1]
+    as_t = lambda v: torch.as_tensor(v, dtype=torch.float64, device=device)
+    return as_t(K), as_t(sign)
+
+
+def check_front_blocks(B, N, seed, device, settings, sm_hz, reps=20):
+    """``ldl_unblocked_kernel`` with per-matrix signs (a sign stride of N),
+    the multifrontal engine's route for its diagonal blocks, against its
+    plain twin on the card: bit for bit, the regularization firing on the
+    same pivots."""
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+    from clarabel_tpu_torch.kkt import sparse as kkt_sparse
+
+    K, sign = front_blocks(B, N, seed, device)
+    eps, delta = kkt_sparse._regularization(settings)
+    before = pl.ldl_unblocked.launches
+    packed = pl.ldl_unblocked(K, sign, eps, delta)
+    ref = pl.ldl_unblocked_plain(K, sign, eps, delta)
+    torch.cuda.synchronize()
+    assert pl.ldl_unblocked.launches == before + 1
+    assert bool(torch.isfinite(packed).all()), f"front blocks {B}x{N}²: non-finite factor"
+    err = float((packed - ref).abs().max())
+    assert torch.equal(packed, ref), f"front blocks {B}x{N}²: not bitwise equal, max|Δ| {err:.3e}"
+    d = packed.diagonal(dim1=1, dim2=2)
+    fired = (d == delta * sign).nonzero().tolist()
+    assert torch.equal(d == delta * sign, ref.diagonal(dim1=1, dim2=2) == delta * sign)
+    assert [0, 0] in fired and [B - 1, N - 1] in fired
+    row = dict(variant="fori", signs="per-matrix", B=B, N=N, dtype="float64", max_abs_err=err,
+               max_abs_ref=float(ref.abs().max()), regularized=fired)
+    row["ms"] = cuda_ms(lambda: pl.ldl_unblocked(K, sign, eps, delta), reps)
+    row["plain_ms"] = cuda_ms(lambda: pl.ldl_unblocked_plain(K, sign, eps, delta), 1)
+    row["lu_factor_ms"] = cuda_ms(lambda: torch.linalg.lu_factor_ex(K), reps)
+    row["bound_ms"], row["bound_by"] = bound_ms(B, N, torch.float64)
+    row.update(one_sm_ms(B, N, torch.float64, sm_hz))
+    pl.ldl_unblocked.launches = before
+    log(f"  fori     B={B} N={N:4d} float64, [B, N] signs: bitwise equal, regularized {fired}, "
+        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, lu_factor "
+        f"{row['lu_factor_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), "
+        f"one SM: non-FMA floor {row['one_sm_nonfma_floor_ms']:.5f} ms, peak "
+        f"{row['one_sm_peak_ms']:.5f} ms")
+    return row
 
 
 # -----------------------------------------------------------------
@@ -1129,16 +1208,14 @@ def psd_phase(seed):
         assert rel <= 1e-7, f"chordal {method}: objective {rel:.3e} from the undecomposed solve"
         assert ratio >= -1e-7, f"chordal {method}: completed dual min eigenvalue {ratio:.3e}"
         out["chordal"][method] = row
-    # "auto": the JAX package's route, dense or its multifrontal engine
-    try:
-        _, sol, row = psd_solve("chordal max-cut n=124", dual, "auto")
-        assert sol.status == tt.SolverStatus.Solved
-        assert abs(sol.obj_val - plain.obj_val) <= 1e-7 * max(1.0, abs(plain.obj_val))
-        out["chordal"]["auto"] = row
-    except NotImplementedError as e:
-        assert "item 14" in str(e)
-        log(f"  chordal max-cut n=124 auto: routes to the multifrontal engine ({e})")
-        out["chordal"]["auto"] = dict(route="multifrontal", raised=str(e))
+    # "auto": dense or the multifrontal engine, as the card's cost model
+    # routes it
+    solver, sol, row = psd_solve("chordal max-cut n=124", dual, "auto")
+    assert sol.status == tt.SolverStatus.Solved
+    assert abs(sol.obj_val - plain.obj_val) <= 1e-7 * max(1.0, abs(plain.obj_val))
+    row["cost_model"] = solver.info.linear_solver.cost_model
+    log(f"    auto took {row['kkt']}; cost model {row['cost_model']}")
+    out["chordal"]["auto"] = row
     # a warm re-solve through the clique transform after a 1 % change of q
     P, q, A, b, cones = dual
     changed = (P, q * 1.01, A, b, cones)
@@ -1166,6 +1243,201 @@ def psd_phase(seed):
         batch = out["batches"][label]
         log(f"  {label}: {batch['pallas']['solves_per_s']:.1f} solves/s through \"pallas\", "
             f"{batch['auto']['solves_per_s']:.1f} through \"auto\"")
+    return out
+
+
+# -----------------------------------------------------------------
+# phase 3f: the sparse multifrontal KKT path
+# -----------------------------------------------------------------
+
+
+def banded_qp(n, seed):
+    """The JAX bench's sparse QP (bench.py:307-342): P banded at offsets 0,
+    ±1 and ±7, box constraints A = [I; -I], b = 1; KKT N = 3n."""
+    import scipy.sparse as sp
+    from clarabel_tpu_torch import NonnegativeConeT
+
+    rng = np.random.default_rng(seed)
+    diags = [2.0 * np.ones(n), -0.5 * np.ones(n - 1), -0.5 * np.ones(n - 1),
+             0.1 * np.ones(n - 7)]
+    Pm = sp.diags(diags, [0, 1, -1, 7], format="csc")
+    P = ((Pm + Pm.T) * 0.5).tocsc()
+    A = sp.vstack([sp.eye(n), -sp.eye(n)], format="csc")
+    return P, rng.standard_normal(n), A, np.ones(2 * n), [NonnegativeConeT(2 * n)]
+
+
+def banded_sdp(n_mat=250):
+    """The JAX bench's auto-routed banded SDP (bench.py:420-463): one
+    PSDTriangleConeT(n_mat) on a banded matrix variable (2·n_mat − 1
+    variables, tri(n_mat) rows), which chordal decomposition splits into
+    2 x 2 cliques."""
+    import scipy.sparse as sp
+    from clarabel_tpu_torch import PSDTriangleConeT
+
+    tri = n_mat * (n_mat + 1) // 2
+    pattern = [(i, i) for i in range(n_mat)] + [(i, i + 1) for i in range(n_mat - 1)]
+    rows = np.array([j * (j + 1) // 2 + i for (i, j) in pattern])
+    nvar = len(pattern)
+    A = sp.csc_matrix((-np.ones(nvar), (rows, np.arange(nvar))), shape=(tri, nvar))
+    q = np.array([-1.0 if i == j else 0.2 for (i, j) in pattern])
+    return sp.eye(nvar, format="csc"), q, A, np.zeros(tri), [PSDTriangleConeT(n_mat)]
+
+
+def kkt_residuals(problem, sol):
+    """Host-side (scipy) relative KKT residuals of a returned (x, s, z) on a
+    problem with nonnegative cones only: primal ‖Ax + s − b‖∞, stationarity
+    ‖Px + q + Aᵀz‖∞, each over 1 + the largest of its terms, and
+    complementarity |sᵀz| over 1 + |objective|; and the least s and z."""
+    P, q, A, b, _ = problem
+    x, s, z = sol.x, sol.s, sol.z
+    Ax, Px, Atz = A @ x, P @ x, A.T @ z
+    nrm = lambda *v: max(float(np.max(np.abs(u), initial=0.0)) for u in v)
+    return dict(
+        primal=nrm(Ax + s - b) / (1.0 + nrm(Ax, s, b)),
+        stationarity=nrm(Px + q + Atz) / (1.0 + nrm(Px, q, Atz)),
+        complementarity=abs(float(s @ z)) / (1.0 + abs(sol.obj_val)),
+        min_s=float(s.min()), min_z=float(z.min()))
+
+
+def time_multifrontal(solver, reps=5):
+    """One factorization (assembly included) and one 1- and one 2-RHS solve
+    of the solver's multifrontal engine, timed with CUDA events on its data
+    at the identity scaling, and the unblocked kernel's launches in one
+    factorization."""
+    from clarabel_tpu_torch import loop
+    from clarabel_tpu_torch.cones import ops as cone_ops
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl, sparse as kkt_sparse
+
+    layout, dtype = solver._layout, solver._torch_dtype
+    P, A = solver._P.predia(), solver._A.predia()
+    state = cone_ops.set_identity_scaling(layout, dtype, P.data.device)
+    ctx = (solver._skkt, solver._skkt_data)
+
+    def prepare():
+        return loop._kkt_prepare(layout, solver.settings, dtype, solver._n_int, False, P, A,
+                                 state, sparse_kkt=ctx)
+
+    before = pl.ldl_unblocked.launches
+    factors, _, ok = prepare()
+    torch.cuda.synchronize()
+    per_factor = pl.ldl_unblocked.launches - before
+    assert bool(ok)
+    factor_ms = cuda_ms(prepare, reps)
+    pl.ldl_unblocked.launches = before
+    N = solver._skkt.N
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    rhs = torch.randn((N, 2), generator=gen, dtype=dtype).to(P.data.device)
+    ctx_, data, mff = factors[1]
+    solve_ms = cuda_ms(lambda: kkt_sparse.solve(ctx_, data, mff, rhs[:, 0]), reps)
+    solve2_ms = cuda_ms(lambda: kkt_sparse.solve(ctx_, data, mff, rhs), reps)
+    return dict(factor_ms=factor_ms, solve_ms=solve_ms, solve_2rhs_ms=solve2_ms,
+                launches_per_factor=per_factor)
+
+
+def sparse_solve(label, problem, method, **settings):
+    """One DefaultSolver solve on the card, as :func:`psd_solve`, with the
+    multifrontal engine's plan, setup, cost model and the unblocked
+    kernel's launches (counted from 0 just before the solve) when the
+    solve takes that engine."""
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+    from clarabel_tpu_torch.timers import host_read
+
+    P, q, A, b, cones = problem
+    t0 = time.perf_counter()
+    solver = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(
+        verbose=False, direct_solve_method=method, **settings), device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pl.ldl_unblocked.launches = 0
+    host_read.count = 0
+    with SyncCounter() as syncs:
+        t0 = time.perf_counter()
+        sol = solver.solve()
+        seconds = time.perf_counter() - t0
+    launches = pl.ldl_unblocked.launches
+    assert np.all(np.isfinite(sol.x)) and sol.x.shape == (q.shape[0],)
+    its = max(sol.iterations, 1)
+    info = solver.info.linear_solver
+    row = dict(method=method, kkt=info.name, N=info.dim, status=sol.status.name,
+               iterations=sol.iterations, obj=sol.obj_val, setup_s=setup_s, ms=seconds * 1e3,
+               ms_per_iteration=seconds * 1e3 / its, reads=host_read.count, syncs=syncs.count,
+               unblocked_launches=launches, cost_model=info.cost_model)
+    log(f"  {label} {method} ({info.name}, N={info.dim}): {sol.status.name}, "
+        f"{sol.iterations} iterations, obj {sol.obj_val:.12e}, setup {setup_s:.2f} s, solve "
+        f"{seconds * 1e3:.1f} ms ({row['ms_per_iteration']:.2f} ms/iteration), device reads "
+        f"{host_read.count / its:.1f}/iteration, waits {syncs.count / its:.1f}/iteration")
+    if info.cost_model is not None:
+        log(f"    cost model: {info.cost_model}")
+    if solver._sparse:
+        plan = solver._skkt.plan
+        assert launches > 0, f"{label}: the multifrontal solve launched no unblocked kernel"
+        buckets = sum(len(lvl) for lvl in plan.levels)
+        # the cost model's per-iteration predictions for this plan, which
+        # "auto" compares only below the dense fallback's size
+        cm = info.cost_model
+        row.update(levels=len(plan.levels), buckets=buckets, nnzL=plan.nnzL, flops=plan.flops,
+                   symbolic_s=solver._symbolic_seconds,
+                   widest_block_batch=max(B.k for lvl in plan.levels for B in lvl),
+                   predicted_t_mf_s=cm["bucket_s"] * buckets + plan.flops / (cm["mf_gflops"] * 1e9),
+                   predicted_t_dense_s=cm["dense_floor_s"]
+                   + (info.dim / 4096.0) ** 3 * cm["dense_n4096_s"],
+                   **time_multifrontal(solver))
+        log(f"    predicted per iteration: multifrontal {row['predicted_t_mf_s'] * 1e3:.2f} ms, "
+            f"dense LU {row['predicted_t_dense_s'] * 1e3:.2f} ms")
+        log(f"    plan: {row['levels']} levels, {row['buckets']} buckets, nnzL {plan.nnzL}, "
+            f"{plan.flops:.3e} flops, symbolic analysis {row['symbolic_s']:.2f} s; factor "
+            f"{row['factor_ms']:.2f} ms, solve {row['solve_ms']:.2f} ms (2 RHS "
+            f"{row['solve_2rhs_ms']:.2f} ms) by CUDA events; unblocked kernel "
+            f"{row['launches_per_factor']} launches per factor, {launches} in the solve")
+    return solver, sol, row
+
+
+def sparse_phase(seed):
+    """Phase 3f; returns its report."""
+    import clarabel_tpu_torch as tt
+
+    out = {}
+    # the bench's banded QP at N = 60000, through "multifrontal" and "auto"
+    qp = banded_qp(20000, seed + 40)
+    out["qp"] = {}
+    for method in ("multifrontal", "auto"):
+        solver, sol, row = sparse_solve("banded QP n=20000", qp, method)
+        assert solver.info.linear_solver.name == "multifrontal" and row["N"] == 60000
+        assert sol.status == tt.SolverStatus.Solved, f"banded QP {method}: {sol.status.name}"
+        row["residuals"] = kkt_residuals(qp, sol)
+        log(f"    host KKT residuals {row['residuals']}")
+        for key in ("primal", "stationarity", "complementarity"):
+            assert row["residuals"][key] <= 1e-7, f"banded QP {method}: {key} residual"
+        out["qp"][method] = row
+    # the same family at n = 2000 (N = 6000): "multifrontal" against "lu";
+    # the multifrontal solve repeated on the same solver repeats bit for bit
+    small = banded_qp(2000, seed + 41)
+    runs = {m: sparse_solve("banded QP n=2000", small, m) for m in ("multifrontal", "lu")}
+    (solver, mf, r_mf), (_, lu, r_lu) = runs["multifrontal"], runs["lu"]
+    assert mf.status == lu.status == tt.SolverStatus.Solved
+    rel = abs(mf.obj_val - lu.obj_val) / max(1.0, abs(lu.obj_val))
+    x_first = mf.x.copy()
+    again = solver.solve()
+    repeats = bool(np.array_equal(again.x, x_first) and again.iterations == mf.iterations)
+    log(f"    objectives {rel:.2e} apart; a second multifrontal solve bitwise equal: {repeats}")
+    assert rel <= 1e-7, f"banded QP n=2000: multifrontal {rel:.3e} from lu"
+    assert repeats, "banded QP n=2000: a repeated multifrontal solve differs"
+    out["qp_small"] = {"multifrontal": r_mf, "lu": r_lu, "rel_obj": rel, "repeats": repeats}
+    # the bench's banded SDP: "auto" and "multifrontal" against "lu" on the
+    # chordally decomposed dense path
+    sdp = banded_sdp(250)
+    _, ref, r_ref = sparse_solve("banded SDP n=250", sdp, "lu")
+    assert ref.status == tt.SolverStatus.Solved
+    out["sdp"] = {"lu": r_ref}
+    for method in ("auto", "multifrontal"):
+        solver, sol, row = sparse_solve("banded SDP n=250", sdp, method)
+        assert solver._chordal is not None and sol.status == tt.SolverStatus.Solved
+        row["rel_obj_vs_lu"] = abs(sol.obj_val - ref.obj_val) / max(1.0, abs(ref.obj_val))
+        log(f"    {method} took {row['kkt']}, objective {row['rel_obj_vs_lu']:.2e} from lu")
+        assert row["rel_obj_vs_lu"] <= 1e-7
+        out["sdp"][method] = row
+    assert out["sdp"]["multifrontal"]["kkt"] == "multifrontal"
     return out
 
 
@@ -1282,6 +1554,10 @@ def run(args) -> int:
             check_regularization(variant, 100, edges, device, settings)
             check_regularization(variant, half, around, device, settings)
         report["kernels_vs_plain"] = rows
+        # the multifrontal engine's diagonal blocks, per-matrix signs
+        fronts = [check_front_blocks(B, N, args.seed + B + N, device, settings, sm_hz)
+                  for B, N in FRONT_SHAPES]
+        report["front_blocks_vs_plain"] = fronts
 
         # ---- phases 2-3: the main path, launches counted from zero
         for v in pl.ldl_factor.launches:
@@ -1332,6 +1608,14 @@ def run(args) -> int:
         report["psd"] = psd_phase(args.seed)
         report["psd"]["seconds"] = time.perf_counter() - t0
         log(f"  phase 3e took {report['psd']['seconds']:.1f} s")
+
+        # ---- phase 3f: the sparse multifrontal path; the unblocked
+        # kernel's launches counted from zero for each solve
+        log("phase 3f: the sparse multifrontal KKT path")
+        t0 = time.perf_counter()
+        report["sparse"] = sparse_phase(args.seed)
+        report["sparse"]["seconds"] = time.perf_counter() - t0
+        log(f"  phase 3f took {report['sparse']['seconds']:.1f} s")
 
     # ---- phase 4: launch counts and the kernels line
     log(f"phase 4: launches on the main path {launches}")
@@ -1404,6 +1688,24 @@ def run(args) -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
             shape=[B, n + m, n + m], dtype="float64", path=f"phase 3e {label}",
             yardstick_ldl_factor_ms=row["ldl_factor_ms"],
+            yardstick_lu_factor_ms=row["lu_factor_ms"],
+        ))
+    # phase 3f's path: the unblocked kernel on the fronts' diagonal blocks,
+    # per-matrix signs; one row per problem at its widest bucket's block
+    # shape, with the launches of its multifrontal solve
+    sparse = report["sparse"]
+    for label, run_ in (("banded QP n=20000", sparse["qp"]["multifrontal"]),
+                        ("banded SDP n=250", sparse["sdp"]["multifrontal"])):
+        B = run_["widest_block_batch"]
+        row = next(r for r in fronts if r["B"] == B and r["N"] == 32)
+        assert run_["unblocked_launches"] > 0
+        kernels.append(dict(
+            name=KERNELS["fori"]["name"], route="cuda", source=SOURCE,
+            replaces=KERNELS["fori"]["replaces"], launches=run_["unblocked_launches"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            shape=[B, 32, 32], dtype="float64", signs="per-matrix",
+            path=f"phase 3f {label}, multifrontal diagonal blocks",
             yardstick_lu_factor_ms=row["lu_factor_ms"],
         ))
     report["launches"] = launches

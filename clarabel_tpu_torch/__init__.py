@@ -13,7 +13,10 @@ JAX package gives its TPU kernel) and the Schur-complement Cholesky paths
 (``"schur"``, ``"schur_diag"`` and ``"schur_lr"``, "auto" at f32, the only
 f32 paths) -- and the batched solve of many problems of one structure
 (:class:`BatchSolver`), which runs the same loop on a leading batch
-dimension.
+dimension; and, for a large sparse problem, the sparse multifrontal KKT
+path (``"multifrontal"``, or ``"auto"`` past its size and density gate),
+which never densifies the KKT system and factors its fronts' diagonal
+blocks with the same hand-written LDLᵀ kernel.
 
 Solves run on a CUDA device unless ``device="cpu"`` is passed; on the CPU the
 LDLᵀ kernels' plain PyTorch versions run in their place.
@@ -29,17 +32,18 @@ from .cones.api import (
     ZeroConeT,
 )
 from .infbound import default_infinity, get_infinity, set_infinity
-from .parallel import BatchSolution, BatchSolver
+from .parallel import BatchSolution, BatchSolver, SparseBatchSolver
 from .settings import DefaultSettings, SettingsError
 from .solver import DefaultInfo, DefaultSolution, DefaultSolver
 from .statuses import SolverStatus
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
 __all__ = [
     "DefaultSolver",
     "BatchSolver",
     "BatchSolution",
+    "SparseBatchSolver",
     "DefaultSettings",
     "DefaultSolution",
     "DefaultInfo",

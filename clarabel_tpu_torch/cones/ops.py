@@ -2,7 +2,7 @@
 exponential, power, generalized power and PSD triangle cones.
 
 PyTorch port of ``clarabel_tpu/cones/ops.py``, without its f32
-double-float PSD paths (``mul_hs_df``) and the sparse path's Hs values.
+double-float PSD paths (``mul_hs_df``).
 Every operation is a plain function over the full permuted slack vector:
 contiguous group slices handle the per-kind math and heterogeneous
 second-order cones are vectorized with segment sums, so the same code serves
@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import api
@@ -713,3 +714,325 @@ def rectify_equilibration(layout: ConeLayout, e):
     mean = _segment_sum(e, ix["rect_pad_idx"], ix["rect_pad_mask"]) / ix["rect_dims"]
     delta = torch.where(ix["rectify_mask"], mean[..., ix["rect_seg"]] / e, 1.0)
     return delta, True
+
+
+# =================================================================
+# sparse Hs: lower-triangle block coordinates + values
+# =================================================================
+#
+# The sparse KKT engine (kkt/sparse.py) needs the block-diagonal Hs as a
+# flat vector of lower-triangle entries in a canonical order (the analog of
+# the reference's per-cone Hsblocks maps; reference: src/solver/core/
+# kktsolvers/direct/quasidef/datamaps.rs + per-cone ``get_Hs``).
+# ``hs_lower_coords`` runs on the host at setup and fixes the order;
+# ``hs_lower_vals`` produces the values in exactly that order.
+#
+# Canonical order: [ NN diag | SOC cone-major tril | exp cone-major 3x3
+# tril | pow ditto | genpow cone-major tril | PSD bucket/cone-major tril ].
+# Zero cones contribute no Hs entries (their K diagonal comes from the
+# separate diagonal group of the sparse pattern).
+
+
+def hs_lower_coords(layout: ConeLayout, soc_expanded=(), genpow_expanded=False):
+    """Host-side: global (rows, cols) in [0, m) of every Hs lower-triangle
+    entry, row >= col, in the canonical order of :func:`hs_lower_vals`.
+
+    ``soc_expanded`` (bool per SOC cone) and ``genpow_expanded`` select
+    the sparse low-rank expansion form for those cones: their Hs block
+    degenerates to a diagonal here, with the rank-2/rank-3 terms carried
+    by the extension rows of :func:`expansion_coords` (reference:
+    socone.rs:217-226 sparse get_Hs, genpowcone.rs:165-176)."""
+    rows, cols = [], []
+
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        i = np.arange(sl.start, sl.stop, dtype=np.int64)
+        rows.append(i)
+        cols.append(i)
+
+    if layout.num_soc:
+        off = layout.slice_of(api.SOC).start
+        if not soc_expanded:
+            soc_expanded = (False,) * layout.num_soc
+        # dense cones first (cone-major tril), then expanded cones' diags
+        pos = 0
+        for ci, d in enumerate(layout.soc_dims):
+            if not soc_expanded[ci]:
+                ti, tj = np.tril_indices(d)
+                rows.append(off + pos + ti)
+                cols.append(off + pos + tj)
+            pos += d
+        pos = 0
+        for ci, d in enumerate(layout.soc_dims):
+            if soc_expanded[ci]:
+                i = off + pos + np.arange(d, dtype=np.int64)
+                rows.append(i)
+                cols.append(i)
+            pos += d
+
+    for kind, count in ((api.EXP, layout.num_exp), (api.POW, layout.num_pow)):
+        if count:
+            off = layout.slice_of(kind).start
+            ti, tj = np.tril_indices(3)
+            for k in range(count):
+                rows.append(off + 3 * k + ti)
+                cols.append(off + 3 * k + tj)
+
+    if layout.num_genpow:
+        off = layout.slice_of(api.GENPOW).start
+        if genpow_expanded:
+            i = off + np.arange(layout.m_genpow, dtype=np.int64)
+            rows.append(i)
+            cols.append(i)
+        else:
+            pos = 0
+            for c in layout.genpow_cones:
+                w = c.nvars
+                ti, tj = np.tril_indices(w)
+                rows.append(off + pos + ti)
+                cols.append(off + pos + tj)
+                pos += w
+
+    if layout.num_psd:
+        off = layout.slice_of(api.PSD).start
+        for b in layout.psd_buckets:
+            ti, tj = np.tril_indices(b.tri)
+            for ki in range(b.count):
+                rows.append(off + b.gather[ki, ti])
+                cols.append(off + b.gather[ki, tj])
+
+    if not rows:
+        z = np.zeros(0, np.int64)
+        return z, z
+    return (
+        np.concatenate(rows).astype(np.int64),
+        np.concatenate(cols).astype(np.int64),
+    )
+
+
+def _flat(v, batch):
+    """``v [..., a, b, ...]`` as ``[..., a·b·...]`` over the batch shape."""
+    return v.reshape(tuple(batch) + (-1,))
+
+
+def hs_lower_vals(layout: ConeLayout, state, dtype, device, batch=(),
+                  soc_expanded=(), genpow_expanded=False):
+    """Hs lower-triangle entry values ``[..., entries]`` in the canonical
+    order of :func:`hs_lower_coords`, one row per problem of the batch
+    shape ``batch``.  Every gather index is a static host array."""
+    parts = []
+    ix = _idx(layout, device)
+
+    if layout.n_nn:
+        parts.append(state["nn_w"] ** 2)
+
+    if layout.num_soc:
+        if not soc_expanded:
+            soc_expanded = (False,) * layout.num_soc
+        exp_mask = np.asarray(soc_expanded, bool)
+        w, eta = state["soc_w"], state["soc_eta"]
+        seg_all = ix["soc_seg"]
+        # dense form Hs = eta^2 (2wwT - J) per cone (socone.rs:227-245);
+        # entry (i, j): 2 u_i u_j + [i == j] * (head ? -eta^2 : +eta^2)
+        gi_l, gj_l = [], []
+        pos = 0
+        for ci, d in enumerate(layout.soc_dims):
+            if not soc_expanded[ci]:
+                ti, tj = np.tril_indices(d)
+                gi_l.append(pos + ti)
+                gj_l.append(pos + tj)
+            pos += d
+        if gi_l:
+            gi = np.concatenate(gi_l)
+            gj = np.concatenate(gj_l)
+            as_long = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
+            seg = as_long(layout.soc_seg[gi])
+            u = eta[..., seg_all] * w
+            eta2 = (eta**2)[..., seg]
+            head = torch.as_tensor(layout.soc_head_mask[gi], device=device)
+            diag_term = torch.where(head, -eta2, eta2)
+            on_diag = torch.as_tensor(gi == gj, device=device)
+            ti_, tj_ = as_long(gi), as_long(gj)
+            parts.append(2.0 * u[..., ti_] * u[..., tj_] + torch.where(on_diag, diag_term, 0.0))
+        if exp_mask.any():
+            # sparse form: diagonal eta^2 * [d, 1, ..., 1] per cone with
+            # d = 1/(2 w'w) (socone.rs:190-199, 217-226)
+            sel = torch.as_tensor(np.where(exp_mask[layout.soc_seg])[0], device=device)
+            w1sq = _soc_sum(layout, _tail(layout, w) ** 2)
+            w0 = _heads(layout, w)
+            dd = 0.5 / (w0**2 + w1sq)
+            dvals = torch.where(ix["soc_head_mask"], dd[..., seg_all], 1.0) * (eta**2)[..., seg_all]
+            parts.append(dvals[..., sel])
+
+    for key, count in (("exp_hs", layout.num_exp), ("pow_hs", layout.num_pow)):
+        if count:
+            ti, tj = np.tril_indices(3)
+            parts.append(_flat(state[key][..., ti, tj], batch))
+
+    if layout.num_genpow:
+        # Hs = mu (D + pp' - qq' - rr') (genpowcone.rs:360-401)
+        seg = ix["genpow_seg"]
+        diagvec = torch.where(ix["genpow_is_q"], state["gp_d2"][..., seg], state["gp_d1"])
+        mu = _col(state["gp_mu"])
+        if genpow_expanded:
+            # sparse form keeps only mu*D here (genpowcone.rs:169-176);
+            # the rank-3 terms ride the extension rows
+            parts.append(mu * diagvec)
+        else:
+            gi_l, gj_l = [], []
+            pos = 0
+            for c in layout.genpow_cones:
+                ti, tj = np.tril_indices(c.nvars)
+                gi_l.append(pos + ti)
+                gj_l.append(pos + tj)
+                pos += c.nvars
+            gi = np.concatenate(gi_l)
+            gj = np.concatenate(gj_l)
+            on_diag = torch.as_tensor(gi == gj, device=device)
+            gi = torch.as_tensor(gi, dtype=torch.long, device=device)
+            gj = torch.as_tensor(gj, dtype=torch.long, device=device)
+            p, qv, rv = state["gp_p"], state["gp_q"], state["gp_r"]
+            vals = (
+                p[..., gi] * p[..., gj]
+                - qv[..., gi] * qv[..., gj]
+                - rv[..., gi] * rv[..., gj]
+                + torch.where(on_diag, diagvec[..., gi], 0.0)
+            )
+            parts.append(mu * vals)
+
+    if layout.num_psd:
+        from . import psd as _psd
+
+        tensors = layout.psd_tensors(dtype, device)
+        for bi, b in enumerate(layout.psd_buckets):
+            if not b.n:
+                continue
+            R = state[f"psd{bi}_R"]
+            blocks = _psd._skron(tensors[bi], R @ R.mT)  # [..., k, tri, tri]
+            ti, tj = np.tril_indices(b.tri)
+            parts.append(_flat(blocks[..., ti, tj], batch))
+
+    if not parts:
+        return torch.zeros(tuple(batch) + (0,), dtype=dtype, device=device)
+    return torch.cat([p.to(dtype) for p in parts], dim=-1)
+
+
+def expansion_coords(layout: ConeLayout, soc_expanded=(), genpow_expanded=False):
+    """Host-side: lower-triangle coordinates of the sparse-cone expansion
+    terms, in the [0, m + pdim) row space (the caller offsets by n for K
+    coordinates).  Returns (rows, cols, ext_dsigns).
+
+    Canonical order (must match :func:`expansion_vals`):
+      [ SOC v entries | SOC u entries | SOC ext diags (-+ per cone) |
+        genpow q | genpow r | genpow p | genpow ext diags (--+ per cone) ]
+
+    reference: datamaps.rs:112-221 (SOC: v column first, u column second,
+    D = eta^2*(-1, 1)); :226-343 (genpow: q/r/p columns scaled -sqrt(mu),
+    D = (-1, -1, 1)).
+    """
+    rows, cols, signs = [], [], []
+    ext = layout.m  # next extension row index
+
+    soc_ext_pairs = []  # (ext_v, ext_u) per expanded cone
+    if layout.num_soc and soc_expanded and any(soc_expanded):
+        off = layout.slice_of(api.SOC).start
+        pos = 0
+        for ci, d in enumerate(layout.soc_dims):
+            if soc_expanded[ci]:
+                soc_ext_pairs.append((ext, ext + 1, off + pos, d))
+                ext += 2
+            pos += d
+        for ev, eu, r0, d in soc_ext_pairs:  # v entries
+            rows.append(np.full(d, ev, np.int64))
+            cols.append(r0 + np.arange(d, dtype=np.int64))
+        for ev, eu, r0, d in soc_ext_pairs:  # u entries
+            rows.append(np.full(d, eu, np.int64))
+            cols.append(r0 + np.arange(d, dtype=np.int64))
+        for ev, eu, r0, d in soc_ext_pairs:  # ext diagonal
+            rows.append(np.asarray([ev, eu], np.int64))
+            cols.append(np.asarray([ev, eu], np.int64))
+        signs += [-1.0, 1.0] * len(soc_ext_pairs)
+
+    if genpow_expanded and layout.num_genpow:
+        off = layout.slice_of(api.GENPOW).start
+        gp_ext = []  # (ext_q, ext_r, ext_p, row0, dim1, dim2)
+        pos = 0
+        for c in layout.genpow_cones:
+            d1, d2 = len(c.alpha), c.dim2
+            gp_ext.append((ext, ext + 1, ext + 2, off + pos, d1, d2))
+            ext += 3
+            pos += c.nvars
+        for eq, er, ep, r0, d1, d2 in gp_ext:  # q over the alpha part
+            rows.append(np.full(d1, eq, np.int64))
+            cols.append(r0 + np.arange(d1, dtype=np.int64))
+        for eq, er, ep, r0, d1, d2 in gp_ext:  # r over the q part
+            rows.append(np.full(d2, er, np.int64))
+            cols.append(r0 + d1 + np.arange(d2, dtype=np.int64))
+        for eq, er, ep, r0, d1, d2 in gp_ext:  # p over the whole cone
+            rows.append(np.full(d1 + d2, ep, np.int64))
+            cols.append(r0 + np.arange(d1 + d2, dtype=np.int64))
+        for eq, er, ep, r0, d1, d2 in gp_ext:
+            rows.append(np.asarray([eq, er, ep], np.int64))
+            cols.append(np.asarray([eq, er, ep], np.int64))
+        signs += [-1.0, -1.0, 1.0] * len(gp_ext)
+
+    if not rows:
+        z = np.zeros(0, np.int64)
+        return z, z, np.zeros(0, np.float64)
+    return (
+        np.concatenate(rows),
+        np.concatenate(cols),
+        np.asarray(signs, np.float64),
+    )
+
+
+def expansion_vals(layout: ConeLayout, state, dtype, device, batch=(),
+                   soc_expanded=(), genpow_expanded=False):
+    """Expansion entry values ``[..., entries]`` in the order of
+    :func:`expansion_coords`, one row per problem of the batch shape
+    ``batch``.
+
+    SOC rank-2 factors (socone.rs:186-207): with normalized w and
+    wsq = w'w,  d = 1/(2 wsq),  u = [sqrt(wsq - d); (2 w0 / u0) w_1:],
+    v = [0; v1 w_1:],  v1 = sqrt(2 (2 + 1/wsq) / (2 wsq - 1/wsq)); the
+    K entries are -eta^2 u / -eta^2 v with ext diag eta^2 (-1, 1).
+    GenPow (datamaps.rs:330-343): columns -sqrt(mu) q/r/p, diag (-1,-1,1).
+    """
+    parts = []
+    ix = _idx(layout, device)
+    as_long = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
+
+    if layout.num_soc and soc_expanded and any(soc_expanded):
+        exp_mask = np.asarray(soc_expanded, bool)
+        sel = as_long(np.where(exp_mask[layout.soc_seg])[0])  # static row indices
+        cids = as_long(np.where(exp_mask)[0])  # static expanded cone ids
+        w, eta = state["soc_w"], state["soc_eta"]
+        seg = ix["soc_seg"]
+        head = ix["soc_head_mask"]
+        w1sq = _soc_sum(layout, _tail(layout, w) ** 2)
+        w0 = _heads(layout, w)
+        wsq = w0**2 + w1sq
+        dd = 0.5 / wsq
+        u0 = torch.sqrt(wsq - dd)
+        u1 = 2.0 * w0 / u0
+        v1 = torch.sqrt(2.0 * (2.0 + 1.0 / wsq) / (2.0 * wsq - 1.0 / wsq))
+        u_row = torch.where(head, u0[..., seg], u1[..., seg] * w)
+        v_row = torch.where(head, 0.0, v1[..., seg] * w)
+        eta2r = (eta**2)[..., seg]
+        parts.append((-eta2r * v_row)[..., sel])
+        parts.append((-eta2r * u_row)[..., sel])
+        eta2c = (eta**2)[..., cids]
+        parts.append(_flat(torch.stack([-eta2c, eta2c], dim=-1), batch))
+
+    if genpow_expanded and layout.num_genpow:
+        isq = np.asarray(layout.genpow_is_q, bool)
+        sqmu = _col(torch.sqrt(state["gp_mu"]))
+        parts.append((-sqmu * state["gp_q"])[..., as_long(np.where(~isq)[0])])
+        parts.append((-sqmu * state["gp_r"])[..., as_long(np.where(isq)[0])])
+        parts.append(-sqmu * state["gp_p"])
+        ones = torch.ones(tuple(batch) + (layout.num_genpow,), dtype=dtype, device=device)
+        parts.append(_flat(torch.stack([-ones, -ones, ones], dim=-1), batch))
+
+    if not parts:
+        return torch.zeros(tuple(batch) + (0,), dtype=dtype, device=device)
+    return torch.cat([p.to(dtype) for p in parts], dim=-1)

@@ -1,6 +1,7 @@
-"""Ruiz equilibration of dense problem data.
+"""Ruiz equilibration of dense and of sparse (COO) problem data.
 
-PyTorch port of ``clarabel_tpu/equilibration.py:equilibrate`` (reference:
+PyTorch port of ``clarabel_tpu/equilibration.py:equilibrate`` and
+``equilibrate_sparse`` (reference:
 src/solver/implementations/default/problemdata.rs:229-312).  The loop runs a
 fixed ``equilibrate_max_iter`` passes, as the reference does; the cost scale
 ``c`` stays a tensor, so nothing here waits for the device.  The data may
@@ -103,3 +104,78 @@ def equilibrate(layout: ConeLayout, settings, P, q, A, b, triu_mask):
         e = e * delta
 
     return P, q, A, b, d, e, c
+
+
+def _colmax(vals, idx, num):
+    """max(vals) per segment ``idx`` over [0, num), 0 for an empty segment
+    (``vals`` ≥ 0): the JAX package's ``max(segment_max(...), 0)``.  A
+    maximum is exact, so the scatter's order does not matter."""
+    out = torch.zeros(num, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce(0, idx, vals, reduce="amax", include_self=True)
+
+
+def equilibrate_sparse(layout: ConeLayout, settings, P, q, A, b):
+    """Ruiz equilibration over COO sparse data (the same math as
+    :func:`equilibrate`; problemdata.rs:229-312; the JAX package's
+    ``equilibrate_sparse``).  ``P`` is the FULL symmetric matrix as an
+    ``algebra.coo.COOMat``; ``A`` the cone-permuted constraint matrix.
+    Norms are segment maxima over the triplet sets instead of dense axis
+    reductions.  One problem, no batch dimension."""
+    n, m = q.shape[0], b.shape[0]
+    kw = dict(dtype=q.dtype, device=q.device)
+
+    d = torch.ones(n, **kw)
+    e = torch.ones(m, **kw)
+    c = torch.ones((), **kw)
+
+    if not settings.equilibrate_enable:
+        return P, q, A, b, d, e, c
+
+    scale_min = settings.equilibrate_min_scaling
+    scale_max = settings.equilibrate_max_scaling
+
+    Pr, Pc = P.rows, P.cols
+    Ar, Ac = A.rows, A.cols
+    triu_mask = Pr <= Pc  # triu-stored-P entries for cost normalization
+    Pv, Av = P.data, A.data
+
+    for _ in range(settings.equilibrate_max_iter):
+        dwork = torch.maximum(_colmax(torch.abs(Pv), Pc, n), _colmax(torch.abs(Av), Ac, n))
+        ework = _colmax(torch.abs(Av), Ar, m)
+
+        dwork = torch.where(dwork == 0, 1.0, dwork)
+        ework = torch.where(ework == 0, 1.0, ework)
+
+        dwork = 1.0 / torch.sqrt(dwork)
+        ework = 1.0 / torch.sqrt(ework)
+
+        dwork = torch.clamp(dwork, scale_min / d, scale_max / d)
+        ework = torch.clamp(ework, scale_min / e, scale_max / e)
+
+        Pv = Pv * dwork[Pr] * dwork[Pc]
+        Av = Av * ework[Ar] * dwork[Ac]
+        q = q * dwork
+        b = b * ework
+        d = d * dwork
+        e = e * ework
+
+        col_norm_P = _colmax(torch.where(triu_mask, torch.abs(Pv), 0.0), Pc, n)
+        mean_col_norm_P = torch.mean(col_norm_P) if n > 0 else torch.zeros((), **kw)
+        inf_norm_q = _absmax(q, -1)
+
+        do_cost = (mean_col_norm_P != 0) & (inf_norm_q != 0)
+        scale_cost = torch.maximum(inf_norm_q, mean_col_norm_P)
+        ctmp = torch.where(do_cost, 1.0 / torch.where(do_cost, scale_cost, 1.0), 1.0)
+        ctmp = torch.where(do_cost, torch.clamp(ctmp, scale_min / c, scale_max / c), 1.0)
+
+        Pv = Pv * ctmp
+        q = q * ctmp
+        c = c * ctmp
+
+    delta, changed = cone_ops.rectify_equilibration(layout, e)
+    if changed:
+        Av = Av * delta[Ar]
+        b = b * delta
+        e = e * delta
+
+    return P.with_data(Pv), q, A.with_data(Av), b, d, e, c

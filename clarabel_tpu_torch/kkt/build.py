@@ -29,8 +29,9 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ldl_unblocked_f64": (_P, _P, _I, _I, _I, _I, ctypes.c_double, ctypes.c_double, _P),
-    "ldl_unblocked_f32": (_P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
+    # K, sign, sign stride (0 or N), B, N, j0, shared-memory bytes, eps, delta, stream
+    "ldl_unblocked_f64": (_P, _P, _I, _I, _I, _I, _I, ctypes.c_double, ctypes.c_double, _P),
+    "ldl_unblocked_f32": (_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
     "ldl_smem_capacity": (),
     "ldl_smem_max_cols": (),
     "ldl_blocked_f64": (_P, _P, _P, _P, _I, _I, ctypes.c_double, ctypes.c_double, _P),

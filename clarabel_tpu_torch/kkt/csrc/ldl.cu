@@ -9,7 +9,10 @@
 //     if (d * sign[j] < eps) d = delta * sign[j];        (strict <)
 //
 // sign[j] is +1 on the first n rows and -1 on the m cone rows; eps = -inf and
-// delta = 0 turn the regularization off.  Every matrix of the batch is
+// delta = 0 turn the regularization off.  The unblocked kernel also takes a
+// sign per row of each matrix (a sign stride of N: the multifrontal engine's
+// diagonal blocks, each front with its own signs); the dense KKT path passes
+// one sign vector for the batch (stride 0).  Every matrix of the batch is
 // N x N, row-major, contiguous, and factored in place.  The host entry points
 // at the end of this file take PyTorch's current stream, launch, allocate
 // nothing and return cudaGetLastError().
@@ -150,11 +153,13 @@ __device__ __forceinline__ void update_row(T* row, int t, bool last_ok, T l0, T 
 // CH: 32-column chunks of the trailing triangle's width M, 32·(CH-1) < M <= 32·CH
 template <typename T, int CH, int W = unblocked_warps(CH)>
 __global__ void __launch_bounds__(32 * W)
-ldl_unblocked_kernel(T* __restrict__ K, const T* __restrict__ sign, int N,
-                     int j0, T eps, T delta) {
+ldl_unblocked_kernel(T* __restrict__ K, const T* __restrict__ sign_all, int sign_stride,
+                     int N, int j0, T eps, T delta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
   T* a = K + (size_t)blockIdx.x * N * N;
+  // this matrix's signs: its own row of [B, N] signs, or the batch's [N]
+  const T* sign = sign_all + (size_t)blockIdx.x * sign_stride;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -506,26 +511,30 @@ int smem_capacity() {
 // width, so that no lane loops over chunks right of column N - 1.  Each
 // instance is allowed the whole capacity once, before its first launch.
 template <typename T, int CH = 1>
-int launch_unblocked(T* K, const T* sign, int B, int N, int j0, int smem_bytes,
-                     T eps, T delta, cudaStream_t stream) {
+int launch_unblocked(T* K, const T* sign, int sign_stride, int B, int N, int j0,
+                     int smem_bytes, T eps, T delta, cudaStream_t stream) {
   if constexpr (CH < SMEM_CHUNKS) {
     if (N - j0 > 32 * CH)
-      return launch_unblocked<T, CH + 1>(K, sign, B, N, j0, smem_bytes, eps, delta, stream);
+      return launch_unblocked<T, CH + 1>(K, sign, sign_stride, B, N, j0, smem_bytes, eps,
+                                         delta, stream);
   }
   static const cudaError_t allowed = cudaFuncSetAttribute(
       ldl_unblocked_kernel<T, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_capacity());
   if (allowed != cudaSuccess) return (int)allowed;
-  ldl_unblocked_kernel<T, CH><<<B, 32 * unblocked_warps(CH), smem_bytes, stream>>>(K, sign, N, j0, eps, delta);
+  ldl_unblocked_kernel<T, CH><<<B, 32 * unblocked_warps(CH), smem_bytes, stream>>>(
+      K, sign, sign_stride, N, j0, eps, delta);
   return (int)cudaGetLastError();
 }
 
 // j0 and smem_bytes come from the host's plan: the trailing triangle of
 // columns j0 .. N - 1 and its pad must fit smem_bytes, and smem_bytes the
-// device.
+// device.  sign_stride is 0 (one [N] sign vector for every matrix) or N
+// ([B, N] signs, a row per matrix).
 template <typename T>
-int ldl_unblocked(T* K, const T* sign, int B, int N, int j0, int smem_bytes,
+int ldl_unblocked(T* K, const T* sign, int sign_stride, int B, int N, int j0, int smem_bytes,
                   T eps, T delta, cudaStream_t stream) {
   if (B <= 0 || N <= 0) return 0;
+  if (sign_stride != 0 && sign_stride != N) return (int)cudaErrorInvalidValue;
   const long long M = N - j0;
   // the packed triangle and the pad behind it that update_row may read
   if (j0 < 0 || M <= 0 || M > SMEM_MAX_COLS ||
@@ -534,7 +543,7 @@ int ldl_unblocked(T* K, const T* sign, int B, int N, int j0, int smem_bytes,
   const int capacity = smem_capacity();
   if (capacity < 0) return -capacity;
   if (smem_bytes > capacity) return (int)cudaErrorInvalidValue;
-  return launch_unblocked<T>(K, sign, B, N, j0, smem_bytes, eps, delta, stream);
+  return launch_unblocked<T>(K, sign, sign_stride, B, N, j0, smem_bytes, eps, delta, stream);
 }
 
 template <typename T>
@@ -569,14 +578,17 @@ int ldl_blocked(T* K, T* dbuf, T* ubuf, const T* sign, int B, int N, T eps,
 
 extern "C" {
 
-int ldl_unblocked_f64(double* K, const double* sign, int B, int N, int j0,
+// sign: [N] with sign_stride 0, or [B, N] with sign_stride N.
+int ldl_unblocked_f64(double* K, const double* sign, int sign_stride, int B, int N, int j0,
                       int smem_bytes, double eps, double delta, void* stream) {
-  return ldl_unblocked<double>(K, sign, B, N, j0, smem_bytes, eps, delta, (cudaStream_t)stream);
+  return ldl_unblocked<double>(K, sign, sign_stride, B, N, j0, smem_bytes, eps, delta,
+                               (cudaStream_t)stream);
 }
 
-int ldl_unblocked_f32(float* K, const float* sign, int B, int N, int j0,
+int ldl_unblocked_f32(float* K, const float* sign, int sign_stride, int B, int N, int j0,
                       int smem_bytes, float eps, float delta, void* stream) {
-  return ldl_unblocked<float>(K, sign, B, N, j0, smem_bytes, eps, delta, (cudaStream_t)stream);
+  return ldl_unblocked<float>(K, sign, sign_stride, B, N, j0, smem_bytes, eps, delta,
+                              (cudaStream_t)stream);
 }
 
 // The bytes of shared memory one block may use on the library's card

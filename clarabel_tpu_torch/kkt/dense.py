@@ -272,6 +272,11 @@ def _raw_solve(factors, rhs):
         b = rhs.unsqueeze(-1) if vec else rhs
         x = torch.linalg.lu_solve(lu, piv, b)
         return x.squeeze(-1) if vec else x
+    if kind == "mf":
+        from . import sparse as kkt_sparse
+
+        ctx, sdata, mff = data
+        return kkt_sparse.solve(ctx, sdata, mff, rhs)
     if kind == "pldl":
         packed, N = data
         return pallas_ldl.ldl_solve(packed, N, rhs)
@@ -320,14 +325,25 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
     package's double-float remainder, which is None on every path that is
     not compensated (every path ported).  Each problem of a batch sweeps
     until its own refinement stops; the host reads once per sweep whether
-    any problem still sweeps.
+    any problem still sweeps.  The multifrontal factors (``"mf"``) serve
+    one problem whose right-hand sides, [N] or [N, r], refine together:
+    one norm over all of them, as in the JAX package.
     reference: directldlkktsolver.rs:266-321 — bounded refinement loop
     with stall detection.
     """
     x0 = _raw_solve(factors, rhs)
+    if factors[0] == "mf":
+        # one problem: reduce over every right-hand side at once
+        amax = lambda v: torch.abs(v).amax()
+        all_ = torch.all
+        per_problem = lambda mask: mask
+    else:
+        amax = lambda v: torch.amax(torch.abs(v), dim=-1)
+        all_ = lambda v: torch.all(v, dim=-1)
+        per_problem = lambda mask: mask.unsqueeze(-1)
 
     if not settings.iterative_refinement_enable:
-        ok = torch.all(torch.isfinite(x0), dim=-1)
+        ok = all_(torch.isfinite(x0))
         return ((x0, None), ok) if want_lo else (x0, ok)
     if callable(K_true):
         k_matvec = K_true
@@ -351,12 +367,12 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
         reltol = min(reltol, 1e-9)
         abstol = min(abstol, 1e-8)
 
-    normb = torch.amax(torch.abs(rhs), dim=-1)
+    normb = amax(rhs)
     tol = abstol + reltol * normb
 
     def error_norm(x):
         e = rhs - k_matvec(x)
-        return e, torch.amax(torch.abs(e), dim=-1)
+        return e, amax(e)
 
     x = x0
     e, norme = error_norm(x0)
@@ -379,12 +395,12 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
         stalled = improved_ratio < stopratio
         take_new = active & isfin & ((~stalled) | (improved_ratio > 1.0))
 
-        x = torch.where(take_new.unsqueeze(-1), xnew, x)
-        e = torch.where(take_new.unsqueeze(-1), enew, e)
+        x = torch.where(per_problem(take_new), xnew, x)
+        e = torch.where(per_problem(take_new), enew, e)
         norme = torch.where(take_new, normenew, norme)
         done = torch.where(active, stalled | (~isfin), done)
         ok = torch.where(active, ok & isfin, ok)
         active = (~done) & ~(norme <= tol)
         k += 1
-    ok = ok & torch.all(torch.isfinite(x), dim=-1)
+    ok = ok & all_(torch.isfinite(x))
     return ((x, None), ok) if want_lo else (x, ok)

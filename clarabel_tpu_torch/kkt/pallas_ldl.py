@@ -21,7 +21,9 @@ and share one CUDA kernel.
 :func:`ldl_factor` takes the plain PyTorch version of a kernel for a tensor
 on the CPU and launches the kernel for a tensor on a CUDA device; there is
 no fallback from one to the other.  ``ldl_factor.launches`` counts the
-kernel launches per variant.
+kernel launches per variant.  :func:`ldl_unblocked` gives the sparse
+multifrontal engine the unblocked kernel with a sign vector per matrix
+(its fronts' diagonal blocks); ``ldl_unblocked.launches`` counts those.
 
 Unlike the TPU kernels, nothing here pads N to a multiple of 128: the
 factors are N x N.
@@ -90,14 +92,15 @@ def _resolve_variant(variant: str, N: int) -> str:
 
 def ldl_unblocked_plain(K, sign, eps, delta):
     """Column-by-column LDLᵀ of a batch ``K`` [B, N, N]: the arithmetic of
-    the K2/K3 TPU kernels.  Returns the packed factors: Lᵀ strictly above
-    the diagonal, D on it, and row j left of the diagonal 0/d_j (zeros for
-    a finite nonzero pivot)."""
+    the K2/K3 TPU kernels, with the expected signs ``sign`` [N] for every
+    matrix or [B, N], a row per matrix.  Returns the packed factors: Lᵀ
+    strictly above the diagonal, D on it, and row j left of the diagonal
+    0/d_j (zeros for a finite nonzero pivot)."""
     out = K.clone()
     N = out.shape[-1]
     for j in range(N):
         d = out[:, j, j]
-        s = sign[j]
+        s = sign[..., j]
         d = torch.where(d * s < eps, delta * s, d)
         rowv = out[:, j, j + 1:]
         colv = rowv / d[:, None]
@@ -187,7 +190,10 @@ def _launch(variant, K, sign, eps, delta):
             out = K.clone(memory_format=torch.contiguous_format)
             j0, nbytes = unblocked_plan(N, K.element_size(), _smem_capacity())
             fn = lib.ldl_unblocked_f64 if f64 else lib.ldl_unblocked_f32
-            err = fn(out.data_ptr(), sign.data_ptr(), B, N, j0, nbytes, eps, delta, stream)
+            # one [N] sign vector for the batch, or a row of [B, N] per matrix
+            stride = 0 if sign.dim() == 1 else N
+            err = fn(out.data_ptr(), sign.data_ptr(), stride, B, N, j0, nbytes, eps, delta,
+                     stream)
     if err != 0:
         raise RuntimeError(f"LDL kernel ({variant}) launch failed: CUDA error {err}")
     return out
@@ -236,6 +242,33 @@ def ldl_factor(K, n: int, m: int, settings, variant: str = "auto"):
 
 
 ldl_factor.launches = {v: 0 for v in VARIANTS}
+
+
+def ldl_unblocked(K, sign, eps: float, delta: float):
+    """The unblocked LDLᵀ of a batch ``K`` [B, N, N] (N at most
+    ``SMEM_MAX_COLS``) with per-matrix expected signs ``sign`` [B, N]:
+    the packed factors of :func:`ldl_unblocked_plain` (Lᵀ above the
+    diagonal, D on it).  The multifrontal engine's diagonal blocks take
+    this route (``kkt/multifrontal._diag_factor``).  A CPU tensor takes the
+    plain version; a CUDA tensor launches ``ldl_unblocked_kernel`` and
+    raises if it cannot.  ``ldl_unblocked.launches`` counts the launches."""
+    if K.dim() != 3 or K.shape[-1] != K.shape[-2] or sign.shape != K.shape[:2]:
+        raise ValueError(f"expected K [B, N, N] and sign [B, N], got {tuple(K.shape)} "
+                         f"and {tuple(sign.shape)}")
+    if K.dtype not in (torch.float32, torch.float64) or sign.dtype != K.dtype:
+        raise TypeError(f"LDL factor supports float32 and float64, got {K.dtype}/{sign.dtype}")
+    if K.device.type == "cpu":
+        return ldl_unblocked_plain(K, sign, eps, delta)
+    if K.device.type != "cuda":
+        raise RuntimeError(f"no LDL kernel for device {K.device}")
+    if K.shape[-1] > SMEM_MAX_COLS:
+        raise ValueError(f"the unblocked kernel takes N <= {SMEM_MAX_COLS}, got {K.shape[-1]}")
+    packed = _launch("fori", K, sign.contiguous(), eps, delta)
+    ldl_unblocked.launches += 1
+    return packed
+
+
+ldl_unblocked.launches = 0
 
 
 def make_ldl_factor(n: int, m: int, settings, dtype=None, variant: str = "auto"):

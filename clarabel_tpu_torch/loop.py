@@ -1,7 +1,8 @@
 """The interior-point iteration as a host loop over device tensors.
 
 PyTorch port of ``clarabel_tpu/loop.py`` at f64, and at f32 through the
-Schur-complement KKT paths ("schur_diag", "schur_lr"): the reference
+Schur-complement KKT paths ("schur_diag", "schur_lr"), with the dense KKT
+backends and the sparse multifrontal one (``sparse_kkt``): the reference
 predictor-corrector loop and its strategy-checkpoint state machine
 (reference: src/solver/core/solver.rs:242-465, 525-666), the residual/info
 bookkeeping (implementations/default/residuals.rs, info.rs) and the
@@ -27,6 +28,11 @@ the JAX package's loop does.  A problem whose status stops being Unsolved
 at the top of an iteration is frozen: it computes along with the others and
 keeps none of it.  The two device reads per iteration stay two, for the
 whole batch: whether any problem is unsolved, and whether any takes a step.
+
+On the sparse path (one problem) P and A are ``algebra.coo.COOMat`` and the
+KKT system is never densified: the constant-term and affine solves of an
+iteration, and the two solves of the LP start, share one 2-RHS refined
+solve through the multifrontal sweeps, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -334,6 +340,33 @@ def calc_step_length(layout, state, step, variables, settings, is_combined, scal
     return alpha
 
 
+def solve_kkt_refined(factors, K_true, rhs, settings, want_lo=False, keep_ext=False):
+    """Refined KKT solve, lifting to the sparse-cone-expanded system when
+    the multifrontal backend carries extension rows: the augmented system
+    [K  E; Eᵀ D][x; y] = [rhs; 0] solves the original K_hs x = rhs exactly
+    (reference: datamaps.rs expansion semantics).
+
+    ``rhs`` may be [N] or [N, r] on the multifrontal backend (multi-RHS
+    solves share the levelized sweeps).  ``keep_ext`` returns the extension
+    components instead of slicing them off; ``kkt_solve_finish`` reads Δz
+    from the first m entries.  The JAX package's loop.py:338-370."""
+    if factors[0] == "mf":
+        ctx = factors[1][0]
+        pad = ctx.N - rhs.shape[0]
+        if pad > 0:
+            base = rhs.shape[0]
+            zshape = (pad,) + tuple(rhs.shape[1:])
+            rhs = torch.cat([rhs, torch.zeros(zshape, dtype=rhs.dtype, device=rhs.device)])
+            out, ok = kkt_dense.solve_refined(factors, K_true, rhs, settings, want_lo=want_lo)
+            if keep_ext:
+                return out, ok
+            if want_lo:
+                sol, sol_lo = out
+                return (sol[:base], None if sol_lo is None else sol_lo[:base]), ok
+            return out[:base], ok
+    return kkt_dense.solve_refined(factors, K_true, rhs, settings, want_lo=want_lo)
+
+
 def kkt_solve_rhs(layout, scaling_state, rhs, variables, is_combined):
     """Assemble the reduced KKT right-hand side [rx; ds_const - rz].
 
@@ -402,8 +435,8 @@ def kkt_solve(
     stacked, ds_const = kkt_solve_rhs(
         layout, scaling_state, rhs, variables, is_combined
     )
-    (sol, _), ok = kkt_dense.solve_refined(
-        factors, K_true, stacked, settings, want_lo=True
+    (sol, _), ok = solve_kkt_refined(
+        factors, K_true, stacked, settings, want_lo=True, keep_ext=True
     )
     step = kkt_solve_finish(
         layout, scaling_state, P, q, A, b, x2, z2, sol, ds_const, rhs,
@@ -458,13 +491,41 @@ def _demoted_kkt_method(layout, method):
     return method
 
 
-def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state):
+def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state,
+                 sparse_kkt=None):
     """Build KKT factors for the current scaling state.
 
     Returns (factors, K_true, ok) with K_true the unregularized KKT matrix
     for iterative refinement: dense, or a matvec callable on the structured
-    Schur paths, which never materialize it.
+    Schur paths and the sparse path, which never materialize it.
+
+    With ``sparse_kkt = (ctx, data)`` (``kkt.sparse``) the Hs block values
+    scatter into the KKT's lower-triangle nonzero vector and the
+    multifrontal engine refactors it (reference: qdldl.rs:468-700,
+    kkt_assembly.rs:20-183); the JAX package's loop.py:679-712.
     """
+    if sparse_kkt is not None:
+        from .kkt import sparse as kkt_sparse
+
+        ctx, data = sparse_kkt
+        device = P.data.device
+        hs_vals = cone_ops.hs_lower_vals(layout, scaling_state, dtype, device, (),
+                                         ctx.soc_expanded, ctx.genpow_expanded)
+        exp_vals = cone_ops.expansion_vals(layout, scaling_state, dtype, device, (),
+                                           ctx.soc_expanded, ctx.genpow_expanded)
+        if ctx.dia_recipe and P.kd is not None and A.kd is not None:
+            # zero/NN layouts: the Kvals vector is never materialized --
+            # sources scatter straight into the multifrontal assembly
+            # workspace (fused factor) and K's DIA lanes assemble from the
+            # predia'd P/A lanes + the Hs diagonal
+            mff, ok = kkt_sparse.factor_fused(ctx, data, P, A, hs_vals, exp_vals, settings)
+            K_true = kkt_sparse.make_matvec_sources(ctx, P, A, hs_vals)
+        else:
+            Kvals, Kreg = kkt_sparse.assemble(ctx, data, P, A, hs_vals, exp_vals, settings)
+            mff, ok = kkt_sparse.factor(ctx, data, Kreg, settings)
+            K_true = kkt_sparse.make_matvec(ctx, data, Kvals)
+        return ("mf", (ctx, data, mff)), K_true, ok
+
     method = _demoted_kkt_method(
         layout, _resolved_kkt_method(layout, settings, dtype, n, use_pallas)
     )
@@ -500,7 +561,8 @@ def _make_factor_fn(layout, settings, dtype, n, use_pallas=False, method=None):
     return kkt_dense.factor
 
 
-def default_start(layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas=False):
+def default_start(layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas=False,
+                  sparse_kkt=None):
     """Initial iterate.  reference: solver.rs:525-541, kktsystem.rs:211-259,
     variables.rs:164-178, 231-256."""
     n, m = q.shape[-1], b.shape[-1]
@@ -514,20 +576,25 @@ def default_start(layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas=Fal
 
     # symmetric: solve the KKT system with identity scalings
     state0 = cone_ops.set_identity_scaling(layout, dtype, q.device, batch)
-    factors, K, _ = _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, state0)
+    factors, K, _ = _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, state0,
+                                 sparse_kkt=sparse_kkt)
 
     if p_is_zero:
         # LP initialization (kktsystem.rs:219-245)
         rhs1 = torch.cat([torch.zeros(batch + (n,), **kw), b], dim=-1)
         rhs2 = torch.cat([-q, torch.zeros(batch + (m,), **kw)], dim=-1)
-        sol1, _ = kkt_dense.solve_refined(factors, K, rhs1, settings)
-        sol2, _ = kkt_dense.solve_refined(factors, K, rhs2, settings)
+        if sparse_kkt is not None:  # share the levelized sweeps
+            joint, _ = solve_kkt_refined(factors, K, torch.stack([rhs1, rhs2], dim=1), settings)
+            sol1, sol2 = joint[:, 0], joint[:, 1]
+        else:
+            sol1, _ = solve_kkt_refined(factors, K, rhs1, settings)
+            sol2, _ = solve_kkt_refined(factors, K, rhs2, settings)
         x = sol1[..., :n]
         s = -sol1[..., n:]
         z = sol2[..., n:]
     else:
         # QP initialization (kktsystem.rs:246-257)
-        sol, _ = kkt_dense.solve_refined(factors, K, torch.cat([-q, b], dim=-1), settings)
+        sol, _ = solve_kkt_refined(factors, K, torch.cat([-q, b], dim=-1), settings)
         x = sol[..., :n]
         z = sol[..., n:]
         s = -z
@@ -586,7 +653,7 @@ CALLBACK_KEYS = ("iterations", "cost_primal", "cost_dual", "gap_abs", "gap_rel",
 
 
 def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
-            use_pallas=False, warm_start=None, callback=None):
+            use_pallas=False, warm_start=None, callback=None, sparse_kkt=None):
     """The main loop.  Returns the final SolverState.
 
     ``warm_start``, when given, is an (x0, s0, z0) triple in the internal
@@ -601,6 +668,10 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
     with CallbackTerminated, whatever status the iteration reached
     (reference: callbacks.rs:93-96, solver.rs:311-314).  It costs one
     device read per iteration.
+
+    ``sparse_kkt``, when given, is the ``(kkt.sparse.SparseKKT, device
+    data)`` pair of a single problem whose P and A are COOMat: every KKT
+    solve runs through the multifrontal engine.
 
     reference: solver.rs:242-465
     """
@@ -623,6 +694,7 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
     else:
         x, s, z, tau, kappa = default_start(
             layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas,
+            sparse_kkt=sparse_kkt,
         )
 
     f = lambda v: torch.full(batch, v, dtype=dtype, device=device)
@@ -732,6 +804,7 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         # --- KKT update + constant-term solve (kktsystem.rs:108-125)
         factors, K, ok_f = _kkt_prepare(
             layout, settings, dtype, n, use_pallas, P, A, scaling_state,
+            sparse_kkt=sparse_kkt,
         )
         variables = (st.x, st.s, st.z, st.tau, st.kappa)
 
@@ -747,12 +820,21 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         rhs_aff, dsc_aff = kkt_solve_rhs(
             layout, scaling_state, affine_rhs, variables, is_combined=False,
         )
-        (sol_c, _), ok_c = kkt_dense.solve_refined(
-            factors, K, rhs_const, settings, want_lo=True
-        )
-        (sol_a, _), ok_a = kkt_dense.solve_refined(
-            factors, K, rhs_aff, settings, want_lo=True
-        )
+        if sparse_kkt is not None:
+            # the constant-term and affine reduced solves are independent:
+            # they ride the levelized sweeps together as one 2-RHS solve
+            (joint, _), ok_c = solve_kkt_refined(
+                factors, K, torch.stack([rhs_const, rhs_aff], dim=1), settings,
+                want_lo=True, keep_ext=True,
+            )
+            sol_c, sol_a, ok_a = joint[:, 0], joint[:, 1], ok_c
+        else:
+            (sol_c, _), ok_c = kkt_dense.solve_refined(
+                factors, K, rhs_const, settings, want_lo=True
+            )
+            (sol_a, _), ok_a = kkt_dense.solve_refined(
+                factors, K, rhs_aff, settings, want_lo=True
+            )
         x2, z2 = sol_c[..., :n], sol_c[..., n:]
         aff = kkt_solve_finish(
             layout, scaling_state, P, q, A, b, x2, z2, sol_a, dsc_aff,

@@ -1,5 +1,5 @@
 """Batched solves: many problems of one structure in one solve."""
 
-from .batch import BatchSolution, BatchSolver
+from .batch import BatchSolution, BatchSolver, SparseBatchSolver
 
-__all__ = ["BatchSolver", "BatchSolution"]
+__all__ = ["BatchSolver", "BatchSolution", "SparseBatchSolver"]

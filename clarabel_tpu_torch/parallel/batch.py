@@ -42,6 +42,15 @@ from ..solver import (
 from ..statuses import SolverStatus
 
 
+class SparseBatchSolver:
+    """B problems of one sparsity pattern through one multifrontal symbolic
+    analysis (the JAX package's ``parallel/sparse_batch.py``).  Not ported
+    yet: constructing one raises, naming its ROADMAP item."""
+
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("SparseBatchSolver", 15)
+
+
 @dataclasses.dataclass
 class BatchSolution:
     """Stacked solutions for a problem batch (leading axis = batch).
@@ -109,7 +118,7 @@ class BatchSolver:
 
         if mesh is not None:
             raise _not_ported("sharding a batch over a device mesh (mesh=)", 16)
-        self._dtype = check_ported(self.settings, dtype)
+        self._dtype = check_ported(dtype)
         if self.settings.time_limit != float("inf"):
             raise ValueError(
                 "BatchSolver has no wall-clock time limit: leave settings.time_limit "

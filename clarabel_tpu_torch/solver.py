@@ -1,11 +1,16 @@
 """DefaultSolver: the user-facing solver object.
 
-PyTorch port of the dense path of ``clarabel_tpu/solver.py``: host-side
-orchestration mirroring the reference setup pipeline (reference:
+PyTorch port of ``clarabel_tpu/solver.py``: host-side orchestration
+mirroring the reference setup pipeline (reference:
 src/solver/implementations/default/solver.rs:57-126): dimension checks ->
 cone collapsing -> presolve -> chordal decomposition of sparse PSD cones ->
 cone layout (a row permutation groups the cones by kind) -> one solve on
 the device covering equilibration, the IPM loop and solution unscaling.
+Large sparse problems (or ``direct_solve_method="multifrontal"``) take the
+sparse path: the data stay COO triplets, the KKT system is factored by the
+multifrontal engine (``kkt/sparse.py``) and never densified; on "auto" a
+cost model measured on the device may send a problem back to the dense
+path after the symbolic analysis, as in the JAX package.
 
 Problems solve as
 
@@ -16,13 +21,15 @@ The solve runs on a CUDA device unless the caller passes ``device="cpu"``;
 without a CUDA device and without that argument the constructor raises.
 f64 solves stay on the card, which runs f64 natively (the JAX package sends
 them to the host CPU instead).  ``dtype="float32"`` runs where the KKT
-method is a structured Schur path ("auto" picks one on the ported cones).
+method is a structured Schur path ("auto" picks one on the ported cones),
+never on the sparse path.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Optional, Sequence
 
@@ -39,11 +46,6 @@ from .settings import DefaultSettings
 from .statuses import SolverStatus
 from .timers import Timers
 
-#: direct_solve_method values this port runs ("dense", "qdldl" and "faer"
-#: are LU aliases), and the ROADMAP items that port the others
-_PORTED_METHODS = ("auto", "lu", "pallas", "schur", "schur_diag", "schur_lr",
-                   "dense", "qdldl", "faer")
-_METHOD_ITEMS = {"multifrontal": 14}
 #: the methods that run at f32: the others need the compensated f32 stack
 _F32_METHODS = ("schur_diag", "schur_lr")
 
@@ -88,9 +90,9 @@ class LinearSolverInfo:
     direct: bool = True
     nnzA: int = 0
     nnzL: int = 0
-    dim: int = 0  # KKT dimension
-    #: the JAX package's sparse-vs-dense cost model; this port has no
-    #: sparse path, so it is always None
+    dim: int = 0  # KKT dimension, including sparse-cone expansion rows
+    #: the "auto" route's sparse-vs-dense cost model: its inputs, decision
+    #: and provenance; None when no such choice was made
     cost_model: Optional[dict] = None
 
 
@@ -135,6 +137,23 @@ def _to_csc(M, name: str):
     return csc.astype(np.float64)
 
 
+def _full_from_triu(P_triu):
+    """The full symmetric CSC matrix of an upper-triangle CSC ``P_triu``,
+    every stored entry kept, explicit zeros included: a data update that
+    zeroes an entry leaves the sparse path's structure, and so the order of
+    its COO values, as it was at setup (a scipy sum would drop the zero)."""
+    import scipy.sparse as sp
+
+    T = P_triu.tocoo()
+    strict = T.row != T.col
+    rows = np.concatenate([T.row, T.col[strict]])
+    cols = np.concatenate([T.col, T.row[strict]])
+    data = np.concatenate([T.data, T.data[strict]])
+    full = sp.csc_matrix((data, (rows, cols)), shape=P_triu.shape)
+    full.sort_indices()
+    return full
+
+
 def _symmetrize_triu(P: np.ndarray) -> np.ndarray:
     """Use only the upper triangle of P, treated as symmetric.
 
@@ -144,9 +163,8 @@ def _symmetrize_triu(P: np.ndarray) -> np.ndarray:
     return U + np.triu(P, 1).T
 
 
-# the JAX package's gate for its sparse multifrontal auto route
-# (clarabel_tpu/solver.py:320-382); the port raises where that route goes
-# on to the multifrontal engine
+# auto-selection gate for the sparse multifrontal KKT path: beyond this
+# size a dense (n+m)^2 KKT stops being the right default
 _SPARSE_AUTO_MIN_DIM = 3000
 _SPARSE_AUTO_MAX_DENSITY = 0.02
 
@@ -170,8 +188,13 @@ def _estimate_hs_nnz(cones) -> int:
 
 
 def _wants_sparse(settings, P_csc, A_csc, n, m, cones) -> bool:
-    """Whether the JAX package would route this problem to its sparse
-    multifrontal KKT engine (clarabel_tpu/solver.py:348-382)."""
+    """Whether to route this problem to the sparse multifrontal KKT engine
+    (the JAX package's rule, clarabel_tpu/solver.py:348-382; the
+    reference's auto backend picks between its sparse solvers,
+    ldlsolvers/auto.rs:47-88).  A problem too dense only because of large
+    decomposable PSD blocks routes there tentatively: the sparse setup
+    re-checks the density after the chordal decomposition and falls back
+    to the dense path if it did not help."""
     method = settings.direct_solve_method
     if method == "multifrontal":
         return True
@@ -192,6 +215,131 @@ def _wants_sparse(settings, P_csc, A_csc, n, m, cones) -> bool:
         )
         return nnz_nopsd < _SPARSE_AUTO_MAX_DENSITY * float(N) * float(N)
     return False
+
+
+# the dense fallback is representable up to this KKT dimension
+_DENSE_FALLBACK_MAX_DIM = 8192
+
+#: the JAX package's host-CPU constants of its auto-backend cost model
+#: (clarabel_tpu/solver.py:434-441: an order-of-magnitude estimate, not a
+#: measurement), used for solves on the CPU so that routes there agree
+#: with the JAX package's: ``bucket_s`` (launch-chain latency per
+#: multifrontal bucket), ``mf_gflops`` (front-work rate), ``dense_floor_s``
+#: + ``dense_n4096_s`` (pivoted-LU latency floor and the cubic term
+#: anchored at N = 4096), per iteration
+_CPU_COST_MODEL = dict(
+    bucket_s=1.0e-4, mf_gflops=5.0,
+    dense_floor_s=1.0e-3, dense_n4096_s=3.0e-1,
+    provenance="the JAX package's host-CPU estimate (unmeasured)",
+)
+
+
+def _timed(fn, device, reps=3):
+    """The least wall seconds of ``reps`` calls of ``fn`` on ``device``,
+    each ended by a synchronize, after one untimed call."""
+    fn()
+    torch.cuda.synchronize(device)
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+@functools.cache
+def _measure_cost_model(device: str) -> dict:
+    """The cost model's constants measured once per CUDA device (cached by
+    its name): the JAX package's probes (clarabel_tpu/solver.py:451-522),
+    at f64, the precision of the port's sparse path.
+
+    - a 64-op chain of dependent batched [8, 64, 64] products: the per-op
+      launch latency (``bucket_s``) and the small-front FLOP rate
+      (``mf_gflops``);
+    - f64 ``lu_factor`` + ``lu_solve`` at N = 512 and N = 4096, timed on
+      the card: the latency floor and the cubic term anchored at N = 4096
+      of ``t(N) = dense_floor_s + (N / 4096)³ · dense_n4096_s``, solved
+      from the two times.
+
+    A failed measurement raises: no constant stands in for it."""
+    dev = torch.device(device)
+    name = torch.cuda.get_device_name(dev)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    chain, nb, bkt = 64, 8, 64
+    x0 = torch.randn((nb, bkt, bkt), generator=gen, dtype=torch.float64).to(dev)
+
+    def run_chain():
+        x = x0
+        for _ in range(chain):
+            x = (x @ x) / torch.clamp(torch.abs(x).amax(), min=1.0)
+        return x
+
+    t_chain = _timed(run_chain, dev)
+    bucket_s = max(t_chain / chain, 1e-7)
+    mf_gflops = max(2.0 * nb * bkt**3 * chain / t_chain / 1e9, 0.1)
+
+    sizes, times = (512, 4096), []
+    for N in sizes:
+        K = torch.randn((N, N), generator=gen, dtype=torch.float64)
+        K = (K + K.T + 2 * N * torch.eye(N, dtype=torch.float64)).to(dev)
+        rhs = torch.randn((N, 1), generator=gen, dtype=torch.float64).to(dev)
+
+        def lu_solve(K=K, rhs=rhs):
+            lu, piv = torch.linalg.lu_factor(K)
+            return torch.linalg.lu_solve(lu, piv, rhs)
+
+        times.append(_timed(lu_solve, dev))
+    w = (sizes[0] / 4096.0) ** 3
+    dense_n4096_s = max((times[1] - times[0]) / (1.0 - w), 1e-7)
+    dense_floor_s = max(times[0] - w * dense_n4096_s, 1e-7)
+    return dict(
+        bucket_s=bucket_s, mf_gflops=mf_gflops,
+        dense_floor_s=dense_floor_s, dense_n4096_s=dense_n4096_s,
+        provenance=(
+            f"measured at first use on '{name}': {chain}-op chain of f64 "
+            f"[{nb}, {bkt}, {bkt}] products {t_chain * 1e3:.3f} ms, f64 lu_factor"
+            f"+lu_solve N={sizes[0]} {times[0] * 1e3:.3f} ms, N={sizes[1]} "
+            f"{times[1] * 1e3:.3f} ms"
+        ),
+    )
+
+
+def _cost_model_for(device: torch.device) -> dict:
+    """The auto route's cost-model constants for ``device``: the JAX
+    package's CPU constants on the CPU, measured at first use on a CUDA
+    device (keyed by its name)."""
+    if device.type == "cpu":
+        return dict(_CPU_COST_MODEL, device_kind="cpu")
+    if device.type != "cuda":
+        raise RuntimeError(f"no cost model for device {device}")
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    name = torch.cuda.get_device_name(index)
+    return dict(_measure_cost_model(f"cuda:{index}"), device_kind=name)
+
+
+def _prefer_dense(plan, N, cost_model) -> bool:
+    """Cost-model veto of the multifrontal choice after symbolic analysis
+    (the analog of the reference's auto backend, which computes the AMD
+    ordering + symbolic counts and switches on flops/nnz(L),
+    ldlsolvers/auto.rs:47-88; the JAX package's solver.py:543-571): the
+    predicted per-iteration time of the levelized multifrontal schedule
+    (``bucket_s`` per bucket + front flops) against one dense LU of the
+    full KKT (latency floor + cubic term).  Records the inputs and the
+    decision in ``cost_model``."""
+    if N > _DENSE_FALLBACK_MAX_DIM:
+        cost_model["decision"] = "multifrontal (N beyond dense fallback)"
+        return False
+    n_buckets = sum(len(lvl) for lvl in plan.levels)
+    t_mf = cost_model["bucket_s"] * n_buckets + plan.flops / (cost_model["mf_gflops"] * 1e9)
+    t_dense = cost_model["dense_floor_s"] + (float(N) / 4096.0) ** 3 * (
+        cost_model["dense_n4096_s"]
+    )
+    cost_model["t_mf_s"] = round(t_mf, 6)
+    cost_model["t_dense_s"] = round(t_dense, 6)
+    prefer = t_dense < t_mf
+    cost_model["decision"] = "dense" if prefer else "multifrontal"
+    return prefer
 
 
 def resolve_device(device=None) -> torch.device:
@@ -222,7 +370,7 @@ def full_precision():
 
 def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
                      n: int, p_is_zero: bool, dtype: torch.dtype,
-                     use_pallas: bool = False, callback=None):
+                     use_pallas: bool = False, callback=None, sparse_ctx=None):
     """The solve function (P, q, A, b, warm_start=None) -> outputs, with the
     same output dictionary as the JAX package's
     (clarabel_tpu/solver.py:246-272).  The tensors stay on their device.  It
@@ -230,18 +378,31 @@ def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
     batch dimension (P [B, n, n], q [B, n], A [B, m, n], b [B, m]); every
     output then has it too.  ``warm_start`` is an (x0, s0, z0) initial
     iterate in the user frame (rows in the layout's order), ``callback`` a
-    per-iteration termination callback of a single problem (``loop.run_ipm``)."""
+    per-iteration termination callback of a single problem (``loop.run_ipm``).
+
+    With ``sparse_ctx`` (a ``(kkt.sparse.SparseKKT, device data)`` pair) the
+    function takes ``P``/``A`` as ``algebra.coo.COOMat`` (P full-symmetric)
+    of a single problem, and the KKT path runs the sparse multifrontal
+    engine: nothing is densified."""
 
     def solve_core(P, q, A, b, warm_start=None):
-        triu_mask = torch.triu(torch.ones((n, n), dtype=dtype, device=P.device))
         # unscaled inf-norms of the linear terms, cached before
         # equilibration (problemdata.rs:147-148)
         normq = _amax0(q)
         normb = _amax0(b)
 
-        P, q, A, b, d, e, c_scale = equilibration.equilibrate(
-            layout, settings, P, q, A, b, triu_mask
-        )
+        if sparse_ctx is not None:
+            P, q, A, b, d, e, c_scale = equilibration.equilibrate_sparse(
+                layout, settings, P, q, A, b
+            )
+            # values are final for the whole IPM: materialize the DIA
+            # matvec layout once (no-op for non-compact patterns)
+            P, A = P.predia(), A.predia()
+        else:
+            triu_mask = torch.triu(torch.ones((n, n), dtype=dtype, device=P.device))
+            P, q, A, b, d, e, c_scale = equilibration.equilibrate(
+                layout, settings, P, q, A, b, triu_mask
+            )
         dinv, einv, cinv = 1.0 / d, 1.0 / e, 1.0 / c_scale
         equil = (d, e, dinv, einv, cinv)
 
@@ -254,6 +415,7 @@ def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
         st = run_ipm(
             layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             use_pallas=use_pallas, warm_start=warm_start, callback=callback,
+            sparse_kkt=sparse_ctx,
         )
 
         # ---- solution post-processing (solution.rs:68-111,
@@ -311,15 +473,13 @@ def _not_ported(what: str, item):
     )
 
 
-def check_ported(settings: DefaultSettings, dtype: Optional[str]) -> str:
-    """The dtype name a solve runs at ("float64" unless given); raises for a
-    dtype or a ``direct_solve_method`` this port does not run yet."""
+def check_ported(dtype: Optional[str]) -> str:
+    """The dtype name a solve runs at ("float64" unless given); raises for
+    another dtype.  Every ``direct_solve_method`` the settings accept is
+    ported (which ones run at f32: :func:`check_ported_dtype`)."""
     dtype = dtype or "float64"
     if dtype not in ("float64", "float32"):
         raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
-    method = settings.direct_solve_method
-    if method not in _PORTED_METHODS:
-        raise _not_ported(f"direct_solve_method={method!r}", _METHOD_ITEMS.get(method, 5))
     return dtype
 
 
@@ -340,16 +500,16 @@ def check_ported_dtype(layout: ConeLayout, settings: DefaultSettings, dtype: str
 
 class DefaultSolver:
     """Interior-point solver for convex conic programs with quadratic
-    objectives (reference: DefaultSolver, default/solver.rs:19-126), on the
-    dense path with zero, nonnegative, second-order, exponential, power,
-    generalized power and PSD triangle cones, large sparse PSD cones
-    decomposed into their cliques (chordal decomposition): at f64 through
-    every ported KKT method (the structured Schur paths fall back to LU on
-    the nonsymmetric and PSD cones, as in the JAX package), at f32 through
+    objectives (reference: DefaultSolver, default/solver.rs:19-126) with
+    zero, nonnegative, second-order, exponential, power, generalized power
+    and PSD triangle cones, large sparse PSD cones decomposed into their
+    cliques (chordal decomposition): on the dense path at f64 through every
+    ported KKT method (the structured Schur paths fall back to LU on the
+    nonsymmetric and PSD cones, as in the JAX package), at f32 through
     "schur_diag" and "schur_lr" on the zero, nonnegative and second-order
-    cones.  Its data can be updated between solves (unless presolve or the
-    decomposition changed the problem), a solve warm-started and stopped by
-    a callback."""
+    cones; on the sparse multifrontal path at f64.  Its data can be updated
+    between solves (unless presolve or the decomposition changed the
+    problem), a solve warm-started and stopped by a callback."""
 
     def __init__(
         self,
@@ -366,8 +526,9 @@ class DefaultSolver:
         self.settings.validate()
         self.timers = Timers()
 
-        self._dtype = check_ported(self.settings, dtype)
+        self._dtype = check_ported(dtype)
         self._device = resolve_device(device)
+        self._callback = None
 
         with self.timers.scope("setup"):
             q = np.asarray(q, np.float64).ravel()
@@ -399,54 +560,133 @@ class DefaultSolver:
             self._A_csc = A_csc
             self._nnzA = int(A_csc.nnz)
 
-            # the JAX package routes large sparse problems to its
-            # multifrontal engine; a problem sent there only tentatively,
-            # for its PSD blocks, may come back to the dense path
-            if _wants_sparse(self.settings, P_csc, A_csc, n, m, cones) and \
-                    not self._sparse_route_returns_dense(q, b, cones):
-                raise _not_ported("the sparse multifrontal auto route", 14)
-            self._setup_dense(
-                _symmetrize_triu(P_csc.toarray()), A_csc.toarray(), q, b, cones,
-            )
+            # large sparse problems (or an explicit request) route to the
+            # sparse multifrontal KKT engine and are never densified;
+            # everything else uses the dense backends.  On the auto path the
+            # post-chordal density re-check and the cost model may send the
+            # problem back to the dense path.
+            self._sparse = _wants_sparse(self.settings, P_csc, A_csc, n, m, cones)
+            if self._sparse:
+                self._sparse = self._setup_sparse(q, b, cones)
+            if not self._sparse:
+                self._setup_dense(
+                    _symmetrize_triu(P_csc.toarray()), A_csc.toarray(), q, b, cones,
+                )
 
         self.info = DefaultInfo(linear_solver=self._linear_solver)
         self.solution: Optional[DefaultSolution] = None
         self.equilibration: Optional[EquilibrationData] = None
         self.iteration_history: Optional[np.ndarray] = None
-        self._callback = None
 
     # ------------------------------------------------------------------
-    def _sparse_route_returns_dense(self, q, b, cones) -> bool:
-        """Whether the JAX package's sparse setup sends this problem back to
-        the dense path before its multifrontal symbolic analysis
-        (clarabel_tpu/solver.py:697-807): the same presolve, chordal
-        decomposition and augmentation on the sparse data, then its
-        post-chordal density re-check, run only for a problem with PSD
-        cones and no explicit "multifrontal" request."""
+    def _setup_sparse(self, q, b, cones) -> bool:
+        """Sparse-path setup (the JAX package's solver.py:698-864): the
+        scipy-sparse host pipeline and the multifrontal symbolic analysis;
+        the problem data stay COO triplets on the device.  Returns False
+        where the "auto" route goes back to the dense path: the
+        post-chordal density re-check, or the cost model's veto."""
         import scipy.sparse as sp
 
-        if self.settings.direct_solve_method == "multifrontal":
-            return False
-        cones_int = api.collapse_cones(cones)
-        A_work = self._A_csc.tocsr()
-        presolver = presolve.try_presolve(A_work, b, cones_int, self.settings)
-        if presolver is not None:
-            A_work, b, cones_int = presolve.apply_presolve(presolver, A_work, b, cones_int)
-        if not any(c.kind == api.PSD for c in cones_int):
-            return False
-        b = np.minimum(b, get_infinity())
-        P_full = (self._P_csc + sp.triu(self._P_csc, 1).T).tocsc()
+        from .algebra.coo import COOMat
+        from .kkt import sparse as kkt_sparse
 
-        from .chordal import try_chordal_info
+        n, m = q.shape[0], b.shape[0]
+        auto = self.settings.direct_solve_method != "multifrontal"
+        with self.timers.scope("presolve"):
+            # cone collapsing (supportedcone.rs:105-161)
+            cones_int = api.collapse_cones(cones)
 
-        chordal = try_chordal_info(A_work, b, cones_int, self.settings)
-        if chordal is not None:
-            P_s, q, A_s, b, cones_int = chordal.decomp_augment(
-                P_full, q, A_work, b, self.settings)
-            P_full, A_work = P_s.tocsc(), A_s.tocsr()
-        N = P_full.shape[0] + sum(c.nvars for c in cones_int)
-        nnz = 2 * P_full.nnz + A_work.nnz + N + _estimate_hs_nnz(cones_int)
-        return nnz >= _SPARSE_AUTO_MAX_DENSITY * float(N) * float(N)
+            # presolve reduction (problemdata.rs:85-90); row selection
+            # stays sparse via CSR slicing
+            A_work = self._A_csc.tocsr()
+            self._presolver = presolve.try_presolve(A_work, b, cones_int, self.settings)
+            if self._presolver is not None:
+                A_work, b, cones_int = presolve.apply_presolve(
+                    self._presolver, A_work, b, cones_int
+                )
+
+            # cap b at the infinity bound (problemdata.rs:126-131)
+            b = np.minimum(b, get_infinity())
+            self._np_q = q.copy()
+            self._np_b = b.copy()
+
+            # chordal decomposition of large PSD cones composes with the
+            # sparse KKT path: the transform runs on the host, and the
+            # decomposed problem -- many small clique cones with sparse
+            # coupling rows -- is what the multifrontal engine is built for
+            # (reference: problemdata.rs:94-112)
+            from .chordal import try_chordal_info
+
+            P_full_csc = _full_from_triu(self._P_csc)
+            self._chordal = None
+            if any(c.kind == api.PSD for c in cones_int):
+                self._chordal = try_chordal_info(A_work, b, cones_int, self.settings)
+                if self._chordal is not None:
+                    P_s, q, A_s, b, cones_int = self._chordal.decomp_augment(
+                        P_full_csc, q, A_work, b, self.settings,
+                    )
+                    P_full_csc = P_s.tocsc()
+                    A_work = A_s.tocsr()
+
+            n_int = P_full_csc.shape[0]
+            self._layout = ConeLayout(cones_int)
+            perm = self._layout.perm
+            A_perm = A_work[perm].tocoo()
+            b = b[perm]
+
+        self.n = n
+        self.m_full = m
+        self.m = self._layout.m
+        self._n_int = n_int
+        self._torch_dtype = getattr(torch, self._dtype)
+        P_sym = P_full_csc.tocoo()
+        self._p_is_zero = not (P_sym.nnz and np.any(P_sym.data))
+        self._use_pallas = False  # the dense path's LDLᵀ switch; the sparse path ignores it
+
+        # post-chordal density re-check: a PSD problem routed here
+        # tentatively, for its PSD blocks, goes back to the dense path if
+        # the decomposition did not make it sparse enough
+        if auto and any(c.kind == api.PSD for c in cones_int):
+            N_est = n_int + self._layout.m
+            nnz_est = 2 * P_full_csc.nnz + A_perm.nnz + N_est + _estimate_hs_nnz(cones_int)
+            if nnz_est >= _SPARSE_AUTO_MAX_DENSITY * float(N_est) * float(N_est):
+                return False
+
+        self._cost_model = _cost_model_for(self._device)
+        with self.timers.scope("kktinit"):
+            t0 = time.perf_counter()
+            self._skkt = kkt_sparse.build(
+                self._layout, n_int, P_sym.row.astype(np.int64), P_sym.col.astype(np.int64),
+                A_perm.row.astype(np.int64), A_perm.col.astype(np.int64),
+                ordering=self.settings.multifrontal_ordering, dtype=self._dtype,
+            )
+            self._symbolic_seconds = time.perf_counter() - t0
+            # auto-mode cost-model veto (ldlsolvers/auto.rs analog): a bad
+            # fill/schedule on a medium problem falls back to dense LU
+            if auto and _prefer_dense(self._skkt.plan, self._skkt.N, self._cost_model):
+                return False
+            if self._dtype != "float64":
+                raise _not_ported(
+                    "dtype='float32' on the sparse multifrontal path (the compensated "
+                    "f32 refinement)", "12b")
+            self._skkt_data = self._skkt.device_data(self._torch_dtype, self._device)
+            # DIA metadata where the pattern is banded-compact
+            self._P = COOMat.from_coo(P_sym.data, P_sym.row, P_sym.col, (n_int, n_int),
+                                      self._torch_dtype, self._device, dia=True)
+            self._A = COOMat.from_coo(A_perm.data, A_perm.row, A_perm.col, (self.m, n_int),
+                                      self._torch_dtype, self._device, dia=True)
+            self._q = self._put(q)
+            self._b = self._put(b)
+            self._solve_fn = self._build_solve_fn()
+
+        self._linear_solver = LinearSolverInfo(
+            name="multifrontal",
+            nnzA=self._nnzA,
+            nnzL=int(self._skkt.plan.nnzL),
+            dim=self._skkt.N,
+            cost_model=self._cost_model,
+        )
+        return True
 
     def _setup_dense(self, P, A, q, b, cones):
         n, m = q.shape[0], b.shape[0]
@@ -505,10 +745,7 @@ class DefaultSolver:
                            self._use_pallas)
 
         with self.timers.scope("kktinit"):
-            self._solve_fn = build_solve_core(
-                self._layout, self.settings, self._n_int,
-                self._p_is_zero, self._torch_dtype, self._use_pallas,
-            )
+            self._solve_fn = self._build_solve_fn()
 
         N = self._n_int + self.m
         self._linear_solver = LinearSolverInfo(
@@ -519,6 +756,7 @@ class DefaultSolver:
             nnzA=self._nnzA,
             nnzL=N * (N + 1) // 2,  # dense factor
             dim=N,
+            cost_model=getattr(self, "_cost_model", None),
         )
 
     def _put(self, v) -> torch.Tensor:
@@ -693,31 +931,77 @@ class DefaultSolver:
                 raise ValueError("updated vector has wrong length")
             vec[...] = vals
 
+    @staticmethod
+    def _apply_csc_update(csc, data, name):
+        """Sparse-path update: write through the retained CSC structure
+        (the analog of the reference's AtoPAPt write-through,
+        qdldl.rs:142-149).  The structure must be identical."""
+        import scipy.sparse as sp
+
+        if hasattr(data, "tocsc") or (isinstance(data, np.ndarray) and data.ndim == 2):
+            new = _to_csc(data, name)
+            if name == "P":
+                new = sp.triu(new, format="csc")
+                new.sort_indices()
+            if (
+                new.shape != csc.shape
+                or new.nnz != csc.nnz
+                or not np.array_equal(new.indices, csc.indices)
+                or not np.array_equal(new.indptr, csc.indptr)
+            ):
+                raise ValueError(f"updated {name} must have identical sparsity structure")
+            csc.data[:] = new.data
+        elif isinstance(data, tuple) and len(data) == 2:
+            idx, vals = data
+            csc.data[np.asarray(idx, np.int64).ravel()] = np.asarray(vals, np.float64).ravel()
+        else:
+            vals = np.asarray(data, np.float64).ravel()
+            if vals.shape[0] != csc.nnz:
+                raise ValueError(f"expected {csc.nnz} values for full nzval update")
+            csc.data[:] = vals
+
     def _push_data(self):
         """Copy the host data to the device; a change of whether P is zero
         rebuilds the solve function, whose start depends on it."""
         perm = self._layout.perm
-        self._P = self._put(self._np_P)
         self._q = self._put(self._np_q)
-        self._A = self._put(self._np_A[perm, :])
         self._b = self._put(np.minimum(self._np_b, get_infinity())[perm])
-        p_is_zero = not np.any(self._np_P)
+        if self._sparse:
+            # the structure is immutable, so the COO order is the one
+            # captured at setup
+            P_sym = _full_from_triu(self._P_csc).tocoo()
+            A_perm = self._A_csc.tocsr()[perm].tocoo()
+            self._P = self._P.with_data(self._put(P_sym.data))
+            self._A = self._A.with_data(self._put(A_perm.data))
+            p_is_zero = not (P_sym.nnz and np.any(P_sym.data))
+        else:
+            self._P = self._put(self._np_P)
+            self._A = self._put(self._np_A[perm, :])
+            p_is_zero = not np.any(self._np_P)
         if p_is_zero != self._p_is_zero:
             self._p_is_zero = p_is_zero
             self._rebuild_solve_fn()
+
+    def _update_matrix(self, name, data):
+        if self._sparse:
+            self._apply_csc_update(self._P_csc if name == "P" else self._A_csc, data, name)
+        elif name == "P":
+            self._apply_matrix_update(self._np_P, self._P_csc, data, symmetric=True)
+        else:
+            self._apply_matrix_update(self._np_A, self._A_csc, data, symmetric=False)
 
     def update_P(self, data):
         """Update the P matrix: full matrix, full nzval vector of its upper
         triangle, or (nzval-indices, values).  reference:
         data_updating.rs:98-116"""
         self._check_update_allowed()
-        self._apply_matrix_update(self._np_P, self._P_csc, data, symmetric=True)
+        self._update_matrix("P", data)
         self._push_data()
 
     def update_A(self, data):
         """reference: data_updating.rs:118-132"""
         self._check_update_allowed()
-        self._apply_matrix_update(self._np_A, self._A_csc, data, symmetric=False)
+        self._update_matrix("A", data)
         self._push_data()
 
     def update_q(self, data):
@@ -736,9 +1020,9 @@ class DefaultSolver:
         """Combined update (reference: data_updating.rs:68-86)."""
         self._check_update_allowed()
         if P is not None:
-            self._apply_matrix_update(self._np_P, self._P_csc, P, symmetric=True)
+            self._update_matrix("P", P)
         if A is not None:
-            self._apply_matrix_update(self._np_A, self._A_csc, A, symmetric=False)
+            self._update_matrix("A", A)
         if q is not None:
             self._apply_vector_update(self._np_q, q)
         if b is not None:
@@ -749,11 +1033,16 @@ class DefaultSolver:
     # settings and callbacks
     # ------------------------------------------------------------------
 
-    def _rebuild_solve_fn(self):
-        self._solve_fn = build_solve_core(
+    def _build_solve_fn(self):
+        sparse_ctx = (self._skkt, self._skkt_data) if self._sparse else None
+        return build_solve_core(
             self._layout, self.settings, self._n_int, self._p_is_zero,
             self._torch_dtype, self._use_pallas, callback=self._callback,
+            sparse_ctx=sparse_ctx,
         )
+
+    def _rebuild_solve_fn(self):
+        self._solve_fn = self._build_solve_fn()
 
     def update_settings(self, settings: DefaultSettings):
         """Replace settings between solves; structure-determining settings
@@ -789,6 +1078,11 @@ class DefaultSolver:
     def unset_termination_callback(self):
         self._callback = None
         self._rebuild_solve_fn()
+
+    def save_to_file(self, path):
+        """Write the problem as reference-format JSON: not ported yet
+        (raises, naming its ROADMAP item)."""
+        raise _not_ported("save_to_file (JSON problem IO)", 17)
 
     # ------------------------------------------------------------------
     # printing (reference: info_print.rs)

@@ -124,7 +124,7 @@ def main() -> int:
         out = torch.empty_like(K)
 
         def launch(lib):
-            err = lib.ldl_unblocked_f64(out.data_ptr(), sign.data_ptr(), B, N, j0, nbytes,
+            err = lib.ldl_unblocked_f64(out.data_ptr(), sign.data_ptr(), 0, B, N, j0, nbytes,
                                         eps, delta, stream)
             if err != 0:
                 raise RuntimeError(f"launch failed: CUDA error {err}")

@@ -12,7 +12,11 @@ SecondOrderConeT(33), B = 1024) at f32 through "auto" (the Schur paths
 (n = 500, 500 exponential cones, N = 2540) and its PSD problems -- the
 max-cut SDP (one PSDTriangleConeT(100), N = 10200), the chordal max-cut
 (PSDTriangleConeT(124) of a sparse graph, decomposed into its cliques) and
-the bench's SDP batch at B = 2048 (N = 58) -- through "pallas" and "auto",
+the bench's SDP batch at B = 2048 (N = 58) -- through "pallas" and "auto"
+(the chordal max-cut through "pallas", "lu" and "auto"), and phase 3f's
+sparse problems -- the JAX bench's banded QP (n = 20000, KKT N = 60000)
+and banded SDP (PSDTriangleConeT(250), decomposed) -- through
+"multifrontal",
 each under torch.profiler after one untraced warm-up solve, and prints for
 each: the wall time, the summed device time of the kernels, the device's
 idle share (1 - device time / wall time; the kernels of one stream do not
@@ -23,7 +27,11 @@ them; on PSD layouts the SVDs and eigenvalue solves add theirs).  For the
 entropy and max-cut solves it also splits the host's wall time over the
 loop's parts (an untraced solve with each part's function wrapped by a host
 clock: inclusive times, device waits included) and counts the device
-reads.  Then it profiles the LDLᵀ factor alone, f64: the blocked variant
+reads; for the banded QP the same split over the sparse path's parts,
+and for the sparse problems one multifrontal factorization's launches and
+times with the fronts' diagonal blocks on the unblocked kernel and, for
+comparison, through the pivot scan, and one 2-RHS multifrontal solve's.  Then it profiles the LDLᵀ factor
+alone, f64: the blocked variant
 at the large problems' KKT shapes (1 x 2001², 1 x 1552², 1 x 2540²,
 1 x 10200²) and the unblocked one at 1 x 201², 8 x 200², 1 x 256² and the
 batches' 2048 x 96² and 2048 x 58², and prints each kernel's device time
@@ -131,8 +139,13 @@ def host_split(problem, method):
     from clarabel_tpu_torch.kkt import dense
     from clarabel_tpu_torch.timers import host_read
 
+    from clarabel_tpu_torch.kkt import multifrontal, sparse
+
     parts = {"kkt factor (loop._kkt_prepare)": (loop, "_kkt_prepare"),
              "Hs assembly (cones.ops.hs_dense)": (ops, "hs_dense"),
+             "sparse Hs values (cones.ops.hs_lower_vals)": (ops, "hs_lower_vals"),
+             "multifrontal factor (kkt.multifrontal.mf_factor)": (multifrontal, "mf_factor"),
+             "multifrontal solves (kkt.sparse.solve)": (sparse, "solve"),
              "refined solves (kkt.dense.solve_refined)": (dense, "solve_refined"),
              "scaling update (cones.ops.update_scaling)": (ops, "update_scaling"),
              "step length (loop.calc_step_length)": (loop, "calc_step_length"),
@@ -169,6 +182,70 @@ def host_split(problem, method):
     return dict(method=method, iterations=sol.iterations, wall_ms=wall,
                 device_reads=host_read.count,
                 parts={k: dict(calls=c, host_ms=ms) for k, (c, ms) in totals.items()})
+
+
+def profile_multifrontal_factor(problem, reps=3):
+    """Launches and device time of one multifrontal factorization (sparse
+    assembly included) of ``problem`` at the identity scaling, by the
+    route the solver takes on a card -- the fronts' diagonal blocks on the
+    unblocked kernel -- and with those blocks through the pivot scan of the
+    JAX package instead (``multifrontal._diag_factor_scan``, the CPU
+    route), run on the card for this count only; each with its wall time
+    by CUDA events."""
+    import functools
+
+    from clarabel_tpu_torch import loop
+    from clarabel_tpu_torch.cones import ops as cone_ops
+    from clarabel_tpu_torch.kkt import multifrontal, sparse
+
+    P, q, A, b, cones = problem
+    solver = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(
+        verbose=False, direct_solve_method="multifrontal"), device="cuda")
+    layout, dtype = solver._layout, solver._torch_dtype
+    Pd, Ad = solver._P.predia(), solver._A.predia()
+    state = cone_ops.set_identity_scaling(layout, dtype, Pd.data.device)
+    ctx = (solver._skkt, solver._skkt_data)
+    original = multifrontal.mf_factor
+    out = {}
+    for route, diag_fn in (("kernel", multifrontal._diag_factor),
+                           ("scan", multifrontal._diag_factor_scan)):
+        multifrontal.mf_factor = functools.partial(original, diag_fn=diag_fn)
+        try:
+            prepare = lambda: loop._kkt_prepare(layout, solver.settings, dtype, solver._n_int,
+                                                False, Pd, Ad, state, sparse_kkt=ctx)
+            prepare()  # warm-up
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(reps):
+                    prepare()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            out[route] = dict(
+                launches_per_factor=sum(e.count for e in events) / reps,
+                device_ms_per_factor=sum(e.self_device_time_total for e in events) / 1e3 / reps,
+                ms_per_factor=chip_smoke.cuda_ms(prepare, reps))
+        finally:
+            multifrontal.mf_factor = original
+    # one 2-RHS solve with the factors (the constant and affine solves'
+    # shape)
+    factors, _, _ = prepare()
+    _, data, mff = factors[1]
+    rhs = torch.ones((solver._skkt.N, 2), dtype=dtype, device=Pd.data.device)
+    solve = lambda: sparse.solve(solver._skkt, data, mff, rhs)
+    solve()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            solve()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    out["solve"] = dict(launches=sum(e.count for e in events) / reps,
+                        device_ms=sum(e.self_device_time_total for e in events) / 1e3 / reps,
+                        ms=chip_smoke.cuda_ms(solve, reps))
+    plan = solver._skkt.plan
+    return dict(N=solver._skkt.N, levels=len(plan.levels),
+                buckets=sum(len(lvl) for lvl in plan.levels), **out)
 
 
 def profile_factor(n, m, seed, variant="blocked", B=1, reps=5):
@@ -226,12 +303,18 @@ def main():
                          tt.DefaultSolver, f64),
         # chip_smoke.py phase 3e's PSD problems
         "maxcut_n100": (chip_smoke.maxcut_primal(100, 248, args.seed + 30), tt.DefaultSolver, f64),
-        # "auto" raises here: the JAX package's route needs its multifrontal
-        # analysis (ROADMAP item 14)
+        # "auto": dense or the multifrontal engine, as the card's cost
+        # model routes it
         "chordal_maxcut_n124": (chip_smoke.maxcut_dual(124, 3, args.seed + 31),
-                                tt.DefaultSolver, [("pallas", "float64"), ("lu", "float64")]),
+                                tt.DefaultSolver, [("pallas", "float64"), ("lu", "float64"),
+                                                   ("auto", "float64")]),
         "sdp_batch_B2048": (chip_smoke.sdp_batch(2048, 16, 4, args.seed + 32 + 2048),
                             tt.BatchSolver, f64),
+        # chip_smoke.py phase 3f's sparse problems
+        "banded_qp_n20000": (chip_smoke.banded_qp(20000, args.seed + 40), tt.DefaultSolver,
+                             [("multifrontal", "float64")]),
+        "banded_sdp_n250": (chip_smoke.banded_sdp(250), tt.DefaultSolver,
+                            [("multifrontal", "float64")]),
     }
     chosen = set(problems if args.problems is None else args.problems.split(","))
     report = dict(card=card, runs=[])
@@ -254,8 +337,10 @@ def main():
         report["waits_per_call"] = waits_per_call()
         print("device waits per call:", report["waits_per_call"])
         report["host_split"] = []
-        for label in chosen & {"entropy_n500", "maxcut_n100"}:
-            for method in ("pallas", "auto"):
+        splits = {"entropy_n500": ("pallas", "auto"), "maxcut_n100": ("pallas", "auto"),
+                  "banded_qp_n20000": ("multifrontal",)}
+        for label in chosen & set(splits):
+            for method in splits[label]:
                 r = host_split(problems[label][0], method)
                 r["problem"] = label
                 report["host_split"].append(r)
@@ -263,6 +348,17 @@ def main():
                       f"{r['wall_ms']:.1f} ms, {r['device_reads']} device reads")
                 for key, part in r["parts"].items():
                     print(f"    {part['host_ms']:9.1f} ms  {part['calls']:5d}x  {key}")
+        report["multifrontal_factors"] = {}
+        for label in chosen & {"banded_qp_n20000", "banded_sdp_n250"}:
+            r = profile_multifrontal_factor(problems[label][0])
+            report["multifrontal_factors"][label] = r
+            print(f"{label} multifrontal factor (N={r['N']}, {r['buckets']} buckets):")
+            for route in ("kernel", "scan"):
+                print(f"    diagonal blocks by {route}: {r[route]['launches_per_factor']:.0f} "
+                      f"launches, device {r[route]['device_ms_per_factor']:.2f} ms, wall "
+                      f"{r[route]['ms_per_factor']:.2f} ms per factor")
+            print(f"    a 2-RHS solve: {r['solve']['launches']:.0f} launches, device "
+                  f"{r['solve']['device_ms']:.2f} ms, wall {r['solve']['ms']:.2f} ms")
         report["factors"] = []
         for variant, B, n, m in (("blocked", 1, 1000, 1001), ("blocked", 1, 500, 1052),
                                  ("unrolled", 1, 100, 101), ("fori", 8, 100, 100),

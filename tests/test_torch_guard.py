@@ -62,6 +62,13 @@ def test_solve_imports_no_jax():
         "s = tt.DefaultSolver(np.eye(len(pairs)), -np.ones(len(pairs)), A, np.zeros(21),\n"
         "    [tt.PSDTriangleConeT(n)], tt.DefaultSettings(verbose=False), device='cpu')\n"
         "assert s._chordal is not None and s.solve().status == tt.SolverStatus.Solved\n"
+        "# the sparse multifrontal path (algebra/, kkt/sparse.py, kkt/multifrontal.py)\n"
+        "P = np.array([[4.0, 1.0], [1.0, 2.0]])\n"
+        "A = np.vstack([np.ones((1, 2)), np.eye(2), -np.eye(2)])\n"
+        "b = np.array([1.0, 0.7, 0.7, 0.0, 0.0])\n"
+        "s = tt.DefaultSolver(P, np.ones(2), A, b, [tt.ZeroConeT(1), tt.NonnegativeConeT(4)],\n"
+        "    tt.DefaultSettings(verbose=False, direct_solve_method='multifrontal'), device='cpu')\n"
+        "assert s._sparse and s.solve().status == tt.SolverStatus.Solved\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'clarabel_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -102,9 +109,12 @@ def _f32(method):
     (_f32("lu"), "item 12b"),
     (_f32("pallas"), "item 12b"),
     (_f32("schur"), "item 12b"),
-    (dict(settings=tt.DefaultSettings(direct_solve_method="multifrontal")), "item 14"),
+    # the sparse multifrontal path runs at f64 only
+    (_f32("multifrontal"), "item 12b"),
     # BatchSolver: a batch of two copies of the same problem
     (dict(batch=True, **_f32("lu")), "item 12b"),
+    # BatchSolver runs "multifrontal" as dense LU, as the JAX package's does
+    (dict(batch=True, **_f32("multifrontal")), "item 12b"),
     (dict(batch=True, mesh=object()), "item 16"),
     # f32 on a nonsymmetric layout: "auto" resolves to "lu" there
     (dict(batch=True, cones=[tt.ZeroConeT(1), tt.NonnegativeConeT(1),
@@ -121,6 +131,28 @@ def test_unported_options_raise(kwargs, item):
             tt.BatchSolver(P, q, A, b, cones, device="cpu", **kwargs).solve()
         else:
             tt.DefaultSolver(P, q, A, b, cones, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("entry, item", [
+    # B sparse problems of one pattern
+    ("SparseBatchSolver", "item 15"),
+    # JSON problem IO, on the dense and the sparse path
+    ("save_to_file auto", "item 17"),
+    ("save_to_file multifrontal", "item 17"),
+])
+def test_unported_entry_points_raise(entry, item, tmp_path):
+    P, q, A, b, cones = _tiny_qp()
+    if entry == "SparseBatchSolver":
+        with pytest.raises(NotImplementedError, match=item):
+            tt.SparseBatchSolver(np.stack([P, P]), np.stack([q, q]), np.stack([A, A]),
+                                 np.stack([b, b]), cones, device="cpu")
+        return
+    method = entry.split()[1]
+    s = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(
+        verbose=False, direct_solve_method=method), device="cpu")
+    assert s._sparse == (method == "multifrontal")
+    with pytest.raises(NotImplementedError, match=item):
+        s.save_to_file(tmp_path / "problem.json")
 
 
 def test_batch_solver_defaults_to_cuda_and_has_no_time_limit(monkeypatch):
@@ -149,11 +181,21 @@ def test_unported_cones_raise(cone, kwargs, item):
 
 
 def test_sparse_auto_route_raises():
+    """A problem past the sparse route's size gate: at f64 "auto" sends it
+    to the multifrontal engine, which solves it; at f32 that route raises,
+    naming ROADMAP item 12b."""
     n = 3000
     eye = sp.eye(n, format="csc")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tt.DefaultSolver(eye, np.ones(n), eye, np.ones(n), [tt.NonnegativeConeT(n)],
+    cones = [tt.NonnegativeConeT(n)]
+    s = tt.DefaultSolver(eye, np.ones(n), eye, np.ones(n), cones,
                          tt.DefaultSettings(verbose=False), device="cpu")
+    assert s.info.linear_solver.name == "multifrontal" and s.info.linear_solver.dim == 2 * n
+    assert s.solve().status == tt.SolverStatus.Solved
+    assert np.allclose(s.solution.x, -1.0, atol=1e-7)  # min ½|x|² + Σx, x <= 1
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        tt.DefaultSolver(eye, np.ones(n), eye, np.ones(n), cones,
+                         tt.DefaultSettings.for_float32(verbose=False), dtype="float32",
+                         device="cpu")
 
 
 def test_convert_round_trips_settings_and_cones():

@@ -7,15 +7,14 @@ CPU, under the parity contract of tests/_torch_parity.py (the same status,
 iterations and KKT backend name; x, z and s within 1e-7; the objectives
 within 1e-9 relative).
 
-Then the routing of the JAX package's auto backend: a large problem goes
-to its sparse multifrontal engine, where PSD blocks may send it only
-tentatively, to come back to the dense path after the chordal analysis.
+Then the routing of the auto backend: a large problem goes to the sparse
+multifrontal engine, where PSD blocks may send it only tentatively, to
+come back to the dense path after the chordal analysis or the cost model.
 On the problems of tests/test_psd_auto_route.py and a max-cut SDP above
-the size gate, the port builds its dense solver exactly where the JAX
-package returns to the dense path before its multifrontal analysis, with
-the same decomposition and KKT backend, and raises naming ROADMAP item 14
-exactly where the JAX package goes on to that analysis.  Constructions
-only: nothing is solved.
+the size gate, the port takes the JAX package's route -- the same
+decomposition, KKT backend and dimensions, and, where the JAX package
+builds its multifrontal analysis, the same plan size and cost-model
+decision (the CPU constants).  Constructions only: nothing is solved.
 
 f32 with a PSD cone raises, naming ROADMAP item 12b.
 """
@@ -120,20 +119,21 @@ ROUTES = {
 def test_routing_matches_reference(name):
     P, q, A, b, cones = ROUTES[name]()
     ref = ct.DefaultSolver(P, q, A, b, cones, ct.DefaultSettings(verbose=False))
+    settings = tt.DefaultSettings(verbose=False)
+    got = tt.DefaultSolver(P, q, A, b, tp.port_cones(cones), settings, device="cpu")
     # the JAX package builds its multifrontal analysis (``_skkt``) once it
     # goes on past the post-chordal re-check, whether or not its cost
-    # model then vetoes it
-    multifrontal = hasattr(ref, "_skkt")
-    settings = tt.DefaultSettings(verbose=False)
-    if multifrontal:
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tt.DefaultSolver(P, q, A, b, tp.port_cones(cones), settings, device="cpu")
-        return
-    assert not ref._sparse
-    got = tt.DefaultSolver(P, q, A, b, tp.port_cones(cones), settings, device="cpu")
+    # model then vetoes it; the port follows the same route
+    assert hasattr(got, "_skkt") == hasattr(ref, "_skkt")
+    assert got._sparse == ref._sparse
     assert (got._chordal is None) == (ref._chordal is None)
-    assert got.info.linear_solver.name == ref.info.linear_solver.name
-    assert got.info.linear_solver.dim == ref.info.linear_solver.dim
+    for field in ("name", "dim", "nnzL"):
+        assert getattr(got.info.linear_solver, field) == getattr(ref.info.linear_solver, field)
+    rcm, gcm = ref.info.linear_solver.cost_model, got.info.linear_solver.cost_model
+    assert (gcm is None) == (rcm is None)
+    if rcm is not None:
+        assert {k: v for k, v in gcm.items() if k != "provenance"} == \
+            {k: v for k, v in rcm.items() if k != "provenance"}
     assert got._layout.cones == tp.port_cones(ref._layout.cones)
 
 
