@@ -93,8 +93,29 @@ Phases:
      [B, N] signs against its twin, bit for bit, at the fronts' shapes
      (287 x 32², the QP's widest bucket; 35 x 32², the SDP's; 7 x 1², 17²
      and 32²);
-  4. the launch counts of phases 2-3, 3b, 3d, 3e and 3f and one JSON line
-     per kernel and shape.
+  3g. SparseBatchSolver at f64, B problems of one sparsity pattern through
+     one multifrontal plan: the JAX bench's batched_sparse_qp
+     (bench.py:466-500: tridiagonal P, A = [I; -I], n = 1000, KKT N = 3000)
+     at B = 32, solved twice bit for bit, and at B = 512 (about 1 GB of
+     fronts); NN + SOC batches (n = 500, B = 64, the rank-2 expansion and
+     the assembly through Kvals: the cone slack, and the cone active as in
+     the JAX package's test_sparse_batch_socp_lane, where a few lanes end
+     AlmostSolved in the JAX package too); a feasible and a
+     primal-infeasible lane in one batch; and the B = 32 batch warm
+     re-solved after a 1 % update of q and b.  Every lane Solved
+     (PrimalInfeasible for the infeasible one; Solved or AlmostSolved with
+     the active cone, the Solved lanes' host KKT residuals at most 1e-7);
+     four lanes of each of the QP batches and the slack NN + SOC batch
+     equal DefaultSolver's "multifrontal" solve of them alone (status,
+     iterations within 1, objective within 1e-7 relative, host KKT
+     residuals at most 1e-7), the loop over them timed as the yardstick;
+     for each batch solves/s, ms/iteration (the slowest lane), device reads
+     per iteration, the unblocked kernel's launches per factor, one factor
+     and one solve by CUDA events and the peak device memory; phase 1
+     holds that kernel bit for bit at the batches' block shapes
+     (2752 and 44032 x 32²);
+  4. the launch counts of phases 2-3, 3b, 3d, 3e, 3f and 3g and one JSON
+     line per kernel and shape.
 
 With --deterministic the run also sets torch.use_deterministic_algorithms
 (warn only) and lists each operation PyTorch reports as having no
@@ -115,6 +136,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
@@ -155,8 +177,10 @@ KERNELS = {
 SOURCE = "clarabel_tpu_torch/kkt/csrc/ldl.cu"
 #: (B, N) of the unblocked kernel with per-matrix signs: the diagonal-block
 #: batches of phase 3f's multifrontal solves (the banded QP's widest bucket,
-#: 287 fronts; the banded SDP's, 35) and edge widths
-FRONT_SHAPES = ((287, 32), (35, 32), (7, 1), (7, 17), (7, 32))
+#: 287 fronts; the banded SDP's, 35), of phase 3g's sparse batches (the
+#: n = 1000 QP's widest bucket, 86 fronts, in 32 and 512 lanes) and edge
+#: widths
+FRONT_SHAPES = ((287, 32), (35, 32), (2752, 32), (44032, 32), (7, 1), (7, 17), (7, 32))
 
 
 def log(*args):
@@ -833,24 +857,32 @@ def check_batch(label, problem, variant, iterations_apart=1, count_syncs=False):
     return report, lu.obj_val
 
 
-def sequential_yardstick(problem, lanes):
-    """Solves per second of DefaultSolver looped over the first ``lanes``
-    lanes of a batch on the card, per backend."""
+def sequential_yardstick(problem, lanes, methods=("pallas", "auto"), keep=None):
+    """Solves per second of DefaultSolver looped over lanes of a batch on
+    the card (setup included), per backend: the first ``lanes`` lanes, or
+    the lanes of the list ``lanes``.  ``keep`` (a dict) gets each method's
+    solutions."""
     import clarabel_tpu_torch as tt
 
     P, q, A, b, cones = problem
+    lanes = list(range(lanes)) if isinstance(lanes, int) else list(lanes)
     out = {}
-    for method in ("pallas", "auto"):
+    for method in methods:
         settings = tt.DefaultSettings(verbose=False, direct_solve_method=method)
         torch.cuda.synchronize()
+        sols = []
         t0 = time.perf_counter()
-        for i in range(lanes):
-            sol = tt.DefaultSolver(P[i], q[i], A[i], b[i], cones, settings, device="cuda").solve()
-            assert sol.status == tt.SolverStatus.Solved
+        for i in lanes:
+            sols.append(tt.DefaultSolver(P[i], q[i], A[i], b[i], cones, settings,
+                                         device="cuda").solve())
         secs = time.perf_counter() - t0
-        out[method] = dict(lanes=lanes, wall_ms=secs * 1e3, solves_per_s=lanes / secs)
-        log(f"  DefaultSolver over {lanes} lanes, {method}: {secs * 1e3:.1f} ms, "
-            f"{lanes / secs:.1f} solves/s")
+        if keep is None:
+            assert all(sol.status == tt.SolverStatus.Solved for sol in sols)
+        else:
+            keep[method] = sols
+        out[method] = dict(lanes=len(lanes), wall_ms=secs * 1e3, solves_per_s=len(lanes) / secs)
+        log(f"  DefaultSolver over {len(lanes)} lanes, {method}: {secs * 1e3:.1f} ms, "
+            f"{len(lanes) / secs:.1f} solves/s")
     return out
 
 
@@ -1441,6 +1473,267 @@ def sparse_phase(seed):
     return out
 
 
+# -----------------------------------------------------------------
+# phase 3g: the sparse batch
+# -----------------------------------------------------------------
+
+
+def sparse_qp_batch(B, n, seed):
+    """The JAX bench's batched_sparse_qp (bench.py:466-500), at f64: B
+    tridiagonal QPs of one pattern, main diagonal 2 + U(0.5, 1.5) and
+    off-diagonals U(-0.4, 0.4), box rows A = [I; -I] with b = 1 + U(0, 1);
+    KKT N = 3n.  P and A are lists (one matrix per lane)."""
+    import scipy.sparse as sp
+    from clarabel_tpu_torch import NonnegativeConeT
+
+    rng = np.random.default_rng(seed)
+    Ps, qs, bs = [], [], []
+    for _ in range(B):
+        main = 2.0 + rng.uniform(0.5, 1.5, n)
+        off = rng.uniform(-0.4, 0.4, n - 1)
+        Ps.append(sp.diags([main, off, off], [0, 1, -1], format="csc"))
+        qs.append(rng.standard_normal(n))
+        bs.append(np.ones(2 * n) + rng.uniform(0, 1, 2 * n))
+    A = sp.vstack([sp.eye(n), -sp.eye(n)], format="csc")
+    return Ps, np.stack(qs), [A] * B, np.stack(bs), [NonnegativeConeT(2 * n)]
+
+
+def nn_soc_batch(B, n, seed, slack=False):
+    """The JAX package's test_sparse_batch_socp_lane at scale: P = I,
+    A = [I; I], x ≤ 1 (NonnegativeConeT(n)) and ‖x[1:]‖ ≤ r − x[0]
+    (SecondOrderConeT(n), expanded to rank 2), q per lane from the seed.
+    The test's r = 2 holds the cone active at a far boundary point (‖q‖ ≈
+    √n); ``slack`` takes r = 2‖q‖ per lane, where the cone stays inactive
+    and only the nonnegative rows bind."""
+    import scipy.sparse as sp
+    from clarabel_tpu_torch import NonnegativeConeT, SecondOrderConeT
+
+    rng = np.random.default_rng(seed)
+    P = sp.eye(n, format="csc")
+    A = sp.vstack([sp.eye(n), sp.eye(n)], format="csc")
+    q = rng.standard_normal((B, n))
+    b = np.tile(np.concatenate([np.ones(n), np.zeros(n)]), (B, 1))
+    b[:, n] = 2.0 * np.linalg.norm(q, axis=1) if slack else 2.0
+    return [P] * B, q, [A] * B, b, [NonnegativeConeT(n), SecondOrderConeT(n)]
+
+
+def mixed_status_batch(n):
+    """The JAX package's test_sparse_batch_mixed_statuses at N = 3n: an LP
+    with x ≤ 1 and −x ≤ 1 (Solved) and the same with x[0] ≥ 2
+    (PrimalInfeasible) in one batch."""
+    import scipy.sparse as sp
+    from clarabel_tpu_torch import NonnegativeConeT
+
+    P = sp.csc_matrix((n, n))
+    A = sp.vstack([sp.eye(n), -sp.eye(n)], format="csc")
+    b_inf = np.ones(2 * n)
+    b_inf[n] = -2.0
+    return ([P, P], np.ones((2, n)), [A, A], np.stack([np.ones(2 * n), b_inf]),
+            [NonnegativeConeT(2 * n)])
+
+
+def time_multifrontal_batch(solver, reps=3):
+    """:func:`time_multifrontal` for a SparseBatchSolver: one factorization
+    of all its lanes and one 1- and 2-RHS solve per lane ([B, N, 1] and
+    [B, N, 2]), by CUDA events, with the unblocked kernel's launches in one
+    factorization."""
+    from clarabel_tpu_torch import loop
+    from clarabel_tpu_torch.cones import ops as cone_ops
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl, sparse as kkt_sparse
+
+    layout = solver._layout
+    P, A = solver._P.predia(), solver._A.predia()
+    dtype, device, B = P.data.dtype, P.data.device, solver.B
+    state = cone_ops.set_identity_scaling(layout, dtype, device, (B,))
+    ctx = (solver._skkt, solver._skkt_data)
+
+    def prepare():
+        return loop._kkt_prepare(layout, solver.settings, dtype, solver.n, False, P, A,
+                                 state, sparse_kkt=ctx)
+
+    before = pl.ldl_unblocked.launches
+    factors, _, ok = prepare()
+    torch.cuda.synchronize()
+    per_factor = pl.ldl_unblocked.launches - before
+    assert bool(ok.all())
+    factor_ms = cuda_ms(prepare, reps)
+    pl.ldl_unblocked.launches = before
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    rhs = torch.randn((B, solver._skkt.N, 2), generator=gen, dtype=dtype).to(device)
+    ctx_, data, mff = factors[1]
+    solve_ms = cuda_ms(lambda: kkt_sparse.solve(ctx_, data, mff, rhs[..., :1]), reps)
+    solve2_ms = cuda_ms(lambda: kkt_sparse.solve(ctx_, data, mff, rhs), reps)
+    return dict(factor_ms=factor_ms, solve_ms=solve_ms, solve_2rhs_ms=solve2_ms,
+                launches_per_factor=per_factor)
+
+
+def lane_solution(sol, i):
+    """Lane ``i`` of a BatchSolution with the fields :func:`kkt_residuals`
+    reads."""
+    return types.SimpleNamespace(x=sol.x[i], s=sol.s[i], z=sol.z[i],
+                                 obj_val=float(sol.obj_val[i]))
+
+
+def sparse_batch_solve(label, problem, repeat=False):
+    """One SparseBatchSolver solve on the card: (solver, solution, report
+    row), with the unblocked kernel's launches and the device reads counted
+    from 0 just before the solve, the solve's peak device memory, the plan,
+    and one factor and solve timed by CUDA events.  ``repeat`` solves again
+    and requires the same bits."""
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+    from clarabel_tpu_torch.timers import host_read
+
+    P, q, A, b, cones = problem
+    B = q.shape[0]
+    t0 = time.perf_counter()
+    solver = tt.SparseBatchSolver(P, q, A, b, cones, tt.DefaultSettings(
+        verbose=False, direct_solve_method="multifrontal"), device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    pl.ldl_unblocked.launches = 0
+    host_read.count = 0
+    t0 = time.perf_counter()
+    sol = solver.solve()
+    seconds = time.perf_counter() - t0
+    launches, reads = pl.ldl_unblocked.launches, host_read.count
+    peak = torch.cuda.max_memory_allocated()
+    assert np.all(np.isfinite(sol.x)) and sol.x.shape == q.shape
+    its = sol.iterations
+    slowest = max(int(its.max()), 1)
+    plan = solver.plan
+    widest = max((B_.k, B_.c_pad) for lvl in plan.levels for B_ in lvl)
+    statuses = sol.statuses()
+    row = dict(B=B, N=solver._skkt.N, setup_s=setup_s, ms=seconds * 1e3,
+               solves_per_s=B / seconds, ms_per_iteration=seconds * 1e3 / slowest,
+               iterations_min=int(its.min()), iterations_max=int(its.max()),
+               statuses={s.name: statuses.count(s) for s in set(statuses)},
+               reads=reads, reads_per_iteration=reads / slowest,
+               unblocked_launches=launches, peak_memory_bytes=peak,
+               levels=len(plan.levels), buckets=sum(len(lvl) for lvl in plan.levels),
+               nnzL=plan.nnzL, total_cells=plan.total_cells, W=plan.W,
+               widest_block_batch=B * widest[0], widest_block_cols=min(widest[1], 32),
+               **time_multifrontal_batch(solver))
+    log(f"  {label} B={B} N={row['N']}: {row['statuses']}, iterations {its.min()}-{its.max()}, "
+        f"setup {setup_s:.2f} s, solve {seconds * 1e3:.1f} ms, {row['solves_per_s']:.1f} "
+        f"solves/s, {row['ms_per_iteration']:.2f} ms/iteration (slowest lane), device reads "
+        f"{row['reads_per_iteration']:.1f}/iteration, peak memory {peak / 2**20:.0f} MiB")
+    log(f"    plan: {row['levels']} levels, {row['buckets']} buckets, nnzL {plan.nnzL}, "
+        f"{plan.total_cells} front cells per lane; factor {row['factor_ms']:.2f} ms, solve "
+        f"{row['solve_ms']:.2f} ms (2 RHS {row['solve_2rhs_ms']:.2f} ms) by CUDA events; "
+        f"unblocked kernel {row['launches_per_factor']} launches per factor (widest "
+        f"{row['widest_block_batch']} x {row['widest_block_cols']}²), {launches} in the solve")
+    if repeat:
+        x_first, its_first = sol.x.copy(), its.copy()
+        again = solver.solve()
+        row["repeats"] = bool(np.array_equal(again.x, x_first)
+                              and np.array_equal(again.iterations, its_first))
+        log(f"    a second solve bitwise equal: {row['repeats']}")
+        assert row["repeats"], f"{label}: a repeated solve differs"
+    return solver, sol, row
+
+
+def lanes_alone(label, problem, sol, lanes):
+    """Lanes ``lanes`` of a batch solve against DefaultSolver's
+    "multifrontal" solve of each alone on the card: the same status,
+    iterations within 1, objectives within 1e-7 relative, and host KKT
+    residuals of the batch's lane at most 1e-7 (Solved lanes).  Also the
+    yardstick: DefaultSolver looped over those lanes, solves/s."""
+    P, q, A, b, cones = problem
+    keep = {}
+    yard = sequential_yardstick(problem, lanes, methods=("multifrontal",), keep=keep)
+    out = []
+    for i, one in zip(lanes, keep["multifrontal"]):
+        lane = lane_solution(sol, i)
+        status = sol.statuses()[i]
+        assert one.status == status, f"{label} lane {i}: {one.status.name} vs {status.name}"
+        assert abs(one.iterations - int(sol.iterations[i])) <= 1, \
+            f"{label} lane {i}: {one.iterations} vs {sol.iterations[i]} iterations"
+        rel = abs(one.obj_val - lane.obj_val) / max(1.0, abs(one.obj_val))
+        res = kkt_residuals((P[i], q[i], A[i], b[i], cones), lane)
+        assert rel <= 1e-7, f"{label} lane {i}: objectives {rel:.3e} apart"
+        for key in ("primal", "stationarity", "complementarity"):
+            assert res[key] <= 1e-7, f"{label} lane {i}: {key} residual {res[key]:.3e}"
+        out.append(dict(lane=i, iterations_alone=one.iterations,
+                        iterations=int(sol.iterations[i]), rel_obj=rel, residuals=res))
+    log(f"    lanes {lanes} equal DefaultSolver's multifrontal solves of them alone "
+        f"(iterations alone/in the batch {[(r['iterations_alone'], r['iterations']) for r in out]}, "
+        f"objectives within {max(r['rel_obj'] for r in out):.1e}, host KKT residuals up to "
+        f"{max(max(r['residuals'][k] for k in ('primal', 'stationarity', 'complementarity')) for r in out):.1e})")
+    return dict(lanes=out, yardstick=yard["multifrontal"])
+
+
+def sparse_batch_phase(seed):
+    """Phase 3g; returns its report."""
+    import clarabel_tpu_torch as tt
+
+    out = {}
+    batches = {
+        "sparse QP B=32": (sparse_qp_batch(32, 1000, seed + 50), True),
+        "sparse QP B=512": (sparse_qp_batch(512, 1000, seed + 51), False),
+        "NN+SOC slack B=64": (nn_soc_batch(64, 500, seed + 52, slack=True), False),
+    }
+    solutions = {}
+    for label, (problem, repeat) in batches.items():
+        solver, sol, row = sparse_batch_solve(label, problem, repeat=repeat)
+        assert all(s == tt.SolverStatus.Solved for s in sol.statuses()), \
+            f"{label}: {row['statuses']}"
+        B = row["B"]
+        lanes = sorted({0, B // 2, int(np.argmax(sol.iterations)), B - 1})
+        row.update(lanes_alone(label, problem, sol, lanes))
+        out[label] = row
+        solutions[label] = (solver, sol)
+    # the NN + SOC batch with the cone active (r = 2): the expanded cone's
+    # end game loses primal feasibility on a few lanes in the JAX package
+    # too (scripts/sparse_batch_soc_statuses.py), which then end
+    # AlmostSolved; every lane must end in the Solved tier, and every Solved
+    # lane's host KKT residuals stay at most 1e-7
+    label = "NN+SOC B=64"
+    problem = nn_soc_batch(64, 500, seed + 52)
+    _, sol, row = sparse_batch_solve(label, problem)
+    tier = (tt.SolverStatus.Solved, tt.SolverStatus.AlmostSolved)
+    assert all(s in tier for s in sol.statuses()), f"{label}: {row['statuses']}"
+    P, q, A, b, cones = problem
+    worst = 0.0
+    for i, status in enumerate(sol.statuses()):
+        res = kkt_residuals((P[i], q[i], A[i], b[i], cones), lane_solution(sol, i))
+        worst_i = max(res[k] for k in ("primal", "stationarity", "complementarity"))
+        if status == tt.SolverStatus.Solved:
+            assert worst_i <= 1e-7, f"{label} lane {i}: host KKT residual {worst_i:.3e}"
+            worst = max(worst, worst_i)
+        else:
+            row.setdefault("almost_solved", []).append(
+                dict(lane=i, iterations=int(sol.iterations[i]), residuals=res))
+    log(f"    Solved lanes' host KKT residuals up to {worst:.1e}; AlmostSolved lanes "
+        f"{[(r['lane'], r['iterations']) for r in row.get('almost_solved', [])]}")
+    out[label] = row
+    # mixed statuses: one feasible and one primal-infeasible lane
+    _, sol, row = sparse_batch_solve("mixed statuses", mixed_status_batch(1000))
+    assert sol.statuses() == [tt.SolverStatus.Solved, tt.SolverStatus.PrimalInfeasible], \
+        f"mixed statuses: {sol.statuses()}"
+    out["mixed statuses"] = row
+    # a re-solve: q and b moved by 1 %, warm from the cold solution
+    solver, cold = solutions["sparse QP B=32"]
+    _, q, _, b, _ = batches["sparse QP B=32"][0]
+    solver.update_values(q=q * 1.01, b=b * 1.01)
+    t0 = time.perf_counter()
+    warm = solver.solve(warm_start=cold)
+    warm_s = time.perf_counter() - t0
+    recold = solver.solve()
+    assert all(s == tt.SolverStatus.Solved for s in warm.statuses() + recold.statuses())
+    rel = np.abs(warm.obj_val - recold.obj_val) / np.maximum(1.0, np.abs(recold.obj_val))
+    assert rel.max() <= 1e-6, f"warm re-solve: objectives {rel.max():.3e} from the cold one"
+    out["resolve"] = dict(warm_iterations=warm.iterations.tolist(),
+                          cold_iterations=recold.iterations.tolist(),
+                          warm_ms=warm_s * 1e3, rel_obj=float(rel.max()))
+    log(f"  re-solve after a 1 % update of q and b, B=32: warm iterations "
+        f"{warm.iterations.min()}-{warm.iterations.max()} (sum {warm.iterations.sum()}), cold "
+        f"{recold.iterations.min()}-{recold.iterations.max()} (sum {recold.iterations.sum()}), "
+        f"warm {warm_s * 1e3:.1f} ms, objectives within {rel.max():.1e}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1617,6 +1910,14 @@ def run(args) -> int:
         report["sparse"]["seconds"] = time.perf_counter() - t0
         log(f"  phase 3f took {report['sparse']['seconds']:.1f} s")
 
+        # ---- phase 3g: the sparse batch; the unblocked kernel's launches
+        # counted from zero for each solve
+        log("phase 3g: SparseBatchSolver")
+        t0 = time.perf_counter()
+        report["sparse_batch"] = sparse_batch_phase(args.seed)
+        report["sparse_batch"]["seconds"] = time.perf_counter() - t0
+        log(f"  phase 3g took {report['sparse_batch']['seconds']:.1f} s")
+
     # ---- phase 4: launch counts and the kernels line
     log(f"phase 4: launches on the main path {launches}")
     main_shape = {"blocked": (1, 1000, 1001), "unrolled": (1, 100, 101), "fori": (8, 100, 100)}
@@ -1706,6 +2007,23 @@ def run(args) -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
             shape=[B, 32, 32], dtype="float64", signs="per-matrix",
             path=f"phase 3f {label}, multifrontal diagonal blocks",
+            yardstick_lu_factor_ms=row["lu_factor_ms"],
+        ))
+    # phase 3g's path: the same kernel on the batches' fronts, every lane's
+    # diagonal blocks of a bucket in one launch; one row per batch at its
+    # widest bucket's block shape
+    for label in ("sparse QP B=32", "sparse QP B=512"):
+        run_ = report["sparse_batch"][label]
+        B, N = run_["widest_block_batch"], run_["widest_block_cols"]
+        row = next(r for r in fronts if r["B"] == B and r["N"] == N)
+        assert run_["unblocked_launches"] > 0
+        kernels.append(dict(
+            name=KERNELS["fori"]["name"], route="cuda", source=SOURCE,
+            replaces=KERNELS["fori"]["replaces"], launches=run_["unblocked_launches"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            shape=[B, N, N], dtype="float64", signs="per-matrix",
+            path=f"phase 3g {label}, multifrontal diagonal blocks of every lane",
             yardstick_lu_factor_ms=row["lu_factor_ms"],
         ))
     report["launches"] = launches

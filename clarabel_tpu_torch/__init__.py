@@ -16,7 +16,9 @@ f32 paths) -- and the batched solve of many problems of one structure
 dimension; and, for a large sparse problem, the sparse multifrontal KKT
 path (``"multifrontal"``, or ``"auto"`` past its size and density gate),
 which never densifies the KKT system and factors its fronts' diagonal
-blocks with the same hand-written LDLᵀ kernel.
+blocks with the same hand-written LDLᵀ kernel; and the batched solve of
+many sparse problems of one sparsity pattern through one multifrontal plan
+(:class:`SparseBatchSolver`).
 
 Solves run on a CUDA device unless ``device="cpu"`` is passed; on the CPU the
 LDLᵀ kernels' plain PyTorch versions run in their place.
@@ -37,7 +39,7 @@ from .settings import DefaultSettings, SettingsError
 from .solver import DefaultInfo, DefaultSolution, DefaultSolver
 from .statuses import SolverStatus
 
-__version__ = "0.7.0"
+__version__ = "0.8.0"
 
 __all__ = [
     "DefaultSolver",

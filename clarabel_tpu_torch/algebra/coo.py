@@ -19,7 +19,11 @@ CUDA adds in no fixed order).
 
 Structure (``rows``/``cols``/``shape``/``dia_*``) is decided on the host at
 setup and never changes inside a solve; only ``data`` (and the derived
-``kd``) carry per-solve numeric content.
+``kd``) carry per-solve numeric content.  The values may carry one leading
+batch dimension (``data [B, nnz]``, ``kd [B, O, m]``: B matrices of one
+pattern, ``parallel.sparse_batch``); a product then takes ``x [B, n]`` and
+each lane's sums run over that lane's entries alone, in the same order as
+one matrix's.
 """
 
 from __future__ import annotations
@@ -100,24 +104,29 @@ def levels_to(levels, device):
             for i, m in levels]
 
 
-def segment_apply(levels, x):
-    """Sums of ``x [entries, ...]`` by segment, ``[num, ...]``, through
-    the device levels of :func:`segment_levels`.  A vector takes the
-    cones' fixed-order sum (``cones.ops._segment_sum``); a tensor with
-    trailing dimensions the same scheme over its first: one padded gather
-    and a reduction on the card, the padded entries added left to right
-    on the CPU (as a sequential scatter-add sums)."""
+def segment_apply(levels, x, dim=0):
+    """Sums of ``x``'s entries along ``dim`` by segment, through the
+    device levels of :func:`segment_levels`: ``x [..., entries, ...]`` ->
+    ``[..., num, ...]``.  A vector, or a sum along the last dimension,
+    takes the cones' fixed-order sum (``cones.ops._segment_sum``); along
+    another dimension the same scheme: one padded gather and a reduction on
+    the card, the padded entries added left to right on the CPU (as a
+    sequential scatter-add sums).  Leading dimensions are independent
+    problems: each one's sums are those of it alone."""
+    dim = dim % x.dim()
     for idx, mask in levels:
-        if x.dim() == 1:
+        if dim == x.dim() - 1:
             x = _segment_sum(x, idx, mask)
             continue
-        g = torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x[idx], 0.0)
+        g = x[idx] if dim == 0 else x.index_select(dim, idx.reshape(-1)).unflatten(dim, idx.shape)
+        g = torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - dim - 1)), g, 0.0)
         if g.is_cuda:
-            x = g.sum(dim=1)
+            x = g.sum(dim=dim + 1)
         else:
-            x = torch.zeros(g.shape[:1] + g.shape[2:], dtype=g.dtype, device=g.device)
-            for j in range(g.shape[1]):
-                x = x + g[:, j]
+            x = torch.zeros(g.shape[:dim + 1] + g.shape[dim + 2:], dtype=g.dtype,
+                            device=g.device)
+            for j in range(g.shape[dim + 1]):
+                x = x + g.select(dim + 1, j)
     return x
 
 
@@ -188,38 +197,43 @@ class COOMat:
             return self
         O = len(self.dia_offsets)
         m = self.base_shape[0]
-        kd = torch.zeros(O * m, dtype=self.data.dtype, device=self.data.device)
-        kd[self.dia_pos] = self.data
+        batch = self.data.shape[:-1]
+        kd = torch.zeros(batch + (O * m,), dtype=self.data.dtype, device=self.data.device)
+        kd[..., self.dia_pos] = self.data
         return COOMat(self.data, self.rows, self.cols, self.shape, self.segs,
-                      self.dia_pos, kd.reshape(O, m), self.dia_offsets, self.trans)
+                      self.dia_pos, kd.reshape(batch + (O, m)), self.dia_offsets, self.trans)
 
     def _dia_mv(self, x):
         offs = self.dia_offsets
         m, n = self.base_shape
+        batch = x.shape[:-1]
         if not self.trans:
             # y[i] = Σ_o d_o[i]·x[i+o]
             lo = max(0, -min(offs))
             hi = max(0, m - 1 + max(offs) - (n - 1))
             xp = F.pad(x, (lo, hi))
-            y = torch.zeros(m, dtype=x.dtype, device=x.device)
+            y = torch.zeros(batch + (m,), dtype=x.dtype, device=x.device)
             for oi, o in enumerate(offs):
-                y = y + self.kd[oi] * xp[lo + o: lo + o + m]
+                y = y + self.kd[..., oi, :] * xp[..., lo + o: lo + o + m]
             return y
         # transposed product: y[j] = Σ_o (d_o ⊙ z)[j - o]
         pl = max(0, max(offs))
         pr = max(0, (n - 1) - min(offs) - (m - 1))
-        y = torch.zeros(n, dtype=x.dtype, device=x.device)
+        y = torch.zeros(batch + (n,), dtype=x.dtype, device=x.device)
         for oi, o in enumerate(offs):
-            wp = F.pad(self.kd[oi] * x, (pl, pr))
-            y = y + wp[pl - o: pl - o + n]
+            wp = F.pad(self.kd[..., oi, :] * x, (pl, pr))
+            y = y + wp[..., pl - o: pl - o + n]
         return y
 
     def __matmul__(self, x):
-        if x.dim() != 1:
-            raise ValueError("COOMat products take one vector")
+        """``M x`` for one matrix and ``x [n]``, or for a batch of matrices
+        (``data [B, nnz]``) and ``x [B, n]``, lane by lane."""
+        if x.dim() != self.data.dim():
+            raise ValueError(f"COOMat products take x with the values' batch shape: data "
+                             f"{tuple(self.data.shape)}, x {tuple(x.shape)}")
         if self.kd is not None:
             return self._dia_mv(x)
-        return segment_apply(self.segs[0], self.data * x[self.cols])
+        return segment_apply(self.segs[0], self.data * x[..., self.cols], dim=-1)
 
     def with_data(self, data) -> "COOMat":
         # kd is derived from data and now stale; predia() re-materializes
@@ -228,7 +242,7 @@ class COOMat:
 
     @property
     def nnz(self) -> int:
-        return int(self.data.shape[0])
+        return int(self.data.shape[-1])
 
     def __repr__(self):  # pragma: no cover - cosmetic
         return f"COOMat(shape={self.shape}, nnz={self.nnz})"

@@ -107,11 +107,14 @@ def equilibrate(layout: ConeLayout, settings, P, q, A, b, triu_mask):
 
 
 def _colmax(vals, idx, num):
-    """max(vals) per segment ``idx`` over [0, num), 0 for an empty segment
+    """max(vals) per segment ``idx`` over [0, num) along the last
+    dimension, each leading index on its own, 0 for an empty segment
     (``vals`` ≥ 0): the JAX package's ``max(segment_max(...), 0)``.  A
     maximum is exact, so the scatter's order does not matter."""
-    out = torch.zeros(num, dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce(0, idx, vals, reduce="amax", include_self=True)
+    batch = vals.shape[:-1]
+    out = torch.zeros(batch + (num,), dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce(-1, idx.expand(batch + idx.shape), vals, reduce="amax",
+                              include_self=True)
 
 
 def equilibrate_sparse(layout: ConeLayout, settings, P, q, A, b):
@@ -120,13 +123,16 @@ def equilibrate_sparse(layout: ConeLayout, settings, P, q, A, b):
     ``equilibrate_sparse``).  ``P`` is the FULL symmetric matrix as an
     ``algebra.coo.COOMat``; ``A`` the cone-permuted constraint matrix.
     Norms are segment maxima over the triplet sets instead of dense axis
-    reductions.  One problem, no batch dimension."""
-    n, m = q.shape[0], b.shape[0]
+    reductions.  One problem, or a batch of one sparsity pattern (values
+    ``[B, nnz]``, q [B, n], b [B, m]): every norm, the mean column norm of
+    P and the cost scale ``c`` [B] are then per problem."""
+    n, m = q.shape[-1], b.shape[-1]
+    batch = q.shape[:-1]
     kw = dict(dtype=q.dtype, device=q.device)
 
-    d = torch.ones(n, **kw)
-    e = torch.ones(m, **kw)
-    c = torch.ones((), **kw)
+    d = torch.ones(batch + (n,), **kw)
+    e = torch.ones(batch + (m,), **kw)
+    c = torch.ones(batch, **kw)
 
     if not settings.equilibrate_enable:
         return P, q, A, b, d, e, c
@@ -152,15 +158,15 @@ def equilibrate_sparse(layout: ConeLayout, settings, P, q, A, b):
         dwork = torch.clamp(dwork, scale_min / d, scale_max / d)
         ework = torch.clamp(ework, scale_min / e, scale_max / e)
 
-        Pv = Pv * dwork[Pr] * dwork[Pc]
-        Av = Av * ework[Ar] * dwork[Ac]
+        Pv = Pv * dwork[..., Pr] * dwork[..., Pc]
+        Av = Av * ework[..., Ar] * dwork[..., Ac]
         q = q * dwork
         b = b * ework
         d = d * dwork
         e = e * ework
 
         col_norm_P = _colmax(torch.where(triu_mask, torch.abs(Pv), 0.0), Pc, n)
-        mean_col_norm_P = torch.mean(col_norm_P) if n > 0 else torch.zeros((), **kw)
+        mean_col_norm_P = torch.mean(col_norm_P, dim=-1) if n > 0 else torch.zeros(batch, **kw)
         inf_norm_q = _absmax(q, -1)
 
         do_cost = (mean_col_norm_P != 0) & (inf_norm_q != 0)
@@ -168,13 +174,13 @@ def equilibrate_sparse(layout: ConeLayout, settings, P, q, A, b):
         ctmp = torch.where(do_cost, 1.0 / torch.where(do_cost, scale_cost, 1.0), 1.0)
         ctmp = torch.where(do_cost, torch.clamp(ctmp, scale_min / c, scale_max / c), 1.0)
 
-        Pv = Pv * ctmp
-        q = q * ctmp
+        Pv = Pv * ctmp.unsqueeze(-1)
+        q = q * ctmp.unsqueeze(-1)
         c = c * ctmp
 
     delta, changed = cone_ops.rectify_equilibration(layout, e)
     if changed:
-        Av = Av * delta[Ar]
+        Av = Av * delta[..., Ar]
         b = b * delta
         e = e * delta
 

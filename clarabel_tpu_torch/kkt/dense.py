@@ -34,14 +34,17 @@ from __future__ import annotations
 
 import torch
 
-from . import pallas_ldl
+from . import multifrontal, pallas_ldl
 from ..timers import host_read
 
 
 def matvec(M, v):
     """M v over any leading batch dimensions (M [..., r, c], v [..., c]);
-    one problem takes PyTorch's matrix-vector product itself."""
-    return M @ v if v.dim() == 1 else (M @ v.unsqueeze(-1)).squeeze(-1)
+    one problem takes PyTorch's matrix-vector product itself, a sparse
+    ``algebra.coo.COOMat`` (one or a batch) its own."""
+    if v.dim() == 1 or not isinstance(M, torch.Tensor):
+        return M @ v
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
 
 
 _mv = matvec  # the module's matvec, under a name the Schur closures keep
@@ -325,14 +328,20 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
     package's double-float remainder, which is None on every path that is
     not compensated (every path ported).  Each problem of a batch sweeps
     until its own refinement stops; the host reads once per sweep whether
-    any problem still sweeps.  The multifrontal factors (``"mf"``) serve
-    one problem whose right-hand sides, [N] or [N, r], refine together:
-    one norm over all of them, as in the JAX package.
+    any problem still sweeps.  On the multifrontal factors (``"mf"``) a
+    problem's right-hand sides refine together, one norm over all of them,
+    as in the JAX package: one problem's [N] or [N, r], or, for a batch of
+    factors, each lane's [N, r] of ``rhs [B, N, r]``.
     reference: directldlkktsolver.rs:266-321 — bounded refinement loop
     with stall detection.
     """
     x0 = _raw_solve(factors, rhs)
-    if factors[0] == "mf":
+    if factors[0] == "mf" and multifrontal.batch_shape(factors[1][2]):
+        # a batch of problems: reduce over each lane's right-hand sides
+        amax = lambda v: torch.abs(v).flatten(-2).amax(dim=-1)
+        all_ = lambda v: v.flatten(-2).all(dim=-1)
+        per_problem = lambda mask: mask[..., None, None]
+    elif factors[0] == "mf":
         # one problem: reduce over every right-hand side at once
         amax = lambda v: torch.abs(v).amax()
         all_ = torch.all

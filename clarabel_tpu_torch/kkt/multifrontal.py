@@ -32,6 +32,15 @@ unpadded ones.
 The sums over children (the extend-add and its counterpart in the solve)
 add in a fixed order (``algebra.coo.segment_apply``), so a factorization
 on the card repeats bit for bit.
+
+A batch of B problems of one pattern (``parallel.sparse_batch``) shares
+the plan: the assembly workspace is ``[B, total_cells]``, each bucket's
+fronts ``[B, k, r, r]``, and the partial factorization runs on the bucket
+flattened to ``[B·k, r, r]`` with the plan's ``[k, c]`` signs tiled to
+``[B·k, c]`` (one copy per bucket and factor) -- so one kernel launch per
+diagonal block serves every lane, and the launch count of a factor does not
+grow with B.  ``ok`` and the
+pivots are per lane; the solves take ``[B, N, r]``.
 """
 
 from __future__ import annotations
@@ -175,8 +184,9 @@ def partial_ldl(F, c, signs, eps, delta, diag_fn=_diag_factor):
     ``F``: [k, r, r] with valid data in the lower triangle; the first
     ``c`` rows/cols are the pivot block.  Returns (Lc, d, U, ok):
     Lc [k, r, c] unit-lower panel columns, d [k, c] pivots,
-    U [k, r-c, r-c] the Schur complement (lower triangle valid).
-    ``F`` is factored in place.
+    U [k, r-c, r-c] the Schur complement (lower triangle valid), ok [k]
+    whether each front's pivots and panel are finite.  ``F`` is factored in
+    place; no front's arithmetic reads another's.
     """
     k, r, _ = F.shape
     d_parts = []
@@ -196,7 +206,7 @@ def partial_ldl(F, c, signs, eps, delta, diag_fn=_diag_factor):
         d = torch.zeros((k, 0), dtype=F.dtype, device=F.device)
     Lc = F[:, :, :c]
     U = F[:, c:, c:]
-    ok = torch.all(torch.isfinite(d)) & torch.all(torch.isfinite(Lc))
+    ok = torch.isfinite(d).all(dim=-1) & torch.isfinite(Lc).flatten(1).all(dim=-1)
     return Lc, d, U, ok
 
 
@@ -220,12 +230,13 @@ def device_arrays(plan, dtype, device, extra=None):
 
 def _init_fronts(plan, arrays, Kvals):
     """The flat assembly workspace: every front's cells from the KKT
-    nonzeros ``Kvals`` (canonical order), one scatter with unique
-    destinations."""
+    nonzeros ``Kvals`` (canonical order; ``[B, nnz]`` for a batch), one
+    scatter with unique destinations."""
     kp = arrays.get("kperm_map")
-    Kp = Kvals if kp is None else Kvals[kp]
-    finit = torch.zeros(plan.total_cells, dtype=Kvals.dtype, device=Kvals.device)
-    finit[arrays["init_dst_all"]] = Kp[arrays["init_src_all"]]
+    Kp = Kvals if kp is None else Kvals[..., kp]
+    batch = Kvals.shape[:-1]
+    finit = torch.zeros(batch + (plan.total_cells,), dtype=Kvals.dtype, device=Kvals.device)
+    finit[..., arrays["init_dst_all"]] = Kp[..., arrays["init_src_all"]]
     return finit
 
 
@@ -235,9 +246,12 @@ def mf_factor(plan, arrays, Kvals, eps, delta, stable_inverse=False, finit=None,
     nonzero vector of K (original frame, the CSC order that was handed to
     :func:`mf_symbolic.analyze`), or None with ``finit``, the assembly
     workspace already filled (``kkt/sparse.factor_fused``).  ``arrays`` is
-    the plan's device data (``kkt/sparse.SparseKKT.device_data``).
+    the plan's device data (``kkt/sparse.SparseKKT.device_data``).  A
+    batch of problems passes ``Kvals [B, nnz]`` (or ``finit [B, cells]``):
+    its fronts factor lane by lane in the same launches.
 
-    Returns (factors, ok); factors is a dict consumed by :func:`mf_solve`.
+    Returns (factors, ok); factors is a dict consumed by :func:`mf_solve`,
+    ``ok`` a boolean per problem (0-d, or [B]).
     """
     if finit is None:
         # kkt/sparse.build composes the fill-reducing permutation into its
@@ -245,52 +259,69 @@ def mf_factor(plan, arrays, Kvals, eps, delta, stable_inverse=False, finit=None,
         # direct analyze() users) still carry canonical-order values
         finit = _init_fronts(plan, arrays, Kvals)
     dtype, device = finit.dtype, finit.device
-    dvec = torch.ones(plan.W, dtype=dtype, device=device)
+    batch = finit.shape[:-1]
+    dvec = torch.ones(batch + (plan.W,), dtype=dtype, device=device)
     out = []
     ustore = {}
     pstore = {}
-    ok = torch.ones((), dtype=torch.bool, device=device)
+    ok = torch.ones(batch, dtype=torch.bool, device=device)
     for li, lvl in enumerate(plan.levels):
         lvl_out = []
         for bi, B in enumerate(lvl):
             rp = B.r_pad
-            F = finit[B.f_off: B.f_off + B.k * rp * rp].reshape(B.k, rp, rp).clone()
+            F = finit[..., B.f_off: B.f_off + B.k * rp * rp].reshape(
+                batch + (B.k, rp, rp)).clone()
             for (sl, sb, akey) in B.asm:
                 # extend-add as P·U·Pᵀ: separable destination indices turn
                 # the per-element scatter into two batched products --
                 # exact, since each output cell receives at most one U
                 # entry per child (0/1 P); overlapping children sum in
-                # the lane sum.
-                U = ustore[(sl, sb)][arrays[akey + ":clanes"]]  # [kc, cup, cup]
+                # the lane sum.  Every problem of a batch shares P.
+                U = ustore[(sl, sb)].index_select(-3, arrays[akey + ":clanes"])
                 rowpos = arrays[akey + ":rowpos"]  # [kc, cup]
                 P = (
                     rowpos[:, None, :] == torch.arange(rp, device=device)[None, :, None]
                 ).to(dtype)  # [kc, rp, cup]
                 pstore[akey] = P  # reused by every mf_solve on this factor
                 upd = (P @ U) @ P.mT
-                F = F + segment_apply(arrays[akey + ":levels"], upd)
+                F = F + segment_apply(arrays[akey + ":levels"], upd, dim=-3)
+            # the bucket's fronts of every problem as one [B·k, r, r]
+            # batch, each lane with the plan's signs (tiled once here)
             signs = arrays[B.key + ":signs"]
-            Lc, d, U, okb = partial_ldl(F, B.c_pad, signs, eps, delta, diag_fn=diag_fn)
-            # store full-symmetric U (only its lower triangle is valid —
-            # fronts initialize tril-only) so the P·U·Pᵀ extend-add sees
-            # both triangles
-            ustore[(li, bi)] = torch.tril(U) + torch.tril(U, -1).mT
-            dvec[B.w_off: B.w_off + d.numel()] = d.reshape(-1)
+            if batch:
+                signs = signs.repeat(batch[0], 1)
+            Lc, d, U, okb = partial_ldl(F.reshape(-1, rp, rp), B.c_pad, signs, eps, delta,
+                                        diag_fn=diag_fn)
             if B.c_pad <= _INV_MAX_C:
                 Linv = _unit_lower_inverse(Lc[:, : B.c_pad, :], stable=stable_inverse)
             else:
                 Linv = None
-            lvl_out.append((Lc, d, Linv))
-            ok = ok & okb
+            # back to [B, k, ...] (views, and no-ops for one problem)
+            per_lane = lambda t: t.reshape(batch + (B.k,) + t.shape[1:])
+            # store full-symmetric U (only its lower triangle is valid —
+            # fronts initialize tril-only) so the P·U·Pᵀ extend-add sees
+            # both triangles
+            ustore[(li, bi)] = per_lane(torch.tril(U) + torch.tril(U, -1).mT)
+            dvec[..., B.w_off: B.w_off + B.k * B.c_pad] = d.reshape(batch + (-1,))
+            lvl_out.append((per_lane(Lc), per_lane(d), None if Linv is None else per_lane(Linv)))
+            ok = ok & okb.reshape(batch + (B.k,)).all(dim=-1)
         out.append(lvl_out)
     return {"levels": out, "dvec": dvec, "P": pstore}, ok
+
+
+def batch_shape(factors):
+    """The problems' batch shape of :func:`mf_factor`'s factors: () for one
+    problem, (B,) for a batch."""
+    return factors["dvec"].shape[:-1]
 
 
 def mf_solve(plan, arrays, factors, rhs):
     """Solve K x = rhs with the computed factors (levelized forward /
     diagonal / backward sweeps).  ``rhs``: [N] or [N, r] in the original
     frame — multiple right-hand sides ride the same sweeps (the IPM pairs
-    the constant and affine solves this way).
+    the constant and affine solves this way).  The factors of a batch of
+    problems take ``rhs [B, N, r]``, always three-dimensional (a [B, N]
+    would read as one problem's [N, r]); each lane solves with its own.
 
     Works in the bucket-contiguous solve workspace (see mf_symbolic):
     each bucket's pivot block is one slice of ``x``.  Cross-level coupling
@@ -300,18 +331,22 @@ def mf_solve(plan, arrays, factors, rhs):
     the classic multifrontal solve.
     """
     dtype, device = rhs.dtype, rhs.device
+    batch = batch_shape(factors)
+    if batch and (rhs.dim() != 3 or rhs.shape[0] != batch[0]):
+        raise ValueError(f"the factors of {batch[0]} problems take rhs [B, N, r], "
+                         f"got {tuple(rhs.shape)}")
     single = rhs.dim() == 1
     if single:
         rhs = rhs[:, None]
-    r = rhs.shape[1]
-    rhs_ext = torch.cat([rhs, torch.zeros((1, r), dtype=dtype, device=device)])
-    x = rhs_ext[arrays["solve_src"]]  # [W, r]
+    r = rhs.shape[-1]
+    rhs_ext = torch.cat([rhs, torch.zeros(batch + (1, r), dtype=dtype, device=device)], dim=-2)
+    x = rhs_ext[..., arrays["solve_src"], :]  # [..., W, r]
 
     def blk(B):
-        return x[B.w_off: B.w_off + B.k * B.c_pad].reshape(B.k, B.c_pad, r)
+        return x[..., B.w_off: B.w_off + B.k * B.c_pad, :].reshape(batch + (B.k, B.c_pad, r))
 
     def put(B, v):
-        x[B.w_off: B.w_off + B.k * B.c_pad] = v.reshape(B.k * B.c_pad, r)
+        x[..., B.w_off: B.w_off + B.k * B.c_pad, :] = v.reshape(batch + (B.k * B.c_pad, r))
 
     pstore = factors["P"]
 
@@ -324,24 +359,25 @@ def mf_solve(plan, arrays, factors, rhs):
             v = blk(B)
             inc_below = None
             for (sl, sb, akey) in B.asm:
-                u_c = ustore[(sl, sb)][arrays[akey + ":clanes"]]  # [kc, cup, r]
-                inc = segment_apply(arrays[akey + ":levels"], pstore[akey] @ u_c)  # [k, rp, r]
-                v = v - inc[:, : B.c_pad]
-                ib = inc[:, B.c_pad:]
+                u_c = ustore[(sl, sb)].index_select(-3, arrays[akey + ":clanes"])  # [.., kc, cup, r]
+                inc = segment_apply(arrays[akey + ":levels"], pstore[akey] @ u_c,
+                                    dim=-3)  # [..., k, rp, r]
+                v = v - inc[..., : B.c_pad, :]
+                ib = inc[..., B.c_pad:, :]
                 inc_below = ib if inc_below is None else inc_below + ib
             if Linv is not None:
                 y = Linv @ v
             else:
-                y = torch.linalg.solve_triangular(Lc[:, : B.c_pad, :], v, upper=False,
+                y = torch.linalg.solve_triangular(Lc[..., : B.c_pad, :], v, upper=False,
                                                   unitriangular=True)
             put(B, y)
             if B.u_pad:
-                u = Lc[:, B.c_pad:, :] @ y
+                u = Lc[..., B.c_pad:, :] @ y
                 if inc_below is not None:
                     u = u + inc_below
                 ustore[(li, bi)] = u
 
-    x = x / factors["dvec"][:, None]
+    x = x / factors["dvec"][..., None]
 
     # backward sweep: parents push their full front value vector
     # w = [x_pivot ; x_rows] down; children read their row values from it
@@ -352,30 +388,31 @@ def mf_solve(plan, arrays, factors, rhs):
             v = blk(B)
             rv = rowvals.get((li, bi))
             if B.u_pad and rv is not None:
-                v = v - Lc[:, B.c_pad:, :].mT @ rv
+                v = v - Lc[..., B.c_pad:, :].mT @ rv
             if Linv is not None:
                 xc = Linv.mT @ v
             else:
-                xc = torch.linalg.solve_triangular(Lc[:, : B.c_pad, :].mT, v, upper=True,
+                xc = torch.linalg.solve_triangular(Lc[..., : B.c_pad, :].mT, v, upper=True,
                                                    unitriangular=True)
             put(B, xc)
             if B.asm:
                 if B.u_pad:
                     if rv is None:
-                        rv = torch.zeros((B.k, B.u_pad, r), dtype=dtype, device=device)
-                    w = torch.cat([xc, rv], dim=1)  # [k, rp, r]
+                        rv = torch.zeros(batch + (B.k, B.u_pad, r), dtype=dtype, device=device)
+                    w = torch.cat([xc, rv], dim=-2)  # [..., k, rp, r]
                 else:
                     w = xc
                 for (sl, sb, akey) in B.asm:
-                    w_sel = w[arrays[akey + ":planes"]]
-                    P = pstore[akey][:, : w.shape[1], :]
+                    w_sel = w.index_select(-3, arrays[akey + ":planes"])
+                    P = pstore[akey][:, : w.shape[-2], :]
                     vals = P.mT @ w_sel
                     tgt = rowvals.get((sl, sb))
                     if tgt is None:
                         child = plan.levels[sl][sb]
-                        tgt = torch.zeros((child.k, child.u_pad, r), dtype=dtype, device=device)
-                    tgt[arrays[akey + ":clanes"]] = vals
+                        tgt = torch.zeros(batch + (child.k, child.u_pad, r), dtype=dtype,
+                                          device=device)
+                    tgt[..., arrays[akey + ":clanes"], :, :] = vals
                     rowvals[(sl, sb)] = tgt
 
-    out = x[arrays["solve_out"]]
+    out = x[..., arrays["solve_out"], :]
     return out[:, 0] if single else out

@@ -24,6 +24,13 @@ blocks, regularize, refactor" update (directldlkktsolver.rs:134-158,
 The sources of one assembly write distinct slots (checked at setup), so
 every scatter here has unique destinations and repeats bit for bit on the
 card.
+
+Every device-side function takes one problem or a batch of B problems of
+one pattern (``parallel.sparse_batch``): the sources then carry a leading
+batch dimension (COO values ``[B, nnz]``, Hs values ``[B, entries]``), the
+assembled values are ``[B, nnz(K)]``, the static regularization's ε is per
+lane, and a matvec takes ``[B, N, r]`` (one problem's ``[N]`` or
+``[N, r]``).
 """
 
 from __future__ import annotations
@@ -323,25 +330,28 @@ def assemble(ctx: SparseKKT, data, P, A, hs_vals, exp_vals, settings):
     """(K_true_vals, K_reg_vals) in the factor's CSC order.  ``P``/``A``
     are COOMat (P full-symmetric) in the exact COO order given to
     :func:`build`; ``exp_vals`` the sparse-cone expansion entries.  Static
-    regularization by expected sign mirrors directldlkktsolver.rs:217-264.
-    All sources assemble with one scatter."""
-    vals = [P.data[data["kkt:P_tril_sel"]], A.data]
+    regularization by expected sign mirrors directldlkktsolver.rs:217-264,
+    its ε taken over each lane's own diagonal.  All sources assemble with
+    one scatter."""
+    batch = P.data.shape[:-1]
+    vals = [P.data[..., data["kkt:P_tril_sel"]], A.data]
     idx = [data["kkt:map_P"], data["kkt:map_A"]]
-    if hs_vals.shape[0]:
+    if hs_vals.shape[-1]:
         vals.append(-hs_vals)
         idx.append(data["kkt:map_hs"])
-    if exp_vals.shape[0]:
+    if exp_vals.shape[-1]:
         # expansion entries carry their own signs (datamaps.rs update fns)
         vals.append(exp_vals)
         idx.append(data["kkt:map_exp"])
-    K = torch.zeros(ctx.nnz, dtype=P.data.dtype, device=P.data.device)
-    K[torch.cat(idx)] = torch.cat(vals)
+    K = torch.zeros(batch + (ctx.nnz,), dtype=P.data.dtype, device=P.data.device)
+    K[..., torch.cat(idx)] = torch.cat(vals, dim=-1)
 
     if settings.static_regularization_enable:
         md = data["kkt:map_diag"]
-        dvals = K[md]
+        dvals = K[..., md]
         K_reg = K.clone()
-        K_reg[md] = dvals + data["kkt:dsigns"] * _static_eps(settings, _amax0(dvals), 0.0)
+        eps = _static_eps(settings, _amax0(dvals), 0.0)
+        K_reg[..., md] = dvals + data["kkt:dsigns"] * eps.unsqueeze(-1)
     else:
         K_reg = K
     return K, K_reg
@@ -350,19 +360,24 @@ def assemble(ctx: SparseKKT, data, P, A, hs_vals, exp_vals, settings):
 def sym_matvec(ctx: SparseKKT, data, Kvals, v):
     """y = K v with K given by its lower-triangle values (for iterative
     refinement against the unregularized K; directldlkktsolver.rs:266-321).
-    ``v`` may be [N] or [N, r] (multi-RHS refinement).
+    ``v`` may be [N] or [N, r] (multi-RHS refinement), or [B, N, r] with
+    ``Kvals [B, nnz]``.
 
     Two fixed-order segment sums: the lower-triangle term through a
     row-sorted gather of the nonzeros, the transpose term through the
     column-sorted strict selection.  Prefer :func:`make_matvec` where one
     Kvals vector serves several products."""
-    rows, cols = data["kkt:K_rows"], data["kkt:K_cols"]
-    Kr = Kvals[data["kkt:row_order"]]
-    Krv = Kr if v.dim() == 1 else Kr[:, None]
-    y = segment_apply(data["kkt:levels_low"], Krv * v[data["kkt:cols_of_sorted"]])
+    rows = data["kkt:K_rows"]
+    if v.dim() == 1:
+        gather, per_entry, dim = (lambda idx: v[idx]), (lambda t: t), 0
+    else:
+        gather, per_entry, dim = (lambda idx: v[..., idx, :]), (lambda t: t.unsqueeze(-1)), -2
+    Kr = Kvals[..., data["kkt:row_order"]]
+    y = segment_apply(data["kkt:levels_low"],
+                      per_entry(Kr) * gather(data["kkt:cols_of_sorted"]), dim=dim)
     ssel = data["kkt:strict_sel"]
-    Ks = Kvals[ssel] if v.dim() == 1 else Kvals[ssel][:, None]
-    return y + segment_apply(data["kkt:levels_up"], Ks * v[rows[ssel]])
+    return y + segment_apply(data["kkt:levels_up"],
+                             per_entry(Kvals[..., ssel]) * gather(rows[ssel]), dim=dim)
 
 
 def make_matvec(ctx: SparseKKT, data, Kvals):
@@ -377,25 +392,31 @@ def make_matvec(ctx: SparseKKT, data, Kvals):
     if not offs:
         return lambda v: sym_matvec(ctx, data, Kvals, v)
     O, N = len(offs), ctx.N
-    Kd = torch.zeros(O * N, dtype=Kvals.dtype, device=Kvals.device)
-    Kd[data["kkt:dia_pos"]] = Kvals[data["kkt:dia_src"]]
-    return _dia_mv(Kd.reshape(O, N), offs, N)
+    batch = Kvals.shape[:-1]
+    Kd = torch.zeros(batch + (O * N,), dtype=Kvals.dtype, device=Kvals.device)
+    Kd[..., data["kkt:dia_pos"]] = Kvals[..., data["kkt:dia_src"]]
+    return _dia_mv(Kd.reshape(batch + (O, N)), offs, N)
 
 
 def _dia_mv(Kd, offs, N):
-    """The DIA product closure v -> K v, v [N] or [N, r]: the offset loop
+    """The DIA product closure v -> K v: ``Kd [O, N]`` takes v [N] or
+    [N, r], a batch's ``Kd [B, O, N]`` takes v [B, N, r].  The offset loop
     is a fixed small accumulation chain."""
     lo = max(0, -min(offs))
     hi = max(0, max(offs))
 
     def mv(v):
+        if (v.dim() == 3) != (Kd.dim() == 3):
+            raise ValueError(f"the DIA matvec of K {tuple(Kd.shape)} takes v "
+                             f"{'[B, N, r]' if Kd.dim() == 3 else '[N] or [N, r]'}, "
+                             f"got {tuple(v.shape)}")
         single = v.dim() == 1
         if single:
             v = v[:, None]
         vp = F.pad(v, (0, 0, lo, hi))
         acc = torch.zeros_like(v)
         for i, o in enumerate(offs):
-            acc = acc + Kd[i][:, None] * vp[lo + o: lo + o + N]
+            acc = acc + Kd[..., i, :, None] * vp[..., lo + o: lo + o + N, :]
         return acc[:, 0] if single else acc
 
     return mv
@@ -409,24 +430,25 @@ def make_matvec_sources(ctx: SparseKKT, P, A, hs_vals):
     N = ctx.N
     dtype = hs_vals.dtype if hs_vals.numel() else P.data.dtype
     device = P.data.device
+    batch = P.data.shape[:-1]
 
     lanes = []
     for o, segs in ctx.dia_recipe:
-        lane = torch.zeros(N, dtype=dtype, device=device)
+        lane = torch.zeros(batch + (N,), dtype=dtype, device=device)
         for spec in segs:
             kind, lane_idx, row0 = spec[0], spec[1], spec[2]
             if kind == "P":
-                seg = P.kd[lane_idx]
+                seg = P.kd[..., lane_idx, :]
             elif kind == "Alow":
-                seg = A.kd[lane_idx]
+                seg = A.kd[..., lane_idx, :]
             elif kind == "Amir":
                 src0, length = spec[4], spec[3]
-                seg = A.kd[lane_idx][src0: src0 + length]
+                seg = A.kd[..., lane_idx, src0: src0 + length]
             else:  # Hs diagonal (negated block of K)
                 seg = -hs_vals
-            lane = lane + F.pad(seg, (row0, N - row0 - seg.shape[0]))
+            lane = lane + F.pad(seg, (row0, N - row0 - seg.shape[-1]))
         lanes.append(lane)
-    return _dia_mv(torch.stack(lanes), ctx.dia_offsets, N)
+    return _dia_mv(torch.stack(lanes, dim=-2), ctx.dia_offsets, N)
 
 
 def factor_fused(ctx: SparseKKT, data, P, A, hs_vals, exp_vals, settings):
@@ -435,23 +457,25 @@ def factor_fused(ctx: SparseKKT, data, P, A, hs_vals, exp_vals, settings):
     workspace ("fuse:cells" composes the Kvals slot and front-cell maps),
     with static regularization added to the diagonal cells — the Kvals
     vector is never materialized (the recipe matvec serves refinement).
-    Semantics identical to assemble()+factor()."""
+    Semantics identical to assemble()+factor(); a batch's workspace is
+    ``[B, total_cells]`` and its ε per lane."""
     dtype, device = P.data.dtype, P.data.device
-    vals = [P.data[data["kkt:P_tril_sel"]], A.data]
-    if hs_vals.shape[0]:
+    batch = P.data.shape[:-1]
+    vals = [P.data[..., data["kkt:P_tril_sel"]], A.data]
+    if hs_vals.shape[-1]:
         vals.append(-hs_vals)
-    if exp_vals.shape[0]:
+    if exp_vals.shape[-1]:
         vals.append(exp_vals)
-    vals = torch.cat(vals)
+    vals = torch.cat(vals, dim=-1)
     if settings.static_regularization_enable:
-        reg = data["kkt:dsigns"] * _static_eps(settings, _amax0(vals[data["fuse:absdiag_sel"]]),
-                                                  0.0)
+        eps = _static_eps(settings, _amax0(vals[..., data["fuse:absdiag_sel"]]), 0.0)
+        reg = data["kkt:dsigns"] * eps.unsqueeze(-1)
     else:
         reg = torch.zeros(ctx.N, dtype=dtype, device=device)
-    finit = torch.zeros(ctx.plan.total_cells, dtype=dtype, device=device)
-    finit[data["fuse:cells"]] = vals
+    finit = torch.zeros(batch + (ctx.plan.total_cells,), dtype=dtype, device=device)
+    finit[..., data["fuse:cells"]] = vals
     dc = data["fuse:diag_cells"]
-    finit[dc] = finit[dc] + reg
+    finit[..., dc] = finit[..., dc] + reg
     eps, delta = _regularization(settings)
     return multifrontal.mf_factor(ctx.plan, data, None, eps, delta,
                                   stable_inverse=ctx.nonsym, finit=finit)

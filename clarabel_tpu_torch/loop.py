@@ -29,10 +29,13 @@ at the top of an iteration is frozen: it computes along with the others and
 keeps none of it.  The two device reads per iteration stay two, for the
 whole batch: whether any problem is unsolved, and whether any takes a step.
 
-On the sparse path (one problem) P and A are ``algebra.coo.COOMat`` and the
-KKT system is never densified: the constant-term and affine solves of an
-iteration, and the two solves of the LP start, share one 2-RHS refined
-solve through the multifrontal sweeps, as in the JAX package.
+On the sparse path P and A are ``algebra.coo.COOMat`` and the KKT system
+is never densified: the constant-term and affine solves of an iteration,
+and the two solves of the LP start, share one 2-RHS refined solve through
+the multifrontal sweeps, as in the JAX package.  The sparse path takes one
+problem, or a batch of one sparsity pattern (COO values [B, nnz], as
+``parallel.sparse_batch`` builds them) whose lanes share the plan and each
+factor's launches and freeze one by one as the dense batch's do.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import torch
 from .cones import nonsymmetric as _ns
 from .cones import ops as cone_ops
 from .cones.ops import _col
-from .kkt import dense as kkt_dense
+from .kkt import dense as kkt_dense, multifrontal
 from .kkt.dense import dot as _dot, matvec as _mv
 from .statuses import SCALING_DUAL, SCALING_PRIMAL_DUAL, SolverStatus
 from .timers import host_read
@@ -346,24 +349,39 @@ def solve_kkt_refined(factors, K_true, rhs, settings, want_lo=False, keep_ext=Fa
     [K  E; Eᵀ D][x; y] = [rhs; 0] solves the original K_hs x = rhs exactly
     (reference: datamaps.rs expansion semantics).
 
-    ``rhs`` may be [N] or [N, r] on the multifrontal backend (multi-RHS
-    solves share the levelized sweeps).  ``keep_ext`` returns the extension
-    components instead of slicing them off; ``kkt_solve_finish`` reads Δz
-    from the first m entries.  The JAX package's loop.py:338-370."""
+    ``rhs`` may be [N] or [N, r] on the multifrontal backend of one problem
+    (multi-RHS solves share the levelized sweeps); on a batch's, [B, N]
+    (one right-hand side per lane) or [B, N, r] -- the layout follows the
+    factors, not the shape, so a [B, N] with B = r is never misread.
+    ``keep_ext`` returns the extension components instead of slicing them
+    off; ``kkt_solve_finish`` reads Δz from the first m entries.  The JAX
+    package's loop.py:338-370."""
     if factors[0] == "mf":
-        ctx = factors[1][0]
-        pad = ctx.N - rhs.shape[0]
+        ctx, _, mff = factors[1]
+        batched = bool(multifrontal.batch_shape(mff))
+        vec = batched and rhs.dim() == 2
+        if vec:
+            rhs = rhs.unsqueeze(-1)  # [B, N, 1]: the batched solves' layout
+        rows = 1 if batched else 0  # the dimension of the N entries
+        base = rhs.shape[rows]
+        pad = ctx.N - base
         if pad > 0:
-            base = rhs.shape[0]
-            zshape = (pad,) + tuple(rhs.shape[1:])
-            rhs = torch.cat([rhs, torch.zeros(zshape, dtype=rhs.dtype, device=rhs.device)])
-            out, ok = kkt_dense.solve_refined(factors, K_true, rhs, settings, want_lo=want_lo)
-            if keep_ext:
-                return out, ok
-            if want_lo:
-                sol, sol_lo = out
-                return (sol[:base], None if sol_lo is None else sol_lo[:base]), ok
-            return out[:base], ok
+            zshape = list(rhs.shape)
+            zshape[rows] = pad
+            rhs = torch.cat([rhs, torch.zeros(zshape, dtype=rhs.dtype, device=rhs.device)],
+                            dim=rows)
+        out, ok = kkt_dense.solve_refined(factors, K_true, rhs, settings, want_lo=want_lo)
+
+        def finish(v):
+            if v is None:
+                return None
+            if pad > 0 and not keep_ext:
+                v = v.narrow(rows, 0, base)
+            return v.squeeze(-1) if vec else v
+
+        if want_lo:
+            return (finish(out[0]), finish(out[1])), ok
+        return finish(out), ok
     return kkt_dense.solve_refined(factors, K_true, rhs, settings, want_lo=want_lo)
 
 
@@ -509,9 +527,10 @@ def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state,
 
         ctx, data = sparse_kkt
         device = P.data.device
-        hs_vals = cone_ops.hs_lower_vals(layout, scaling_state, dtype, device, (),
+        batch = P.data.shape[:-1]
+        hs_vals = cone_ops.hs_lower_vals(layout, scaling_state, dtype, device, batch,
                                          ctx.soc_expanded, ctx.genpow_expanded)
-        exp_vals = cone_ops.expansion_vals(layout, scaling_state, dtype, device, (),
+        exp_vals = cone_ops.expansion_vals(layout, scaling_state, dtype, device, batch,
                                            ctx.soc_expanded, ctx.genpow_expanded)
         if ctx.dia_recipe and P.kd is not None and A.kd is not None:
             # zero/NN layouts: the Kvals vector is never materialized --
@@ -584,8 +603,8 @@ def default_start(layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas=Fal
         rhs1 = torch.cat([torch.zeros(batch + (n,), **kw), b], dim=-1)
         rhs2 = torch.cat([-q, torch.zeros(batch + (m,), **kw)], dim=-1)
         if sparse_kkt is not None:  # share the levelized sweeps
-            joint, _ = solve_kkt_refined(factors, K, torch.stack([rhs1, rhs2], dim=1), settings)
-            sol1, sol2 = joint[:, 0], joint[:, 1]
+            joint, _ = solve_kkt_refined(factors, K, torch.stack([rhs1, rhs2], dim=-1), settings)
+            sol1, sol2 = joint[..., 0], joint[..., 1]
         else:
             sol1, _ = solve_kkt_refined(factors, K, rhs1, settings)
             sol2, _ = solve_kkt_refined(factors, K, rhs2, settings)
@@ -670,8 +689,9 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
     device read per iteration.
 
     ``sparse_kkt``, when given, is the ``(kkt.sparse.SparseKKT, device
-    data)`` pair of a single problem whose P and A are COOMat: every KKT
-    solve runs through the multifrontal engine.
+    data)`` pair of the problem's sparsity pattern, whose P and A are
+    COOMat (one problem, or a batch with values [B, nnz]): every KKT solve
+    runs through the multifrontal engine.
 
     reference: solver.rs:242-465
     """
@@ -824,10 +844,10 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             # the constant-term and affine reduced solves are independent:
             # they ride the levelized sweeps together as one 2-RHS solve
             (joint, _), ok_c = solve_kkt_refined(
-                factors, K, torch.stack([rhs_const, rhs_aff], dim=1), settings,
+                factors, K, torch.stack([rhs_const, rhs_aff], dim=-1), settings,
                 want_lo=True, keep_ext=True,
             )
-            sol_c, sol_a, ok_a = joint[:, 0], joint[:, 1], ok_c
+            sol_c, sol_a, ok_a = joint[..., 0], joint[..., 1], ok_c
         else:
             (sol_c, _), ok_c = kkt_dense.solve_refined(
                 factors, K, rhs_const, settings, want_lo=True

@@ -42,15 +42,6 @@ from ..solver import (
 from ..statuses import SolverStatus
 
 
-class SparseBatchSolver:
-    """B problems of one sparsity pattern through one multifrontal symbolic
-    analysis (the JAX package's ``parallel/sparse_batch.py``).  Not ported
-    yet: constructing one raises, naming its ROADMAP item."""
-
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("SparseBatchSolver", 15)
-
-
 @dataclasses.dataclass
 class BatchSolution:
     """Stacked solutions for a problem batch (leading axis = batch).

@@ -382,8 +382,10 @@ def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
 
     With ``sparse_ctx`` (a ``(kkt.sparse.SparseKKT, device data)`` pair) the
     function takes ``P``/``A`` as ``algebra.coo.COOMat`` (P full-symmetric)
-    of a single problem, and the KKT path runs the sparse multifrontal
-    engine: nothing is densified."""
+    of one problem, or of a batch of one sparsity pattern (values
+    ``[B, nnz]`` with q [B, n] and b [B, m]; ``parallel.sparse_batch``),
+    and the KKT path runs the sparse multifrontal engine: nothing is
+    densified."""
 
     def solve_core(P, q, A, b, warm_start=None):
         # unscaled inf-norms of the linear terms, cached before

@@ -16,8 +16,9 @@ the bench's SDP batch at B = 2048 (N = 58) -- through "pallas" and "auto"
 (the chordal max-cut through "pallas", "lu" and "auto"), and phase 3f's
 sparse problems -- the JAX bench's banded QP (n = 20000, KKT N = 60000)
 and banded SDP (PSDTriangleConeT(250), decomposed) -- through
-"multifrontal",
-each under torch.profiler after one untraced warm-up solve, and prints for
+"multifrontal", and phase 3g's sparse batches through SparseBatchSolver
+(the JAX bench's batched_sparse_qp, n = 1000, KKT N = 3000, at B = 32 and
+B = 512), each under torch.profiler after one untraced warm-up solve, and prints for
 each: the wall time, the summed device time of the kernels, the device's
 idle share (1 - device time / wall time; the kernels of one stream do not
 overlap), the kernels that take the most device time, and, from a second
@@ -28,9 +29,10 @@ entropy and max-cut solves it also splits the host's wall time over the
 loop's parts (an untraced solve with each part's function wrapped by a host
 clock: inclusive times, device waits included) and counts the device
 reads; for the banded QP the same split over the sparse path's parts,
-and for the sparse problems one multifrontal factorization's launches and
-times with the fronts' diagonal blocks on the unblocked kernel and, for
-comparison, through the pivot scan, and one 2-RHS multifrontal solve's.  Then it profiles the LDLᵀ factor
+and for the sparse problems and batches one multifrontal factorization's
+launches and times with the fronts' diagonal blocks on the unblocked kernel
+and, for comparison, through the pivot scan, and one 2-RHS multifrontal
+solve's.  Then it profiles the LDLᵀ factor
 alone, f64: the blocked variant
 at the large problems' KKT shapes (1 x 2001², 1 x 1552², 1 x 2540²,
 1 x 10200²) and the unblocked one at 1 x 201², 8 x 200², 1 x 256² and the
@@ -78,7 +80,7 @@ def profile_solve(problem, method, top, solver_type=tt.DefaultSolver, dtype="flo
     device_us = sum(e.self_device_time_total for e in events)
     kernels = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
     waits = device_waits(make)
-    if solver_type is tt.BatchSolver:  # the slowest lane's iterations
+    if solver_type in (tt.BatchSolver, tt.SparseBatchSolver):  # the slowest lane's
         solved = sum(s == tt.SolverStatus.Solved for s in sol.statuses())
         status, iterations = f"{solved}/{len(sol.status)} Solved", int(sol.iterations.max())
     else:
@@ -184,14 +186,15 @@ def host_split(problem, method):
                 parts={k: dict(calls=c, host_ms=ms) for k, (c, ms) in totals.items()})
 
 
-def profile_multifrontal_factor(problem, reps=3):
+def profile_multifrontal_factor(problem, reps=3, solver_type=tt.DefaultSolver):
     """Launches and device time of one multifrontal factorization (sparse
     assembly included) of ``problem`` at the identity scaling, by the
     route the solver takes on a card -- the fronts' diagonal blocks on the
     unblocked kernel -- and with those blocks through the pivot scan of the
     JAX package instead (``multifrontal._diag_factor_scan``, the CPU
     route), run on the card for this count only; each with its wall time
-    by CUDA events."""
+    by CUDA events.  With ``solver_type`` SparseBatchSolver, of all the
+    batch's lanes at once (a solve then takes [B, N, 2])."""
     import functools
 
     from clarabel_tpu_torch import loop
@@ -199,19 +202,21 @@ def profile_multifrontal_factor(problem, reps=3):
     from clarabel_tpu_torch.kkt import multifrontal, sparse
 
     P, q, A, b, cones = problem
-    solver = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(
+    solver = solver_type(P, q, A, b, cones, tt.DefaultSettings(
         verbose=False, direct_solve_method="multifrontal"), device="cuda")
-    layout, dtype = solver._layout, solver._torch_dtype
+    layout = solver._layout
     Pd, Ad = solver._P.predia(), solver._A.predia()
-    state = cone_ops.set_identity_scaling(layout, dtype, Pd.data.device)
+    dtype, batch = Pd.data.dtype, Pd.data.shape[:-1]
+    state = cone_ops.set_identity_scaling(layout, dtype, Pd.data.device, batch)
     ctx = (solver._skkt, solver._skkt_data)
+    n_int = getattr(solver, "_n_int", solver.n)
     original = multifrontal.mf_factor
     out = {}
     for route, diag_fn in (("kernel", multifrontal._diag_factor),
                            ("scan", multifrontal._diag_factor_scan)):
         multifrontal.mf_factor = functools.partial(original, diag_fn=diag_fn)
         try:
-            prepare = lambda: loop._kkt_prepare(layout, solver.settings, dtype, solver._n_int,
+            prepare = lambda: loop._kkt_prepare(layout, solver.settings, dtype, n_int,
                                                 False, Pd, Ad, state, sparse_kkt=ctx)
             prepare()  # warm-up
             torch.cuda.synchronize()
@@ -231,7 +236,7 @@ def profile_multifrontal_factor(problem, reps=3):
     # shape)
     factors, _, _ = prepare()
     _, data, mff = factors[1]
-    rhs = torch.ones((solver._skkt.N, 2), dtype=dtype, device=Pd.data.device)
+    rhs = torch.ones(batch + (solver._skkt.N, 2), dtype=dtype, device=Pd.data.device)
     solve = lambda: sparse.solve(solver._skkt, data, mff, rhs)
     solve()
     torch.cuda.synchronize()
@@ -244,7 +249,7 @@ def profile_multifrontal_factor(problem, reps=3):
                         device_ms=sum(e.self_device_time_total for e in events) / 1e3 / reps,
                         ms=chip_smoke.cuda_ms(solve, reps))
     plan = solver._skkt.plan
-    return dict(N=solver._skkt.N, levels=len(plan.levels),
+    return dict(N=solver._skkt.N, B=batch[0] if batch else 1, levels=len(plan.levels),
                 buckets=sum(len(lvl) for lvl in plan.levels), **out)
 
 
@@ -315,6 +320,11 @@ def main():
                              [("multifrontal", "float64")]),
         "banded_sdp_n250": (chip_smoke.banded_sdp(250), tt.DefaultSolver,
                             [("multifrontal", "float64")]),
+        # chip_smoke.py phase 3g's sparse batches
+        "sparse_batch_B32": (chip_smoke.sparse_qp_batch(32, 1000, args.seed + 50),
+                             tt.SparseBatchSolver, [("multifrontal", "float64")]),
+        "sparse_batch_B512": (chip_smoke.sparse_qp_batch(512, 1000, args.seed + 51),
+                              tt.SparseBatchSolver, [("multifrontal", "float64")]),
     }
     chosen = set(problems if args.problems is None else args.problems.split(","))
     report = dict(card=card, runs=[])
@@ -349,10 +359,12 @@ def main():
                 for key, part in r["parts"].items():
                     print(f"    {part['host_ms']:9.1f} ms  {part['calls']:5d}x  {key}")
         report["multifrontal_factors"] = {}
-        for label in chosen & {"banded_qp_n20000", "banded_sdp_n250"}:
-            r = profile_multifrontal_factor(problems[label][0])
+        for label in chosen & {"banded_qp_n20000", "banded_sdp_n250", "sparse_batch_B32",
+                               "sparse_batch_B512"}:
+            r = profile_multifrontal_factor(problems[label][0], solver_type=problems[label][1])
             report["multifrontal_factors"][label] = r
-            print(f"{label} multifrontal factor (N={r['N']}, {r['buckets']} buckets):")
+            print(f"{label} multifrontal factor (B={r['B']}, N={r['N']}, {r['buckets']} "
+                  f"buckets):")
             for route in ("kernel", "scan"):
                 print(f"    diagonal blocks by {route}: {r[route]['launches_per_factor']:.0f} "
                       f"launches, device {r[route]['device_ms_per_factor']:.2f} ms, wall "

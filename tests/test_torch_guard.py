@@ -69,6 +69,12 @@ def test_solve_imports_no_jax():
         "s = tt.DefaultSolver(P, np.ones(2), A, b, [tt.ZeroConeT(1), tt.NonnegativeConeT(4)],\n"
         "    tt.DefaultSettings(verbose=False, direct_solve_method='multifrontal'), device='cpu')\n"
         "assert s._sparse and s.solve().status == tt.SolverStatus.Solved\n"
+        "# the sparse batch (parallel/sparse_batch.py)\n"
+        "import scipy.sparse as sp\n"
+        "sb = tt.SparseBatchSolver(sp.csc_matrix(P), np.ones((2, 2)), sp.csc_matrix(A),\n"
+        "    np.stack([b, b]), [tt.ZeroConeT(1), tt.NonnegativeConeT(4)],\n"
+        "    tt.DefaultSettings(verbose=False), device='cpu')\n"
+        "assert sb.solve().statuses() == [tt.SolverStatus.Solved] * 2\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'clarabel_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -134,18 +140,20 @@ def test_unported_options_raise(kwargs, item):
 
 
 @pytest.mark.parametrize("entry, item", [
-    # B sparse problems of one pattern
-    ("SparseBatchSolver", "item 15"),
+    # the sparse batch runs at f64 on one device
+    ("SparseBatchSolver float32", "item 12b"),
+    ("SparseBatchSolver mesh", "item 16"),
     # JSON problem IO, on the dense and the sparse path
     ("save_to_file auto", "item 17"),
     ("save_to_file multifrontal", "item 17"),
 ])
 def test_unported_entry_points_raise(entry, item, tmp_path):
     P, q, A, b, cones = _tiny_qp()
-    if entry == "SparseBatchSolver":
+    if entry.startswith("SparseBatchSolver"):
+        kwargs = dict(dtype="float32") if entry.endswith("float32") else dict(mesh=object())
         with pytest.raises(NotImplementedError, match=item):
-            tt.SparseBatchSolver(np.stack([P, P]), np.stack([q, q]), np.stack([A, A]),
-                                 np.stack([b, b]), cones, device="cpu")
+            tt.SparseBatchSolver(sp.csc_matrix(P), np.stack([q, q]), sp.csc_matrix(A),
+                                 np.stack([b, b]), cones, device="cpu", **kwargs)
         return
     method = entry.split()[1]
     s = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(
@@ -163,6 +171,16 @@ def test_batch_solver_defaults_to_cuda_and_has_no_time_limit(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tt.BatchSolver(P, q, A, b, cones, tt.DefaultSettings(verbose=False))
+
+
+def test_sparse_batch_solver_defaults_to_cuda_and_has_no_time_limit(monkeypatch):
+    P, q, A, b, cones = _tiny_qp()
+    args = (sp.csc_matrix(P), np.stack([q, q]), sp.csc_matrix(A), np.stack([b, b]), cones)
+    with pytest.raises(ValueError, match="time limit"):
+        tt.SparseBatchSolver(*args, tt.DefaultSettings(time_limit=10.0), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.SparseBatchSolver(*args, tt.DefaultSettings(verbose=False))
 
 
 @pytest.mark.parametrize("cone, kwargs, item", [

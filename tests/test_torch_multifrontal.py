@@ -168,3 +168,53 @@ def test_unit_lower_inverse_forms_agree():
         inv = tmf._unit_lower_inverse(L, stable=stable)
         _close(inv @ (L + eye), eye.expand(3, 20, 20), rel=1e-12)
         _close(inv, jmf._unit_lower_inverse(jnp.asarray(L.numpy()), stable=stable))
+
+
+def test_batched_factor_and_solve_equal_each_lane():
+    """B = 3 value sets on one plan: the factor of the batch (every lane's
+    fronts of a bucket in one [B·k, r, r] partial factorization, the plan's
+    signs tiled over the lanes) equals each lane's own factor bit for bit --
+    pivots, panels, inverses -- and so does the solve at [B, N, 2]; at
+    [B, N, 1] each lane lies within 1e-14 relative of its own solve, not
+    bit for bit: the plan's last bucket holds one front, whose product with
+    one right-hand side takes BLAS's matrix-vector path alone and the
+    batched product in a batch, and the two sum in other orders.  ``ok`` is
+    per lane.  A [B, N] right-hand side is refused, since it would read as
+    one problem's [N, r]."""
+    plan, tplan, jarrays, tarrays, kvals, K = _setup()
+    rng = np.random.default_rng(11)
+    B = 3
+    kv = np.stack([kvals * rng.uniform(0.8, 1.2, kvals.size) for _ in range(B)])
+    fb, okb = tmf.mf_factor(tplan, tarrays, torch.as_tensor(kv), EPS, DELTA)
+    assert okb.shape == (B,) and bool(okb.all())
+    rhs = torch.as_tensor(rng.normal(size=(B, K.shape[0], 2)))
+    x2 = tmf.mf_solve(tplan, tarrays, fb, rhs)
+    x1 = tmf.mf_solve(tplan, tarrays, fb, rhs[..., :1])
+    for i in range(B):
+        fi, oki = tmf.mf_factor(tplan, tarrays, torch.as_tensor(kv[i]), EPS, DELTA)
+        assert bool(oki) and torch.equal(fb["dvec"][i], fi["dvec"])
+        for lb, li in zip(fb["levels"], fi["levels"]):
+            for (bLc, bd, bLinv), (iLc, i_d, iLinv) in zip(lb, li):
+                assert torch.equal(bLc[i], iLc) and torch.equal(bd[i], i_d)
+                assert torch.equal(bLinv[i], iLinv)
+        assert torch.equal(x2[i], tmf.mf_solve(tplan, tarrays, fi, rhs[i]))
+        _close(x1[i, :, 0], tmf.mf_solve(tplan, tarrays, fi, rhs[i, :, 0]).numpy(), rel=1e-14)
+    with pytest.raises(ValueError, match="rhs"):
+        tmf.mf_solve(tplan, tarrays, fb, rhs[..., 0])
+
+
+def test_non_finite_factor_fails_its_lane_only():
+    """A NaN in one lane's K values fails that lane's ``ok`` alone; the
+    other lanes' factors are those of their values alone."""
+    plan, tplan, jarrays, tarrays, kvals, K = _setup()
+    kv = np.stack([kvals, kvals.copy(), 1.1 * kvals])
+    kv[1, kv.shape[1] // 2] = np.nan
+    fb, okb = tmf.mf_factor(tplan, tarrays, torch.as_tensor(kv), EPS, DELTA)
+    assert okb.tolist() == [True, False, True]
+    fi, _ = tmf.mf_factor(tplan, tarrays, torch.as_tensor(kv[2]), EPS, DELTA)
+    assert torch.equal(fb["dvec"][2], fi["dvec"])
+    # the partial factorization's ok is per front
+    F = torch.eye(4, dtype=torch.float64).expand(3, 4, 4).clone()
+    F[1, 2, 0] = np.inf
+    *_, ok = tmf.partial_ldl(F, 2, torch.ones((3, 2), dtype=torch.float64), EPS, DELTA)
+    assert ok.tolist() == [True, False, True]

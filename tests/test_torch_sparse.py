@@ -249,3 +249,106 @@ def test_coo_products():
         x, y = rng.normal(size=M.shape[1]), rng.normal(size=M.shape[0])
         _close(C @ torch.as_tensor(x), M @ x, rel=1e-14)
         _close(C.T @ torch.as_tensor(y), M.T @ y, rel=1e-14)
+
+
+def _lanes(data, B=3, seed=12):
+    """B value sets on one pattern: ``data`` scaled entry by entry."""
+    rng = np.random.default_rng(seed)
+    return np.stack([data * rng.uniform(0.5, 1.5, data.size) for _ in range(B)])
+
+
+@pytest.mark.parametrize("dia", [True, False], ids=["dia", "segment"])
+def test_coo_products_per_lane(dia):
+    """A batch of COO matrices of one pattern (values [B, nnz]): each lane's
+    product, plain and transposed, equal to that lane's own matrix's, bit
+    for bit (the same sums in the same order)."""
+    rng = np.random.default_rng(13)
+    if dia:
+        M = sp.diags([rng.normal(size=50), rng.normal(size=49), rng.normal(size=45)],
+                     [0, 1, -5], shape=(50, 40)).tocoo()
+    else:
+        M = sp.vstack([sp.random(60, 40, density=0.2, random_state=14),
+                       sp.csr_matrix(rng.normal(size=(1, 40)))]).tocoo()
+    vals = _lanes(M.data)
+    C = TCOO.from_coo(vals, M.row, M.col, M.shape, torch.float64, "cpu", dia=True).predia()
+    assert (C.kd is not None) == dia and C.nnz == M.nnz
+    x = torch.as_tensor(rng.normal(size=(3, M.shape[1])))
+    y = torch.as_tensor(rng.normal(size=(3, M.shape[0])))
+    Cx, Cty = C @ x, C.T @ y
+    for i in range(3):
+        Ci = TCOO.from_coo(vals[i], M.row, M.col, M.shape, torch.float64, "cpu", dia=True).predia()
+        assert torch.equal(Cx[i], Ci @ x[i]) and torch.equal(Cty[i], Ci.T @ y[i])
+    with pytest.raises(ValueError, match="batch shape"):
+        C @ x[0]
+
+
+@pytest.mark.parametrize("name", ["banded_nn", "mixed"])
+def test_equilibrate_sparse_per_lane(name):
+    """equilibrate_sparse of a batch equals each lane's own, bit for bit:
+    the norms, the mean column norm of P and the cost scale are per lane
+    (lane 1's q scaled by 1e4 moves its cost scale, and only its)."""
+    if name == "banded_nn":
+        P, A, _, tl = _banded_nn()
+    else:
+        (P, A), tl = _problem(), TL
+    rng = np.random.default_rng(15)
+    Pv, Av = _lanes(P.data), _lanes(A.data, seed=16)
+    q, b = rng.normal(size=(3, P.shape[0])), rng.normal(size=(3, A.shape[0]))
+    q[1] *= 1e4
+    coo = lambda M, v: TCOO.from_coo(v, M.row, M.col, M.shape, torch.float64, "cpu")
+    out = teq.equilibrate_sparse(tl, TSETTINGS, coo(P, Pv), torch.as_tensor(q), coo(A, Av),
+                                 torch.as_tensor(b))
+    assert out[-1].shape == (3,) and len(set(out[-1].tolist())) == 3
+    for i in range(3):
+        one = teq.equilibrate_sparse(tl, TSETTINGS, coo(P, Pv[i]), torch.as_tensor(q[i]),
+                                     coo(A, Av[i]), torch.as_tensor(b[i]))
+        for got, want in zip(out, one):
+            if isinstance(got, TCOO):
+                got, want = got.data, want.data
+            assert torch.equal(got[i], want)
+
+
+def test_assembly_per_lane():
+    """assemble (the Kvals route, SOC/exp/pow/genpow/PSD values) with its
+    matvec, and factor_fused with the recipe matvec (the zero/NN route): a
+    batch's values and products equal each lane's own, bit for bit, with
+    the static regularization's ε per lane (lane 2's P scaled by 1e3)."""
+    rng = np.random.default_rng(17)
+    for P, A, jl, tl in ((*_problem(), JL, TL), _banded_nn()):
+        (_, _, _, _), (tctx, tdata, _, _) = _both((jl, tl), P, A)
+        Pv, Av = _lanes(P.data), _lanes(A.data, seed=18)
+        Pv[2] *= 1e3
+        coo = lambda M, v: TCOO.from_coo(v, M.row, M.col, M.shape, torch.float64, "cpu",
+                                         dia=True).predia()
+        tPb, tAb = coo(P, Pv), coo(A, Av)
+        forms = (tctx.soc_expanded, tctx.genpow_expanded)
+        if tl is TL:
+            states = [_torch_state(_jax_state(s)) for s in (4, 5, 6)]
+            state = {k: torch.stack([st[k] for st in states]) for k in states[0]}
+        else:
+            w = torch.as_tensor(rng.uniform(0.5, 2.0, (3, tl.n_nn)))
+            states = [{"nn_w": w[i], "nn_lam": w[i]} for i in range(3)]
+            state = {"nn_w": w, "nn_lam": w}
+        hs = tops.hs_lower_vals(tl, state, torch.float64, "cpu", (3,), *forms)
+        ex = tops.expansion_vals(tl, state, torch.float64, "cpu", (3,), *forms)
+        v = torch.as_tensor(rng.normal(size=(3, tctx.N, 2)))
+        K, Kreg = tsparse.assemble(tctx, tdata, tPb, tAb, hs, ex, TSETTINGS)
+        Kv = tsparse.make_matvec(tctx, tdata, K)(v)
+        if tctx.dia_recipe:
+            fused, ok = tsparse.factor_fused(tctx, tdata, tPb, tAb, hs, ex, TSETTINGS)
+            assert ok.shape == (3,)
+            Rv = tsparse.make_matvec_sources(tctx, tPb, tAb, hs)(v)
+        for i in range(3):
+            Pi, Ai = coo(P, Pv[i]), coo(A, Av[i])
+            hi = tops.hs_lower_vals(tl, states[i], torch.float64, "cpu", (), *forms)
+            ei = tops.expansion_vals(tl, states[i], torch.float64, "cpu", (), *forms)
+            Ki, Kregi = tsparse.assemble(tctx, tdata, Pi, Ai, hi, ei, TSETTINGS)
+            assert torch.equal(K[i], Ki) and torch.equal(Kreg[i], Kregi)
+            assert torch.equal(Kv[i], tsparse.make_matvec(tctx, tdata, Ki)(v[i]))
+            if tctx.dia_recipe:
+                fi, _ = tsparse.factor_fused(tctx, tdata, Pi, Ai, hi, ei, TSETTINGS)
+                assert torch.equal(fused["dvec"][i], fi["dvec"])
+                assert torch.equal(Rv[i], tsparse.make_matvec_sources(tctx, Pi, Ai, hi)(v[i]))
+        # the regularization's ε follows each lane's own diagonal
+        eps = (Kreg - K)[:, tdata["kkt:map_diag"]].abs().amax(dim=1)
+        assert eps[2] > eps[0] and eps[2] > eps[1]
