@@ -114,7 +114,23 @@ Phases:
      and one solve by CUDA events and the peak device memory; phase 1
      holds that kernel bit for bit at the batches' block shapes
      (2752 and 44032 x 32²);
-  4. the launch counts of phases 2-3, 3b, 3d, 3e, 3f and 3g and one JSON
+  3h. the host surface: buildinfo (the native symbolic engine must have
+     built); the banded QP of phase 3f (N = 60000) and the sparse batch of
+     phase 3g (B = 32) set up through the native symbolic engine and through
+     the Python versions, plans equal field for field, setup and symbolic
+     seconds of each; the N = 60000 QP saved to JSON (O(nnz): P and A carry
+     exactly the CSC's entries), loaded on the card and solved bit for bit
+     as the original through "multifrontal" (K3), and the same for the
+     portfolio QP of phase 2 through "pallas" (K1); a verbose solve under
+     print_to_buffer, its report in the buffer and nothing on stdout; a
+     profile() trace of the small QP's "pallas" solve naming the unblocked
+     kernel; the C ABI (include/clarabel_tpu.h over capi/capi.cpp, built
+     with g++) loaded in this process: the portfolio QP through "pallas"
+     on the card (status Solved, objective within 1e-9 of DefaultSolver's,
+     K1 launched), the shim's overhead per call, q updated and re-solved,
+     a termination callback stopping at iteration 3, the small QP (K2);
+     and the standalone C driver (capi/example_capi.c) run on the card;
+  4. the launch counts of phases 2-3, 3b, 3d, 3e, 3f, 3g and 3h and one JSON
      line per kernel and shape.
 
 With --deterministic the run also sets torch.use_deterministic_algorithms
@@ -131,10 +147,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 import warnings
@@ -1734,6 +1753,362 @@ def sparse_batch_phase(seed):
     return out
 
 
+# -----------------------------------------------------------------
+# phase 3h: the host surface
+# -----------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def python_symbolic():
+    """Inside the block the symbolic analyses run their Python versions, as
+    where no compiler exists (the native engine reports no library)."""
+    from clarabel_tpu_torch import native
+
+    load = native._load
+    native._load = lambda: None
+    try:
+        yield
+    finally:
+        native._load = load
+
+
+def plan_differences(a, b):
+    """The fields in which two multifrontal plans differ; none when they
+    are equal field for field."""
+    diffs = [f for f in ("N", "nnzL", "flops", "n_supernodes", "W", "total_cells")
+             if getattr(a, f) != getattr(b, f)]
+    if sorted(a.arrays) != sorted(b.arrays):
+        diffs.append("arrays")
+    else:
+        diffs += [k for k in a.arrays if not np.array_equal(a.arrays[k], b.arrays[k])]
+    buckets = lambda plan: [[(B, getattr(B, "asm", None)) for B in lvl] for lvl in plan.levels]
+    if buckets(a) != buckets(b):
+        diffs.append("levels")
+    return diffs
+
+
+def timed_setup(make):
+    """(object, wall seconds) of ``make()``, the card synchronized after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obj = make()
+    torch.cuda.synchronize()
+    return obj, time.perf_counter() - t0
+
+
+def same_solution(a, b):
+    """Two solutions equal bit for bit: status, iterations, x, z and s."""
+    return (a.status == b.status and a.iterations == b.iterations
+            and all(np.array_equal(getattr(a, v), getattr(b, v)) for v in ("x", "z", "s")))
+
+
+class CApi:
+    """The port's C ABI (include/clarabel_tpu.h) loaded in this process with
+    ctypes; the shim sees the live interpreter and does not embed one."""
+
+    class Cone(ctypes.Structure):
+        _fields_ = [("tag", ctypes.c_uint8), ("dim", ctypes.c_int64),
+                    ("power", ctypes.c_double), ("alpha", ctypes.POINTER(ctypes.c_double)),
+                    ("nalpha", ctypes.c_int64)]
+
+    class Info(ctypes.Structure):
+        _fields_ = [("status", ctypes.c_int32), ("iterations", ctypes.c_int32),
+                    ("obj_val", ctypes.c_double), ("obj_val_dual", ctypes.c_double),
+                    ("solve_time", ctypes.c_double), ("r_prim", ctypes.c_double),
+                    ("r_dual", ctypes.c_double)]
+
+    CALLBACK = ctypes.CFUNCTYPE(ctypes.c_int32, ctypes.POINTER(Info), ctypes.c_void_p)
+
+    def __init__(self, path):
+        i64p, f64p = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_double)
+        L = ctypes.CDLL(str(path))
+        L.clarabel_new.restype = ctypes.c_void_p
+        L.clarabel_new.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p, i64p, f64p, f64p,
+                                   i64p, i64p, f64p, f64p, ctypes.POINTER(self.Cone),
+                                   ctypes.c_int64, ctypes.c_char_p]
+        L.clarabel_solve.restype = ctypes.c_int32
+        L.clarabel_solve.argtypes = [ctypes.c_void_p, f64p, f64p, f64p, ctypes.POINTER(self.Info)]
+        L.clarabel_update.restype = ctypes.c_int32
+        L.clarabel_update.argtypes = [ctypes.c_void_p, ctypes.c_char_p, f64p, ctypes.c_int64]
+        L.clarabel_set_termination_callback.restype = ctypes.c_int32
+        L.clarabel_set_termination_callback.argtypes = [ctypes.c_void_p, self.CALLBACK,
+                                                        ctypes.c_void_p]
+        L.clarabel_free.argtypes = [ctypes.c_void_p]
+        L.clarabel_last_error.restype = ctypes.c_char_p
+        self.lib = L
+
+    @staticmethod
+    def _ptr(a, kind):
+        return a.ctypes.data_as(ctypes.POINTER(kind))
+
+    def new(self, problem, settings):
+        """A handle on a problem of zero and nonnegative cones (numpy P, A)."""
+        import scipy.sparse as sp
+
+        P, q, A, b, cones = problem
+        Pc, Ac = sp.csc_matrix(np.triu(P)), sp.csc_matrix(A)
+        bufs = [np.asarray(v, t) for v, t in (
+            (Pc.indptr, np.int64), (Pc.indices, np.int64), (Pc.data, np.float64), (q, np.float64),
+            (Ac.indptr, np.int64), (Ac.indices, np.int64), (Ac.data, np.float64),
+            (b, np.float64))]
+        recs = (self.Cone * len(cones))(*(self.Cone(c.kind, c.dim, 0.0, None, 0) for c in cones))
+        kinds = (ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
+                 ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_double)
+        h = self.lib.clarabel_new(P.shape[0], A.shape[0],
+                                  *(self._ptr(a, k) for a, k in zip(bufs, kinds)),
+                                  recs, len(cones), json.dumps(settings).encode())
+        assert h, f"clarabel_new: {self.lib.clarabel_last_error().decode()}"
+        return h
+
+    def solve(self, h, n, m):
+        """(status, info, x, wall seconds of the call)."""
+        x, z, s = np.zeros(n), np.zeros(m), np.zeros(m)
+        info = self.Info()
+        f64 = ctypes.c_double
+        t0 = time.perf_counter()
+        status = self.lib.clarabel_solve(h, self._ptr(x, f64), self._ptr(z, f64),
+                                         self._ptr(s, f64), ctypes.byref(info))
+        wall = time.perf_counter() - t0
+        assert status >= 0, f"clarabel_solve: {self.lib.clarabel_last_error().decode()}"
+        return status, info, x, wall
+
+
+def capi_phase(seed, qp_obj):
+    """The C ABI part of phase 3h: returns (report, launches by variant)."""
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch import capi_support
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+
+    out = {}
+    path, out["build_s"], _ = capi_support.build_library()
+    log(f"  C ABI: built {path.name} in {out['build_s']:.1f} s")
+    api = CApi(path)
+    launches = {}
+    qp = portfolio_qp(1000, 50, seed)
+    n, m = qp[0].shape[0], qp[2].shape[0]
+    # the portfolio QP through "pallas" on the card (the shim's default
+    # device), K1 counted from 0 just before and read just after
+    h = api.new(qp, {"verbose": False, "direct_solve_method": "pallas"})
+    pl.ldl_factor.launches["blocked"] = 0
+    status, info, x, wall = api.solve(h, n, m)
+    launches["blocked"] = pl.ldl_factor.launches["blocked"]
+    rel = abs(info.obj_val - qp_obj) / max(1.0, abs(qp_obj))
+    log(f"  C ABI portfolio QP N={n + m} pallas: status {status}, {info.iterations} iterations, "
+        f"obj {info.obj_val:.12e} ({rel:.2e} from DefaultSolver's), K1 launches "
+        f"{launches['blocked']}, {wall * 1e3:.1f} ms")
+    assert status == int(tt.SolverStatus.Solved) and rel <= 1e-9
+    assert launches["blocked"] > 0, "the C ABI's solve launched no K1"
+    out["qp"] = dict(status=status, iterations=info.iterations, obj=info.obj_val,
+                     rel_obj=rel, launches=launches["blocked"], ms=wall * 1e3)
+    # the shim's cost per call: the call's wall time less the solve time
+    # DefaultSolver.solve measures inside it, over repeated solves
+    overheads = []
+    for _ in range(5):
+        _, info, _, wall = api.solve(h, n, m)
+        overheads.append((wall - info.solve_time) * 1e3)
+    out["overhead_ms"] = overheads
+    log(f"  C ABI overhead per solve call (wall less DefaultSolver.solve's time): "
+        f"median {float(np.median(overheads)):.3f} ms of {overheads}")
+    # update q and re-solve, against DefaultSolver on the updated data
+    q2 = qp[1] * 1.01
+    assert api.lib.clarabel_update(h, b"q", CApi._ptr(q2, ctypes.c_double), n) == 0
+    status, info, _, _ = api.solve(h, n, m)
+    _, ref, _ = solve((qp[0], q2) + qp[2:], "pallas", "cuda")
+    rel = abs(info.obj_val - ref.obj_val) / max(1.0, abs(ref.obj_val))
+    log(f"  C ABI after a 1 % update of q: status {status}, obj {info.obj_val:.12e} "
+        f"({rel:.2e} from DefaultSolver's)")
+    assert status == int(tt.SolverStatus.Solved) and rel <= 1e-9
+    out["updated_rel_obj"] = rel
+    # a termination callback stops the next solve at iteration 3
+    seen = []
+
+    @CApi.CALLBACK
+    def stop_at_three(info_p, user_data):
+        seen.append(info_p.contents.iterations)
+        return int(info_p.contents.iterations >= 3)
+
+    assert api.lib.clarabel_set_termination_callback(h, stop_at_three, None) == 0
+    status, info, _, _ = api.solve(h, n, m)
+    log(f"  C ABI callback: status {status} at iteration {info.iterations}, saw {seen}")
+    assert status == int(tt.SolverStatus.CallbackTerminated) and seen[-1] == 3
+    api.lib.clarabel_free(h)
+    # the small QP through "pallas": K2
+    small = portfolio_qp(100, 10, seed + 2)
+    h = api.new(small, {"verbose": False, "direct_solve_method": "pallas"})
+    pl.ldl_factor.launches["unrolled"] = 0
+    status, info, _, _ = api.solve(h, 100, 101)
+    launches["unrolled"] = pl.ldl_factor.launches["unrolled"]
+    api.lib.clarabel_free(h)
+    log(f"  C ABI small QP N=201 pallas: status {status}, {info.iterations} iterations, "
+        f"K2 launches {launches['unrolled']}")
+    assert status == int(tt.SolverStatus.Solved) and launches["unrolled"] > 0
+    out["small_qp"] = dict(status=status, iterations=info.iterations,
+                           launches=launches["unrolled"])
+    # the standalone C driver: no Python process in the caller; the
+    # interpreter's site-packages on PYTHONPATH, the package found through
+    # the compiled-in root
+    import site
+
+    exe = capi_support.build_driver(path)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(site.getsitepackages()))
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(exe), "cuda"], capture_output=True, text=True, timeout=300,
+                          env=env, cwd=str(exe.parent))
+    log(f"  standalone C driver on cuda: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s: {proc.stdout.strip()!r}")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "status=1 obj=1.88" in proc.stdout
+    out["driver_stdout"] = proc.stdout
+    return out, launches
+
+
+def host_phase(seed, qp_obj):
+    """Phase 3h; returns (report, launches by path)."""
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+
+    out, launches = {}, {}
+    info = tt.buildinfo()
+    log(f"  buildinfo: {info}")
+    assert info["native_symbolic"], "the native symbolic engine did not build on this machine"
+    assert not any("jax" in key for key in info)
+    out["buildinfo"] = info
+
+    # the native symbolic engine against the Python versions: the banded
+    # QP family of phase 3f at N = 3000 and 60000 and the sparse batch of
+    # phase 3g at B = 32, setup wall time and symbolic seconds through each,
+    # after one setup through each to pay their first-call costs
+    settings = dict(verbose=False, direct_solve_method="multifrontal")
+    warm = banded_qp(100, seed + 40)
+    for engine in (contextlib.nullcontext, python_symbolic):
+        with engine():
+            tt.DefaultSolver(*warm, tt.DefaultSettings(**settings), device="cuda")
+    for n in (1000, 20000):
+        qp = banded_qp(n, seed + 40)
+        make = lambda: tt.DefaultSolver(*qp, tt.DefaultSettings(**settings), device="cuda")
+        native_solver, native_s = timed_setup(make)
+        with python_symbolic():
+            python_solver, python_s = timed_setup(make)
+        diffs = plan_differences(native_solver._skkt.plan, python_solver._skkt.plan)
+        out[f"setup_n{3 * n}"] = dict(native_s=native_s, python_s=python_s,
+                                      native_symbolic_s=native_solver._symbolic_seconds,
+                                      python_symbolic_s=python_solver._symbolic_seconds)
+        log(f"  banded QP N={3 * n}: setup {native_s:.3f} s native, {python_s:.3f} s Python; "
+            f"symbolic {native_solver._symbolic_seconds:.3f} s native, "
+            f"{python_solver._symbolic_seconds:.3f} s Python; plans differ in "
+            f"{diffs or 'nothing'}")
+        assert not diffs, f"native and Python plans differ: {diffs[:5]}"
+    # the same plan solves the same way: ms per iteration through each
+    # engine's solver, in turns (native, Python, Python, native), every
+    # solve bitwise the first
+    per_iteration = {"native": [], "python": []}
+    solves = []
+    for engine, solver in (("native", native_solver), ("python", python_solver),
+                           ("python", python_solver), ("native", native_solver)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = solver.solve()
+        per_iteration[engine].append((time.perf_counter() - t0) * 1e3 / max(sol.iterations, 1))
+        solves.append(sol)
+    first = solves[0]
+    repeat = all(same_solution(first, sol) for sol in solves[1:])
+    out["setup_n60000"]["ms_per_iteration"] = per_iteration
+    log(f"  banded QP N=60000 solves in turns: ms/iteration native {per_iteration['native']}, "
+        f"Python {per_iteration['python']}; all four bitwise equal: {repeat}")
+    assert repeat, "the native and the Python plan solve differently"
+    del python_solver
+    batch = sparse_qp_batch(32, 1000, seed + 50)
+    make_batch = lambda: tt.SparseBatchSolver(*batch, tt.DefaultSettings(verbose=False),
+                                              device="cuda")
+    native_batch, batch_native_s = timed_setup(make_batch)
+    with python_symbolic():
+        python_batch, batch_python_s = timed_setup(make_batch)
+    diffs = plan_differences(native_batch.plan, python_batch.plan)
+    out["setup_sparse_batch_B32"] = dict(native_s=batch_native_s, python_s=batch_python_s)
+    log(f"  sparse batch B=32 N=3000: setup {batch_native_s:.3f} s native, "
+        f"{batch_python_s:.3f} s Python; plans differ in {diffs or 'nothing'}")
+    assert not diffs
+    del native_batch, python_batch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # JSON IO at full width: the N = 60000 QP saved from the sparse path
+        # (O(nnz)), loaded on the card and solved bit for bit as the
+        # original
+        path = os.path.join(tmp, "banded_qp.json")
+        t0 = time.perf_counter()
+        native_solver.save_to_file(path)
+        save_s = time.perf_counter() - t0
+        with open(path) as f:
+            data = json.load(f)
+        P_triu_nnz = int(native_solver._P_csc.nnz)
+        assert len(data["P"]["nzval"]) == P_triu_nnz and len(data["A"]["nzval"]) == qp[2].nnz
+        pl.ldl_unblocked.launches = 0
+        loaded, load_s = timed_setup(lambda: tt.DefaultSolver.load_from_file(path))
+        second = loaded.solve()
+        launches["fori"] = pl.ldl_unblocked.launches
+        size = os.path.getsize(path)
+        log(f"  banded QP N=60000 JSON: {size / 2**20:.2f} MiB (P {P_triu_nnz} and A "
+            f"{qp[2].nnz} entries), saved in {save_s:.2f} s, loaded and set up in "
+            f"{load_s:.2f} s; loaded solve {second.status.name}, {second.iterations} "
+            f"iterations, bitwise the original's: {same_solution(first, second)}; K3 "
+            f"launches {launches['fori']}")
+        assert loaded._sparse and second.status == tt.SolverStatus.Solved
+        assert same_solution(first, second), "the loaded N = 60000 QP solves differently"
+        assert launches["fori"] > 0
+        out["json_n60000"] = dict(bytes=size, save_s=save_s, load_s=load_s,
+                                  iterations=second.iterations, launches=launches["fori"],
+                                  widest_block_batch=max(B.k for lvl in loaded._skkt.plan.levels
+                                                         for B in lvl))
+        del native_solver, loaded
+
+        # the dense portfolio QP (N = 2001) through "pallas": K1
+        pqp = portfolio_qp(1000, 50, seed)
+        original, first, _ = solve(pqp, "pallas", "cuda")
+        path = os.path.join(tmp, "portfolio_qp.json")
+        original.save_to_file(path)
+        pl.ldl_factor.launches["blocked"] = 0
+        loaded = tt.DefaultSolver.load_from_file(path)
+        second = loaded.solve()
+        launches["blocked"] = pl.ldl_factor.launches["blocked"]
+        log(f"  portfolio QP N=2001 JSON: {os.path.getsize(path) / 2**20:.2f} MiB; loaded "
+            f"solve {second.status.name}, {second.iterations} iterations, bitwise the "
+            f"original's: {same_solution(first, second)}; K1 launches {launches['blocked']}")
+        assert second.status == tt.SolverStatus.Solved and same_solution(first, second)
+        assert launches["blocked"] > 0
+        out["json_portfolio"] = dict(bytes=os.path.getsize(path), iterations=second.iterations,
+                                     launches=launches["blocked"])
+
+        # print targets: a verbose solve under print_to_buffer writes its
+        # report there and nothing on stdout
+        small = portfolio_qp(100, 10, seed + 2)
+        solver = tt.DefaultSolver(*small, tt.DefaultSettings(
+            verbose=True, direct_solve_method="pallas"), device="cuda")
+        solver.print_to_buffer()
+        captured = io.StringIO()
+        with contextlib.redirect_stdout(captured):
+            solver.solve()
+        report = solver.get_print_buffer()
+        log(f"  print_to_buffer: {len(report.splitlines())} lines in the buffer, "
+            f"{len(captured.getvalue())} characters on stdout")
+        assert "Solved" in report and "kkt = pallas" in report and captured.getvalue() == ""
+
+        # profile: a trace of the small QP's "pallas" solve names K2
+        solver.print_to_sink()
+        trace_dir = os.path.join(tmp, "trace")
+        with solver.profile(trace_dir):
+            solver.solve()
+        traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        with open(traces[0]) as f:
+            named = "ldl_unblocked_kernel" in f.read()
+        log(f"  profile: {len(traces)} trace of {os.path.getsize(traces[0]) / 2**20:.2f} MiB, "
+            f"names ldl_unblocked_kernel: {named}")
+        assert len(traces) == 1 and named
+
+    capi, capi_launches = capi_phase(seed, qp_obj)
+    out["capi"] = capi
+    return out, launches, capi_launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1918,6 +2293,15 @@ def run(args) -> int:
         report["sparse_batch"]["seconds"] = time.perf_counter() - t0
         log(f"  phase 3g took {report['sparse_batch']['seconds']:.1f} s")
 
+        # ---- phase 3h: the host surface; the kernels' launches counted
+        # from zero for each path
+        log("phase 3h: the host surface (buildinfo, native symbolic engine, JSON IO, "
+            "print targets, profile, C ABI)")
+        t0 = time.perf_counter()
+        report["host"], launches_3h, launches_capi = host_phase(args.seed, report["qp"]["obj"])
+        report["host"]["seconds"] = time.perf_counter() - t0
+        log(f"  phase 3h took {report['host']['seconds']:.1f} s")
+
     # ---- phase 4: launch counts and the kernels line
     log(f"phase 4: launches on the main path {launches}")
     main_shape = {"blocked": (1, 1000, 1001), "unrolled": (1, 100, 101), "fori": (8, 100, 100)}
@@ -2026,8 +2410,43 @@ def run(args) -> int:
             path=f"phase 3g {label}, multifrontal diagonal blocks of every lane",
             yardstick_lu_factor_ms=row["lu_factor_ms"],
         ))
+    # phase 3h's paths: K1 through load_from_file and the C ABI, K2 through
+    # the C ABI, K3 on the loaded N = 60000 QP's diagonal blocks
+    main_row = lambda variant, B, N: next(r for r in rows if r["variant"] == variant
+                                          and r["B"] == B and r["N"] == N
+                                          and r["dtype"] == "float64")
+    for variant, count, label in (
+            ("blocked", launches_3h["blocked"], "phase 3h load_from_file portfolio QP"),
+            ("blocked", launches_capi["blocked"], "phase 3h C ABI portfolio QP"),
+            ("unrolled", launches_capi["unrolled"], "phase 3h C ABI small QP")):
+        assert count > 0, f"{KERNELS[variant]['name']} never launched by {label}"
+        B, n, m = main_shape[variant]
+        row = main_row(variant, B, n + m)
+        kernels.append(dict(
+            name=KERNELS[variant]["name"], route="cuda", source=SOURCE,
+            replaces=KERNELS[variant]["replaces"], launches=count,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            shape=[B, n + m, n + m], dtype="float64", path=label,
+            yardstick_ldl_factor_ms=row["ldl_factor_ms"],
+            yardstick_lu_factor_ms=row["lu_factor_ms"],
+        ))
+    B = report["host"]["json_n60000"]["widest_block_batch"]
+    row = next(r for r in fronts if r["B"] == B and r["N"] == 32)
+    assert launches_3h["fori"] > 0
+    kernels.append(dict(
+        name=KERNELS["fori"]["name"], route="cuda", source=SOURCE,
+        replaces=KERNELS["fori"]["replaces"], launches=launches_3h["fori"],
+        max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+        shape=[B, 32, 32], dtype="float64", signs="per-matrix",
+        path="phase 3h load_from_file banded QP n=20000, multifrontal diagonal blocks",
+        yardstick_lu_factor_ms=row["lu_factor_ms"],
+    ))
     report["launches"] = launches
     report["launches_3d"] = launches_3d
+    report["launches_3h"] = launches_3h
+    report["launches_capi"] = launches_capi
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

@@ -20,6 +20,17 @@ blocks with the same hand-written LDLᵀ kernel; and the batched solve of
 many sparse problems of one sparsity pattern through one multifrontal plan
 (:class:`SparseBatchSolver`).
 
+Around the solvers sits the JAX package's host surface: problems saved to
+and loaded from the reference's JSON format (``DefaultSolver.save_to_file``,
+``DefaultSolver.load_from_file``; files cross between the two packages),
+print targets (``print_to_buffer``, ``print_to_file``, ``print_to_stream``,
+``print_to_sink``), accessors, ``print_timers`` and a ``torch.profiler``
+trace (``DefaultSolver.profile``); :func:`buildinfo`; the native C++
+symbolic engine (``native.py``), which the sparse path's and the chordal
+decomposition's symbolic analyses run through when ``g++`` has built it;
+and the C ABI of ``include/clarabel_tpu.h`` (``capi_support.py``,
+``capi/capi.cpp``), both built with ``g++`` at first use into ``build/``.
+
 Solves run on a CUDA device unless ``device="cpu"`` is passed; on the CPU the
 LDLᵀ kernels' plain PyTorch versions run in their place.
 """
@@ -33,13 +44,14 @@ from .cones.api import (
     SecondOrderConeT,
     ZeroConeT,
 )
+from .buildinfo import buildinfo, print_buildinfo
 from .infbound import default_infinity, get_infinity, set_infinity
 from .parallel import BatchSolution, BatchSolver, SparseBatchSolver
 from .settings import DefaultSettings, SettingsError
 from .solver import DefaultInfo, DefaultSolution, DefaultSolver
 from .statuses import SolverStatus
 
-__version__ = "0.8.0"
+__version__ = "0.9.0"
 
 __all__ = [
     "DefaultSolver",
@@ -61,5 +73,7 @@ __all__ = [
     "get_infinity",
     "set_infinity",
     "default_infinity",
+    "buildinfo",
+    "print_buildinfo",
     "__version__",
 ]

@@ -10,10 +10,11 @@ src/qdldl).  Here the same artifacts come from a plain minimum-degree
 ordering and an etree-based symbolic pass — the decomposition is equally
 valid for any fill-reducing ordering, and this is setup-time-only work.
 
-The port's copy of ``clarabel_tpu/chordal/symbolic.py``, whose functions
-dispatch to the JAX package's native C++ engine when it is built and fall
-back to these Python versions, which compute the same ordering and pattern
-(the same greedy choice, lowest degree first and ties by index).
+The port's copy of ``clarabel_tpu/chordal/symbolic.py``.  As there, the
+ordering and the symbolic factorization dispatch to the native C++ engine
+(the port's own, ``clarabel_tpu_torch/native.py``) when it is built and
+fall back to these Python versions, which compute the same ordering and
+pattern (the same greedy choice, lowest degree first and ties by index).
 """
 
 from __future__ import annotations
@@ -27,8 +28,14 @@ def minimum_degree_ordering(n: int, adj: Sequence[Set[int]]) -> np.ndarray:
     """Greedy minimum-degree ordering of an undirected graph.
 
     Returns ``perm`` with perm[k] = original vertex eliminated at step k
-    (so the permuted matrix is A[perm][:, perm]).
+    (so the permuted matrix is A[perm][:, perm]).  Dispatches to the native
+    C++ engine when available (clarabel_tpu_torch.native).
     """
+    from .. import native
+
+    out = native.minimum_degree(n, adj)
+    if out is not None:
+        return out
     adj = [set(a) for a in adj]
     eliminated = [False] * n
     perm = []
@@ -59,8 +66,14 @@ def symbolic_cholesky(
 
     ``lower_cols[j]`` is the strictly-below-diagonal row set of column j.
     Returns (L_cols, parent): per-column sorted row lists of the factor
-    pattern and the elimination tree.
+    pattern and the elimination tree.  Dispatches to the native C++ engine
+    when available.
     """
+    from .. import native
+
+    out = native.symbolic_cholesky(n, lower_cols)
+    if out is not None:
+        return out
     NO_PARENT = -1
     patterns: List[Set[int]] = [set(c) for c in lower_cols]
     parent = np.full(n, NO_PARENT, np.int64)

@@ -5,7 +5,10 @@ plain C interface, loaded with ``ctypes``: a build of seconds, with no
 PyTorch headers.  The library goes into ``build/`` at the root of the
 checkout, named by a hash of its source and flags, so an edited source
 rebuilds and an unchanged one is reused.  Nothing is built at import: the
-first call of :func:`library` builds.
+first call of :func:`library` builds.  The port's host libraries (the
+native symbolic engine, ``native.py``, and the C ABI's shim,
+``capi_support.py``) compile with ``g++`` through the same
+:func:`compile_shared`.
 """
 
 from __future__ import annotations
@@ -50,33 +53,50 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build(source: str = "ldl.cu") -> tuple[Path, float, str]:
-    """Compile ``csrc/<source>`` unless its library is already built.
+def _target(src: Path, flags, deps=()) -> tuple[Path, Path]:
+    """(library, compiler log) paths of ``src`` built with ``flags``, named by
+    a hash of the source, the files it includes (``deps``) and the flags."""
+    data = src.read_bytes() + b"".join(Path(d).read_bytes() for d in deps)
+    digest = hashlib.sha256(data + " ".join(flags).encode())
+    stem = f"{src.stem}_{digest.hexdigest()[:16]}"
+    return BUILD_DIR / f"lib{stem}.so", BUILD_DIR / f"{stem}.log"
+
+
+def compile_shared(compiler: str, src: Path, flags, libs=(), deps=()) -> tuple[Path, float, str]:
+    """Compile ``src`` into a shared library under ``build/`` unless it is
+    already built: ``compiler *flags -o lib src *libs``.
 
     Returns (library path, build seconds, compiler output); seconds is 0.0
     and the output the stored log when the library was already there.
     """
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    stem = f"{src.stem}_{digest.hexdigest()[:16]}"
-    lib = BUILD_DIR / f"lib{stem}.so"
-    log = BUILD_DIR / f"{stem}.log"
+    lib, log = _target(src, (*flags, *libs), deps)
     if lib.exists():
         return lib, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [compiler, *flags, "-o", str(tmp), str(src), *libs],
         capture_output=True, text=True,
     )
     seconds = time.perf_counter() - t0
     output = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{output}")
+        raise RuntimeError(f"{Path(compiler).name} failed on {src.name}:\n{output}")
     log.write_text(output)
     os.replace(tmp, lib)
     return lib, seconds, output
+
+
+def build(source: str = "ldl.cu") -> tuple[Path, float, str]:
+    """Compile ``csrc/<source>`` with ``nvcc`` unless its library is already
+    built (:func:`compile_shared`)."""
+    return compile_shared(_nvcc(), CSRC / source, NVCC_FLAGS)
+
+
+def built(source: str = "ldl.cu") -> bool:
+    """Whether ``csrc/<source>``'s library is already in ``build/``."""
+    return _target(CSRC / source, NVCC_FLAGS)[0].exists()
 
 
 @functools.cache

@@ -20,9 +20,10 @@ prepares a *supernodal multifrontal* schedule:
     KKT nonzeros, (b) the extend-add of child update matrices into parent
     fronts, and (c) the levelized triangular solves.
 
-The JAX package runs the symbolic factorization and the amalgamation
-through its native C++ engine when that library is built; this copy runs
-their Python versions, which make the same decisions.  Everything here
+The symbolic factorization and the amalgamation run through the port's
+native C++ engine (``clarabel_tpu_torch/native.py``, built with ``g++`` at
+first use) when it is built, as in the JAX package, and through their
+Python versions otherwise, which make the same decisions.  Everything here
 runs once at setup; the output ``MFPlan`` holds static structure (shapes,
 Python lists) and a dict of integer index arrays that the numeric
 factorization takes.
@@ -180,11 +181,18 @@ def symbolic_factor_csc(
 
     Returns (parent, L_ptr, L_idx): the elimination tree and the full
     below-diagonal factor pattern in CSC form (rows sorted per column).
+    Dispatches to the native C++ engine (``native/symbolic.cpp``) when it
+    is built; the NumPy version otherwise.
     """
+    from .. import native
+
+    out = native.symbolic_factor_csc(n, col_ptr, row_idx)
+    if out is not None:
+        return out
     col_ptr = np.ascontiguousarray(col_ptr, np.int64)
     row_idx = np.ascontiguousarray(row_idx, np.int64)
 
-    # per-column pattern merge up the elimination tree
+    # NumPy version: per-column pattern merge up the elimination tree
     parent = np.full(n, -1, np.int64)
     children: List[List[int]] = [[] for _ in range(n)]
     patterns: List[np.ndarray] = [None] * n  # type: ignore
@@ -321,16 +329,17 @@ def _build_schedule(N, parent, L_ptr, L_idx, max_cols, relax_frac):
     ``nodes`` maps node id -> _SNode for the surviving nodes; children
     lists reference surviving ids only.
 
-    The JAX package's native fast path, in Python: fundamental-supernode
-    boundaries, the split points of supernodes wider than ``max_cols``,
-    per-node row patterns and the assembly-tree parents as flat arrays (a
-    supernode's rows are a suffix of its first column's L pattern, which
-    also holds for split chunks), numbered by first column; then the
-    relaxed amalgamation over their postorder.  Its native C++ amalgamation
-    makes the same merge decisions as :func:`_amalgamate`, and this
-    numbering is that path's, so the plans agree where supernodes are
-    split too (the JAX package's pure-Python fallback numbers split chunks
-    last).
+    The JAX package's native fast path: fundamental-supernode boundaries,
+    the split points of supernodes wider than ``max_cols``, per-node row
+    patterns and the assembly-tree parents as flat arrays (a supernode's
+    rows are a suffix of its first column's L pattern, which also holds for
+    split chunks), numbered by first column; then the relaxed amalgamation
+    over their postorder, through the native C++ engine
+    (``native/symbolic.cpp:cl_amalgamate``) when it is built, else through
+    :func:`_amalgamate`, which makes the same merge decisions on the same
+    numbering, so the plans agree field for field whichever engine ran,
+    also where supernodes are split (the JAX package's pure-Python fallback
+    numbers split chunks last).
     """
     if N == 0:
         return {}, [], {}
@@ -361,6 +370,13 @@ def _build_schedule(N, parent, L_ptr, L_idx, max_cols, relax_frac):
         pcol >= 0, snode_of[np.clip(pcol, 0, N - 1)], -1
     ).astype(np.int64)
 
+    from .. import native
+
+    post = native.postorder_forest(node_parent)  # None: no native engine
+    if post is not None:
+        return _amalgamate_native(N, bounds, rbeg, rend, L_idx, node_parent, post,
+                                  max_cols, relax_frac)
+
     nodes = [
         _SNode(
             cols=np.arange(j0[s], bounds[s + 1], dtype=np.int64),
@@ -383,6 +399,59 @@ def _build_schedule(N, parent, L_ptr, L_idx, max_cols, relax_frac):
         kids = [level_of[c] for c in nodes[s].children]
         level_of[s] = (max(kids) + 1) if kids else 0
     return {i: nodes[i] for i in live}, live, level_of
+
+
+def _amalgamate_native(N, bounds, rbeg, rend, L_idx, node_parent, post, max_cols,
+                       relax_frac):
+    """:func:`_build_schedule`'s amalgamation and levelization through the
+    native engine, on the flat node arrays (the JAX package's native path);
+    only the surviving nodes become Python objects."""
+    from .. import native
+
+    k = node_parent.shape[0]
+    counts = rend - rbeg
+    total = int(counts.sum())
+    rows_ptr = np.zeros(k + 1, np.int64)
+    np.cumsum(counts, out=rows_ptr[1:])
+    if total:
+        src = (
+            np.arange(total, dtype=np.int64)
+            - np.repeat(rows_ptr[:-1], counts)
+            + np.repeat(rbeg, counts)
+        )
+        rows_idx = L_idx[src]
+    else:
+        rows_idx = np.zeros(0, np.int64)
+    alive, ocp, oci, orp, ori, pout = native.amalgamate(
+        bounds, np.arange(N, dtype=np.int64), rows_ptr, rows_idx, node_parent, post,
+        max_cols, relax_frac,
+    )
+
+    nodes: Dict[int, _SNode] = {}
+    live = [int(i) for i in np.where(alive)[0]]
+    for i in live:
+        nodes[i] = _SNode(
+            cols=oci[ocp[i] : ocp[i + 1]].copy(),
+            rows=ori[orp[i] : orp[i + 1]].copy(),
+            children=[],
+            parent=int(pout[i]),
+        )
+    for i in live:
+        p = nodes[i].parent
+        if p >= 0:
+            nodes[p].children.append(i)
+
+    # levelize bottom-up over the original postorder, skipping dead ids
+    level_of: Dict[int, int] = {}
+    for s in post:
+        s = int(s)
+        if not alive[s]:
+            continue
+        level_of.setdefault(s, 0)
+        p = int(pout[s])
+        if p >= 0:
+            level_of[p] = max(level_of.get(p, 0), level_of[s] + 1)
+    return nodes, live, level_of
 
 
 # --------------------------------------------------------------------------

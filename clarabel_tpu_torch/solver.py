@@ -30,6 +30,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import io as _io
+import sys
 import time
 from typing import Optional, Sequence
 
@@ -511,7 +513,9 @@ class DefaultSolver:
     "schur_diag" and "schur_lr" on the zero, nonnegative and second-order
     cones; on the sparse multifrontal path at f64.  Its data can be updated
     between solves (unless presolve or the decomposition changed the
-    problem), a solve warm-started and stopped by a callback."""
+    problem), a solve warm-started and stopped by a callback.  The problem
+    saves to and loads from the reference's JSON format, and the report of
+    a verbose solve goes to the chosen print target."""
 
     def __init__(
         self,
@@ -579,6 +583,8 @@ class DefaultSolver:
         self.solution: Optional[DefaultSolution] = None
         self.equilibration: Optional[EquilibrationData] = None
         self.iteration_history: Optional[np.ndarray] = None
+        self._print_stream = sys.stdout
+        self._print_buffer = None
 
     # ------------------------------------------------------------------
     def _setup_sparse(self, q, b, cones) -> bool:
@@ -609,6 +615,10 @@ class DefaultSolver:
 
             # cap b at the infinity bound (problemdata.rs:126-131)
             b = np.minimum(b, get_infinity())
+            # user-frame copies (after presolve, before the chordal
+            # decomposition) for data updating and JSON round trips; the
+            # matrices stay in self._P_csc / self._A_csc
+            self._cones_int = cones_int
             self._np_q = q.copy()
             self._np_b = b.copy()
 
@@ -707,7 +717,8 @@ class DefaultSolver:
             b = np.minimum(b, get_infinity())
 
             # user-frame copies (after presolve, before the chordal
-            # decomposition) for data updating
+            # decomposition) for data updating and JSON round trips
+            self._cones_int = cones_int
             self._np_P = P
             self._np_q = q.copy()
             self._np_A = A.copy()
@@ -1081,17 +1092,77 @@ class DefaultSolver:
         self._callback = None
         self._rebuild_solve_fn()
 
+    # ------------------------------------------------------------------
+    # JSON problem IO (reference: json.rs)
+    # ------------------------------------------------------------------
+
     def save_to_file(self, path):
-        """Write the problem as reference-format JSON: not ported yet
-        (raises, naming its ROADMAP item)."""
-        raise _not_ported("save_to_file (JSON problem IO)", 17)
+        """Write (P, q, A, b, cones, settings) as reference-format JSON: the
+        problem after presolve and before the chordal decomposition, as the
+        JAX package writes it."""
+        from . import json_io
+
+        if self._sparse:
+            # stay O(nnz): triu P serializes directly; presolve row
+            # selection happens on the CSC structure (json.rs:22-96)
+            P, A = self._P_csc, self._A_csc
+            if self._presolver is not None:  # match post-presolve b/cones
+                keep = np.where(self._presolver.keep_logical)[0]
+                A = A.tocsr()[keep, :].tocsc()
+        else:
+            P, A = self._np_P, self._np_A
+        json_io.save_problem(path, P, self._np_q, A, self._np_b, self._cones_int,
+                             self.settings)
+
+    @classmethod
+    def load_from_file(cls, path, settings: Optional[DefaultSettings] = None, **kwargs):
+        """Construct a solver from a reference-format JSON problem file;
+        ``kwargs`` (``dtype=``, ``device=``) pass through to the
+        constructor, so the solver runs on ``cuda`` unless told otherwise."""
+        from . import json_io
+
+        P, q, A, b, cones, s = json_io.load_problem(path, settings)
+        return cls(P, q, A, b, cones, s, **kwargs)
 
     # ------------------------------------------------------------------
-    # printing (reference: info_print.rs)
+    # printing (reference: io/mod.rs print targets, info_print.rs)
     # ------------------------------------------------------------------
+
+    def print_to_stdout(self):
+        self._print_stream = sys.stdout
+        self._print_buffer = None
+
+    def print_to_file(self, path):
+        self._print_stream = open(path, "w")
+        self._print_buffer = None
+
+    def print_to_buffer(self):
+        self._print_buffer = _io.StringIO()
+        self._print_stream = self._print_buffer
+
+    def print_to_stream(self, stream):
+        """Route solver output to a caller-supplied writable object
+        (reference: io/mod.rs:19-51, the ``Stream`` print-target variant)."""
+        if not hasattr(stream, "write"):
+            raise TypeError("stream must be a writable object (no .write)")
+        self._print_stream = stream
+        self._print_buffer = None
+
+    def get_print_buffer(self) -> str:
+        if self._print_buffer is None:
+            raise ValueError("print_to_buffer() was not enabled")
+        return self._print_buffer.getvalue()
+
+    def print_to_sink(self):
+        self._print_stream = None
+        self._print_buffer = None
+
+    def _print(self, *args, **kwargs):
+        if self._print_stream is not None:
+            print(*args, file=self._print_stream, **kwargs)
 
     def _print_report(self, history):  # pragma: no cover - cosmetic
-        p = print
+        p = self._print
         p("-------------------------------------------------------------")
         from . import __version__
 
@@ -1119,3 +1190,28 @@ class DefaultSolver:
             f"status = {i.status.name}, iterations = {i.iterations}, "
             f"obj = {i.cost_primal:.6e}, solve time = {i.solve_time*1e3:.2f} ms"
         )
+
+    def print_timers(self):  # pragma: no cover - cosmetic
+        self.timers.print_tree()
+
+    # accessor aliases mirroring the reference Python binding surface
+    # (impl_default_py.rs:626-791)
+    def get_info(self) -> DefaultInfo:
+        return self.info
+
+    def get_solution(self) -> Optional[DefaultSolution]:
+        return self.solution
+
+    def get_settings(self) -> DefaultSettings:
+        return self.settings
+
+    def profile(self, log_dir):
+        """Context manager tracing the next solve(s) with ``torch.profiler``:
+        host activity, and the card's kernels when the solver runs on one;
+        leaves a Chrome trace (``*.pt.trace.json``) in ``log_dir``."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self._device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir)))

@@ -8,9 +8,9 @@ PSD completion (``decomp_reverse``) and the warm-start map
 problem (tests/test_sdp_chordal.py: PSD(6) beside two power cones) and on a
 banded SDP (n = 12; tests/test_psd_auto_route.py's generator).
 
-The JAX package orders the sparsity graph with its native C++ engine where
-it is built; the port keeps only the Python versions of the same
-algorithm, so equal outputs also hold the two orderings equal.
+Each package orders the sparsity graph with its own native C++ engine
+where it is built, and with the Python versions of the same algorithm
+otherwise (tests/test_torch_native.py holds the port's two to each other).
 """
 
 import numpy as np

@@ -6,6 +6,7 @@ import ast
 import dataclasses
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -75,6 +76,13 @@ def test_solve_imports_no_jax():
         "    np.stack([b, b]), [tt.ZeroConeT(1), tt.NonnegativeConeT(4)],\n"
         "    tt.DefaultSettings(verbose=False), device='cpu')\n"
         "assert sb.solve().statuses() == [tt.SolverStatus.Solved] * 2\n"
+        "# the host surface: buildinfo, JSON IO on both paths (json_io.py, native.py)\n"
+        "import os, tempfile\n"
+        "assert 'jax' not in tt.buildinfo()\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    s.save_to_file(os.path.join(d, 'p.json'))\n"
+        "    t = tt.DefaultSolver.load_from_file(os.path.join(d, 'p.json'), device='cpu')\n"
+        "    assert t._sparse and t.solve().status == tt.SolverStatus.Solved\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'clarabel_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -96,6 +104,23 @@ def test_no_module_imports_jax(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "clarabel_tpu"), f"{path}: import {name}"
+
+
+def test_c_sources_import_only_the_port():
+    """The port's C shim imports only modules of clarabel_tpu_torch, and no
+    file of the port loads a library of the JAX package's ``native/``."""
+    sources = sorted(p for p in (ROOT / "clarabel_tpu_torch").rglob("*")
+                     if p.suffix in (".c", ".cpp", ".cu"))
+    assert ROOT / "clarabel_tpu_torch" / "capi" / "capi.cpp" in sources
+    imports = []
+    for path in sources:
+        for name in re.findall(r'PyImport_ImportModule\("([^"]*)"\)', path.read_text()):
+            assert name.startswith("clarabel_tpu_torch."), f"{path}: imports {name}"
+            imports.append(name)
+    assert imports == ["clarabel_tpu_torch.capi_support"]
+    for path in PORT_FILES + sources:
+        text = path.read_text()
+        assert "libclarabel_native" not in text and "libclarabel_tpu_c" not in text, path
 
 
 def test_device_defaults_to_cuda(monkeypatch):
@@ -143,9 +168,10 @@ def test_unported_options_raise(kwargs, item):
     # the sparse batch runs at f64 on one device
     ("SparseBatchSolver float32", "item 12b"),
     ("SparseBatchSolver mesh", "item 16"),
-    # JSON problem IO, on the dense and the sparse path
-    ("save_to_file auto", "item 17"),
-    ("save_to_file multifrontal", "item 17"),
+    # a problem file loads at f32 only where the solve would run at f32
+    ("load_from_file float32 lu", "item 12b"),
+    # BatchSolver on one device
+    ("BatchSolver mesh", "item 16"),
 ])
 def test_unported_entry_points_raise(entry, item, tmp_path):
     P, q, A, b, cones = _tiny_qp()
@@ -155,12 +181,17 @@ def test_unported_entry_points_raise(entry, item, tmp_path):
             tt.SparseBatchSolver(sp.csc_matrix(P), np.stack([q, q]), sp.csc_matrix(A),
                                  np.stack([b, b]), cones, device="cpu", **kwargs)
         return
-    method = entry.split()[1]
+    if entry.startswith("BatchSolver"):
+        with pytest.raises(NotImplementedError, match=item):
+            tt.BatchSolver(*(np.stack([v, v]) for v in (P, q, A, b)), cones,
+                           tt.DefaultSettings(verbose=False), device="cpu", mesh=object())
+        return
     s = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(
-        verbose=False, direct_solve_method=method), device="cpu")
-    assert s._sparse == (method == "multifrontal")
+        verbose=False, direct_solve_method="lu"), device="cpu")
+    s.save_to_file(tmp_path / "problem.json")
     with pytest.raises(NotImplementedError, match=item):
-        s.save_to_file(tmp_path / "problem.json")
+        tt.DefaultSolver.load_from_file(tmp_path / "problem.json", dtype="float32",
+                                        device="cpu")
 
 
 def test_batch_solver_defaults_to_cuda_and_has_no_time_limit(monkeypatch):

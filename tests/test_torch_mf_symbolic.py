@@ -9,7 +9,9 @@ and PSD patterns.  Exact equality: both run the same integer algorithm.
 The JAX package runs its symbolic factorization and amalgamation through
 its native C++ engine when that library is built, and its Python versions
 otherwise; every pattern here keeps its supernodes under the split width,
-where the two give the same plan.
+where the two give the same plan.  The port runs its own native engine
+when it is built (tests/test_torch_native.py holds it to the port's Python
+versions and to the JAX package, also where supernodes split).
 """
 
 import numpy as np
