@@ -51,7 +51,7 @@ from .settings import DefaultSettings, SettingsError
 from .solver import DefaultInfo, DefaultSolution, DefaultSolver
 from .statuses import SolverStatus
 
-__version__ = "0.9.0"
+__version__ = "0.10.0"
 
 __all__ = [
     "DefaultSolver",

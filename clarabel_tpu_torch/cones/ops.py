@@ -388,6 +388,48 @@ def mul_hs(layout: ConeLayout, state, x):
     return y
 
 
+def mul_hs_df(layout: ConeLayout, state, x, x_lo=None):
+    """y = Hs (x + x_lo) as a double-float (hi, lo) pair, x [..., m].
+
+    Near convergence |Hs·x|_i dwarfs the Δs it feeds (Δs = -(HsΔz + c) is
+    a cancellation), so the f32 rounding of the product dominates the step's
+    primal consistency; keeping the product's rounding remainder in a lo
+    stream until after the cancellation removes it.  NN takes an exact
+    TwoProd; SOC, exp, pow and genpow the plain product (their hi image)
+    with only the x_lo image compensated, as in the JAX package
+    (clarabel_tpu/cones/ops.py:313-360).  PSD cones raise: their
+    double-float product is not ported."""
+    if layout.num_psd:
+        raise NotImplementedError(
+            "the double-float Hs product of PSD cones is not ported "
+            "(ROADMAP.md Queue 1 item 12b)")
+    from ..kkt import compensated as dfc
+
+    hi = torch.zeros_like(x)
+    lo = torch.zeros_like(x)
+    xr, xr_lo = x, x_lo
+    if layout.n_nn:
+        sl = layout.slice_of(api.NONNEGATIVE)
+        w2 = state["nn_w"] ** 2
+        ph, pe = dfc._two_prod(w2, x[..., sl])
+        if x_lo is not None:
+            pe = pe + w2 * x_lo[..., sl]
+        hi[..., sl] = ph
+        lo[..., sl] = pe
+        # the NN slice zeroed, so the generic product below does not add it again
+        xr = x.clone()
+        xr[..., sl] = 0.0
+        if x_lo is not None:
+            xr_lo = x_lo.clone()
+            xr_lo[..., sl] = 0.0
+
+    if layout.num_soc or _has_nonsym(layout):
+        hi = hi + mul_hs(layout, state, xr)
+        if xr_lo is not None:
+            lo = lo + mul_hs(layout, state, xr_lo)
+    return hi, lo
+
+
 def affine_ds(layout: ConeLayout, state, s):
     """RHS ds for the affine step: λ∘λ for symmetric cones, s for
     nonsymmetric ones.  reference: per-cone ``affine_ds``."""

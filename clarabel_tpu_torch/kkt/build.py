@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
+_SIGNATURES = {"ldl.cu": {
     # K, sign, sign stride (0 or N), B, N, j0, shared-memory bytes, eps, delta, stream
     "ldl_unblocked_f64": (_P, _P, _I, _I, _I, _I, _I, ctypes.c_double, ctypes.c_double, _P),
     "ldl_unblocked_f32": (_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
@@ -40,7 +41,13 @@ _SIGNATURES = {
     "ldl_blocked_f64": (_P, _P, _P, _P, _I, _I, ctypes.c_double, ctypes.c_double, _P),
     "ldl_blocked_f32": (_P, _P, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P),
     "ldl_panel_width": (),
-}
+}, "df_lu.cu": {
+    # K_hi, K_lo (or null), s, Ah, Al, perm, ok, B, N, delta, smem capacity, stream
+    "df_lu_factor": (_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
+    # Ah, Al, perm, s, rhs, out, B, N, R, shared-memory bytes, stream
+    "df_lu_solve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "df_lu_smem_capacity": (),
+}}
 
 
 def _nvcc() -> str:
@@ -99,13 +106,22 @@ def built(source: str = "ldl.cu") -> bool:
     return _target(CSRC / source, NVCC_FLAGS)[0].exists()
 
 
+def build_all() -> dict:
+    """Compile every source of ``csrc/`` that ``library`` binds, one ``nvcc``
+    each, all started together; returns {source: (library, seconds, compiler
+    output)}."""
+    with ThreadPoolExecutor(len(_SIGNATURES)) as pool:
+        return dict(zip(_SIGNATURES, pool.map(build, _SIGNATURES)))
+
+
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The LDLᵀ kernel library, built at first use, with every entry
+def library(source: str = "ldl.cu") -> ctypes.CDLL:
+    """The kernel library of ``csrc/<source>`` (the LDLᵀ kernels, or
+    ``df_lu.cu``'s double-float LU), built at first use, with every entry
     point's argument and return types declared."""
-    path, _, _ = build("ldl.cu")
+    path, _, _ = build(source)
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in _SIGNATURES[source].items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

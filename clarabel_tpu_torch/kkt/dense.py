@@ -1,7 +1,7 @@
 """Dense KKT solvers: assembly, factorization, refined solves.
 
-PyTorch port of the f64 paths of ``clarabel_tpu/kkt/dense.py`` and of its
-Schur-complement engines at f64 and f32
+PyTorch port of the dense paths of ``clarabel_tpu/kkt/dense.py`` at f64 and
+f32, and of its Schur-complement engines
 (reference: src/solver/core/kktsolvers/direct/quasidef/directldlkktsolver.rs).
 The KKT matrix
 
@@ -18,8 +18,12 @@ plus one rank-1 term per second-order cone, into one Cholesky factor of the
 n×n Schur complement.  Iterative refinement against the unregularized K (a
 dense matrix or a matvec) recovers the accuracy -- the reference's scheme
 (static regularization: directldlkktsolver.rs:217-264; refinement:
-:266-321).  The refinement loop is a host loop that reads one scalar per
-sweep from the device.
+:266-321).  At f32 the "lu" route factors with the double-float LU
+(:func:`factor_df`, ``kkt/df_ldl.py``) up to ``DF_LU_MAX_DIM`` and with the
+Jacobi-equilibrated f32 LU (:func:`factor_jacobi`) above it, and a dense K
+refines with double-float residuals (``kkt/compensated.py``).  The
+refinement loop is a host loop that reads one scalar per sweep from the
+device.
 
 Every function takes the data with leading batch dimensions or without
 (K [..., N, N], right-hand sides [..., N]); ε, ``ok``, the capacitances and
@@ -32,9 +36,11 @@ whose matrix is not positive definite gets a NaN Cholesky factor, as
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from . import multifrontal, pallas_ldl
+from . import compensated, df_ldl, multifrontal, pallas_ldl
 from ..timers import host_read
 
 
@@ -91,6 +97,35 @@ def factor(K_reg):
     lu, piv, _ = torch.linalg.lu_factor_ex(K_reg)
     ok = torch.isfinite(lu).flatten(-2).all(dim=-1)
     return ("lu", (lu, piv)), ok
+
+
+#: the largest N the f32 "lu" route factors with the double-float LU
+#: (``kkt/df_ldl.py``); larger dense systems take :func:`factor_jacobi`, as
+#: in the JAX package.  Env-overridable (CT_DF_LU_MAX_DIM=0 disables it).
+DF_LU_MAX_DIM = int(os.environ.get("CT_DF_LU_MAX_DIM", "512"))
+
+
+def factor_df(K_reg, K_reg_lo=None):
+    """Double-float LU with partial pivoting (``kkt/df_ldl.py``): the f32
+    factorization whose application error ~eps_df keeps iterative
+    refinement contracting at cond(K) ~ 1e10, where every plain f32
+    factorization's refinement stalls."""
+    fac, ok = df_ldl.factor(K_reg, K_reg_lo)
+    return ("df_lu", fac), ok
+
+
+def factor_jacobi(K_reg, settings, n):
+    """f32 pivoted LU of the Jacobi-equilibrated regularized KKT D·K·D,
+    D = |diag K|^(-1/2).  Near convergence ‖K‖ grows like the largest NT
+    weight (~1/μ); once eps32·‖K‖ ≳ 1 refinement against the unscaled
+    factor diverges, and the scaling bounds the scaled norm at O(1).  The
+    reference needs no equivalent: f64 keeps eps·‖K‖ ≪ 1
+    (directldlkktsolver.rs:217-264)."""
+    del n, settings
+    diag = torch.abs(torch.diagonal(K_reg, dim1=-2, dim2=-1))
+    d = 1.0 / torch.sqrt(torch.maximum(diag, diag.new_tensor(1e-30)))
+    lu, piv, _ = torch.linalg.lu_factor_ex(K_reg * d.unsqueeze(-1) * d.unsqueeze(-2))
+    return ("lu_jacobi", (lu, piv, d)), _finite(lu)
 
 
 def _finite(M):
@@ -267,14 +302,23 @@ def prepare_schur_lowrank(P, A, h, U, settings, n_eq=0):
     return ("schur_lr", (hinv_apply, LS, LE, A_e, A_i, n, p)), matvec, ok
 
 
+def _lu_solve(lu, piv, rhs):
+    vec = rhs.dim() == lu.dim() - 1
+    b = rhs.unsqueeze(-1) if vec else rhs
+    x = torch.linalg.lu_solve(lu, piv, b)
+    return x.squeeze(-1) if vec else x
+
+
 def _raw_solve(factors, rhs):
     kind, data = factors
     if kind == "lu":
-        lu, piv = data
-        vec = rhs.dim() == lu.dim() - 1
-        b = rhs.unsqueeze(-1) if vec else rhs
-        x = torch.linalg.lu_solve(lu, piv, b)
-        return x.squeeze(-1) if vec else x
+        return _lu_solve(*data, rhs)
+    if kind == "lu_jacobi":
+        lu, piv, d = data
+        ds = d if rhs.dim() == lu.dim() - 1 else d.unsqueeze(-1)
+        return ds * _lu_solve(lu, piv, ds * rhs)
+    if kind == "df_lu":
+        return df_ldl.solve(data, rhs)
     if kind == "mf":
         from . import sparse as kkt_sparse
 
@@ -322,22 +366,28 @@ def _raw_solve(factors, rhs):
 def solve_refined(factors, K_true, rhs, settings, want_lo=False):
     """Solve K x = rhs with iterative refinement against the true
     (unregularized) KKT matrix ``K_true``: a dense matrix, or a matvec
-    callable (the structured Schur paths).
+    callable (the structured Schur paths and the sparse path).
 
-    Returns (x, ok), or ((x, None), ok) with ``want_lo`` — the JAX
-    package's double-float remainder, which is None on every path that is
-    not compensated (every path ported).  Each problem of a batch sweeps
-    until its own refinement stops; the host reads once per sweep whether
-    any problem still sweeps.  On the multifrontal factors (``"mf"``) a
-    problem's right-hand sides refine together, one norm over all of them,
-    as in the JAX package: one problem's [N] or [N, r], or, for a batch of
-    factors, each lane's [N, r] of ``rhs [B, N, r]``.
+    Returns (x, ok), or ((x, x_lo), ok) with ``want_lo``.  A dense f32 K
+    (N ≤ 4096) refines in mixed precision, as in the JAX package: the
+    residual is evaluated in double-float (``kkt/compensated.py``) and the
+    corrections are TwoSummed into a double-float solution (x, x_lo), so the
+    refinement floor is not the f32 representation of x; x_lo is None on
+    every other path.  Each problem of a batch sweeps until its own
+    refinement stops; the host reads once per sweep whether any problem
+    still sweeps.  A problem's right-hand sides refine together, one norm
+    over all of them, as in the JAX package: a dense K's [..., N, R], and on
+    the multifrontal factors (``"mf"``) one problem's [N] or [N, r] or, for
+    a batch of factors, each lane's [N, r] of ``rhs [B, N, r]``.
     reference: directldlkktsolver.rs:266-321 — bounded refinement loop
     with stall detection.
     """
+    solve_refined.calls += 1
     x0 = _raw_solve(factors, rhs)
-    if factors[0] == "mf" and multifrontal.batch_shape(factors[1][2]):
-        # a batch of problems: reduce over each lane's right-hand sides
+    dense = not callable(K_true)
+    if (factors[0] == "mf" and multifrontal.batch_shape(factors[1][2])) or (
+            dense and rhs.dim() == K_true.dim()):
+        # several right-hand sides per problem: reduce over each problem's
         amax = lambda v: torch.abs(v).flatten(-2).amax(dim=-1)
         all_ = lambda v: v.flatten(-2).all(dim=-1)
         per_problem = lambda mask: mask[..., None, None]
@@ -354,14 +404,10 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
     if not settings.iterative_refinement_enable:
         ok = all_(torch.isfinite(x0))
         return ((x0, None), ok) if want_lo else (x0, ok)
-    if callable(K_true):
+    if not dense:
         k_matvec = K_true
-    elif K_true.dtype == torch.float32:
-        # the JAX package refines a dense f32 K in double-float
-        raise NotImplementedError(
-            "the compensated f32 refinement of a dense KKT matrix is not ported "
-            "(ROADMAP.md Queue 1 item 12b)"
-        )
+    elif rhs.dim() == K_true.dim():
+        k_matvec = lambda v: K_true @ v
     else:
         k_matvec = lambda v: matvec(K_true, v)
 
@@ -369,22 +415,54 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
     abstol = settings.iterative_refinement_abstol
     maxiter = settings.iterative_refinement_max_iter
     stopratio = settings.iterative_refinement_stop_ratio
-    if factors[0] == "schur_lr":
-        # the Woodbury condensation leaves a larger one-pass error than a
-        # backward-stable pivoted LU, so it refines to the floor rather
-        # than the preset target
+    # f32 + dense K: the refinement residual in double-float.  A plain f32
+    # residual bounds the step's forward error at O(eps32·cond(K)) ~ 0.1
+    # near convergence (cond ~ 1/μ); the compensated one restores mixed
+    # precision refinement's forward convergence, so refinement runs to the
+    # arithmetic floor and the stall detector bounds the sweeps.
+    compensate = dense and K_true.dtype == torch.float32 and K_true.shape[-1] <= 4096
+    if factors[0] == "schur_lr" or compensate:
+        # (schur_lr: the Woodbury condensation leaves a larger one-pass
+        # error than a backward-stable pivoted LU, so it refines to the
+        # floor rather than the preset target)
         reltol = min(reltol, 1e-9)
         abstol = min(abstol, 1e-8)
+    if compensate:
+        # near μ → 0 the per-sweep contraction degrades toward 1; with the
+        # compensated residual each sweep is trustworthy, so keep refining
+        # while there is any monotone progress
+        stopratio = min(stopratio, 1.05)
+        maxiter = max(maxiter, 25)
+    if factors[0] == "df_lu":
+        # the double-float factor already applies with ~eps² error: one
+        # polish sweep reaches the floor, and each df solve is two N-step
+        # substitutions
+        maxiter = min(maxiter, 2)
 
     normb = amax(rhs)
     tol = abstol + reltol * normb
 
-    def error_norm(x):
-        e = rhs - k_matvec(x)
-        return e, amax(e)
+    if compensate:
+        def error_norm(x, x_lo):
+            # the residual against the double-float solution: x_lo's
+            # contribution is eps-scaled, a plain product of it suffices
+            e = compensated.residual(K_true, x, rhs) - k_matvec(x_lo)
+            return e, amax(e)
 
-    x = x0
-    e, norme = error_norm(x0)
+        def accumulate(x, x_lo, dx):
+            # TwoSum the correction into the double-float solution
+            s, err = compensated._two_sum(x, dx)
+            return s, x_lo + err
+    else:
+        def error_norm(x, x_lo):
+            e = rhs - k_matvec(x)
+            return e, amax(e)
+
+        def accumulate(x, x_lo, dx):
+            return x + dx, x_lo
+
+    x, x_lo = x0, torch.zeros_like(x0)
+    e, norme = error_norm(x, x_lo)
     ok = torch.isfinite(norme)
     done = torch.zeros_like(ok)
     k = 0
@@ -393,9 +471,10 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
     active = (~done) & ~(norme <= tol)
     # one device read per sweep: the loop condition
     while k < maxiter and host_read(active.any()):
+        solve_refined.sweeps += 1
         dx = _raw_solve(factors, e)
-        xnew = x + dx
-        enew, normenew = error_norm(xnew)
+        xnew, xnew_lo = accumulate(x, x_lo, dx)
+        enew, normenew = error_norm(xnew, xnew_lo)
         isfin = torch.isfinite(normenew)
 
         improved_ratio = norme / normenew
@@ -405,6 +484,8 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
         take_new = active & isfin & ((~stalled) | (improved_ratio > 1.0))
 
         x = torch.where(per_problem(take_new), xnew, x)
+        if compensate:
+            x_lo = torch.where(per_problem(take_new), xnew_lo, x_lo)
         e = torch.where(per_problem(take_new), enew, e)
         norme = torch.where(take_new, normenew, norme)
         done = torch.where(active, stalled | (~isfin), done)
@@ -412,4 +493,11 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
         active = (~done) & ~(norme <= tol)
         k += 1
     ok = ok & all_(torch.isfinite(x))
-    return ((x, None), ok) if want_lo else (x, ok)
+    if want_lo:
+        return (x, x_lo if compensate else None), ok
+    return x, ok
+
+
+#: refined solves, and refinement sweeps over them (host counters)
+solve_refined.calls = 0
+solve_refined.sweeps = 0

@@ -1,12 +1,14 @@
 """The interior-point iteration as a host loop over device tensors.
 
-PyTorch port of ``clarabel_tpu/loop.py`` at f64, and at f32 through the
-Schur-complement KKT paths ("schur_diag", "schur_lr"), with the dense KKT
-backends and the sparse multifrontal one (``sparse_kkt``): the reference
-predictor-corrector loop and its strategy-checkpoint state machine
+PyTorch port of ``clarabel_tpu/loop.py`` at f64 and f32 on the dense KKT
+backends, and at f64 on the sparse multifrontal one (``sparse_kkt``): the
+reference predictor-corrector loop and its strategy-checkpoint state machine
 (reference: src/solver/core/solver.rs:242-465, 525-666), the residual/info
 bookkeeping (implementations/default/residuals.rs, info.rs) and the
 homogeneous-embedding KKT reduction (implementations/default/kktsystem.rs).
+At f32 on a dense KKT matrix the refined solves carry a double-float lo
+stream, and the direction's recovery uses it (``kkt_solve_finish``), as in
+the JAX package; f32 "lu" factors with the double-float LU.
 
 The JAX package runs the loop as one ``lax.while_loop``.  Here the state is a
 ``SolverState`` of tensors on the problem's device, every data-dependent
@@ -48,7 +50,7 @@ import torch
 from .cones import nonsymmetric as _ns
 from .cones import ops as cone_ops
 from .cones.ops import _col
-from .kkt import dense as kkt_dense, multifrontal
+from .kkt import compensated as _dfc, dense as kkt_dense, multifrontal
 from .kkt.dense import dot as _dot, matvec as _mv
 from .statuses import SCALING_DUAL, SCALING_PRIMAL_DUAL, SolverStatus
 from .timers import host_read
@@ -401,39 +403,139 @@ def kkt_solve_rhs(layout, scaling_state, rhs, variables, is_combined):
     return torch.cat([rx, ds_const - rz], dim=-1), ds_const
 
 
+def _df_dot(u, v):
+    """uᵀv over the last dimension as a compensated (hi, lo) pair."""
+    p, e = _dfc._two_prod(u, v)
+    return _dfc._df_reduce_last(p, e)
+
+
+def _df_matvec(P, v):
+    """P v as a compensated (hi, lo) pair: elementwise products and a fixed
+    reduction tree over the last dimension, so a problem sums the same alone
+    and inside a batch, to ~eps²."""
+    p, e = _dfc._two_prod(P, v.unsqueeze(-2))
+    return _dfc._df_reduce_last(p, e)
+
+
+def _df_dot_mv(u, vh, vl):
+    h, l = _df_dot(u, vh)
+    return h, l + _dot(u, vl)
+
+
+def _df_acc(pairs, like):
+    """The sum of (hi, lo) pairs, TwoSummed, rounded once."""
+    th, tl = torch.zeros_like(like), torch.zeros_like(like)
+    for h, l in pairs:
+        th, e = _dfc._two_sum(th, h)
+        tl = tl + e + l
+    return th + tl
+
+
+def _dtau_terms_df(P, q, b, m, xi, x1, z1f, x2, z2, sol_lo, x2_lo, z2_lo, rtau, rkappa,
+                   tau, kappa):
+    """The Δτ numerator and denominator of :func:`kkt_solve_finish` in
+    double-float (the JAX package's loop.py:416-522, dense P).  Both are
+    cancellation-prone dot products of homogeneous solutions of size
+    ~1/σ_min(K); the lo streams of those solutions are part of the sum (the
+    JAX package measured a 1000 % Δτ error at cond(K) ~ 1e12 without them)."""
+    n = x1.shape[-1]
+    x1_lo, z1_lo = sol_lo[..., :n], sol_lo[..., n:]
+    qx1 = _df_dot(q, x1)
+    bz1 = _df_dot(b, z1f[..., :m])
+    xiPx1 = _df_dot_mv(xi, *_df_matvec(P, x1))
+    tau_num = _df_acc([
+        (rtau, torch.zeros_like(rtau)), (-rkappa / tau, 0.0), qx1, bz1,
+        (2.0 * xiPx1[0], 2.0 * xiPx1[1]),
+        (_dot(q, x1_lo), 0.0), (_dot(b, z1_lo[..., :m]), 0.0),
+        (2.0 * _dot(xi, _mv(P, x1_lo)), 0.0),
+    ], rtau)
+    xi_m_x2 = xi - x2
+    qx2 = _df_dot(q, x2)
+    bz2 = _df_dot(b, z2[..., :m])
+    t1 = _df_dot_mv(xi_m_x2, *_df_matvec(P, xi_m_x2))
+    t2 = _df_dot_mv(x2, *_df_matvec(P, x2))
+    den_pairs = [
+        (kappa / tau, 0.0), (-qx2[0], -qx2[1]), (-bz2[0], -bz2[1]), t1, (-t2[0], -t2[1]),
+    ]
+    if x2_lo is not None:
+        # first-order lo corrections of the quadratic forms
+        Px2_lo = _mv(P, x2_lo)
+        den_pairs += [
+            (-_dot(q, x2_lo), 0.0), (-_dot(b, z2_lo[..., :m]), 0.0),
+            (-2.0 * _dot(xi_m_x2, Px2_lo), 0.0), (-2.0 * _dot(x2, Px2_lo), 0.0),
+        ]
+    return tau_num, _df_acc(den_pairs, rtau)
+
+
 def kkt_solve_finish(
     layout, scaling_state, P, q, A, b, x2, z2, sol, ds_const, rhs, variables,
 ):
     """Recover the full direction from the reduced solve: Δτ closed form
-    with P-quadratic terms, then Δx/Δz/Δs/Δκ (kktsystem.rs:160-207)."""
+    with P-quadratic terms, then Δx/Δz/Δs/Δκ (kktsystem.rs:160-207).
+
+    ``sol``, ``x2`` and ``z2`` are (hi, lo) pairs; lo is None unless the
+    refinement was compensated (a dense f32 K).  Then, as in the JAX
+    package (its loop.py:389-598): on a dense P, Δτ's numerator and
+    denominator are summed in double-float; the recombinations x1 + Δτ·x2
+    and z1 + Δτ·z2, cancellations near convergence, are TwoProd/TwoSum'd
+    with their lo parts; and Δs = -(HₛΔz + c) carries HₛΔz as a double-float
+    pair through the cancellation with c.  Every reduction is over the last
+    dimension, so a problem in a batch computes what it does alone."""
     n = q.shape[-1]
     m = b.shape[-1]
     x, s, z, tau, kappa = variables
     rx, rs, rz, rtau, rkappa = rhs
+    sol, sol_lo = sol
+    (x2, x2_lo), (z2, z2_lo) = x2, z2
     x1, z1f = sol[..., :n], sol[..., n:]
 
     # Δτ (kktsystem.rs:168-190)
     xi = x / _col(tau)
-    tau_num = (
-        rtau - rkappa / tau + _dot(q, x1) + _dot(b, z1f[..., :m])
-        + 2.0 * _dot(xi, _mv(P, x1))
-    )
-    xi_m_x2 = xi - x2
-    tau_den = (
-        kappa / tau
-        - _dot(q, x2)
-        - _dot(b, z2[..., :m])
-        + _dot(xi_m_x2, _mv(P, xi_m_x2))
-        - _dot(x2, _mv(P, x2))
-    )
+    if sol_lo is not None and sol.dtype == torch.float32 and isinstance(P, torch.Tensor):
+        tau_num, tau_den = _dtau_terms_df(P, q, b, m, xi, x1, z1f, x2, z2, sol_lo, x2_lo,
+                                          z2_lo, rtau, rkappa, tau, kappa)
+    else:
+        tau_num = (
+            rtau - rkappa / tau + _dot(q, x1) + _dot(b, z1f[..., :m])
+            + 2.0 * _dot(xi, _mv(P, x1))
+        )
+        xi_m_x2 = xi - x2
+        tau_den = (
+            kappa / tau
+            - _dot(q, x2)
+            - _dot(b, z2[..., :m])
+            + _dot(xi_m_x2, _mv(P, xi_m_x2))
+            - _dot(x2, _mv(P, x2))
+        )
     dtau = tau_num / tau_den
 
-    dx = x1 + _col(dtau) * x2
-    dzf = z1f + _col(dtau) * z2
-    dz = dzf[..., :m]
-
-    # Δs = -(HₛΔz + c)  (kktsystem.rs:195-199)
-    ds = -(cone_ops.mul_hs(layout, scaling_state, dz) + ds_const)
+    if sol_lo is None:
+        dx = x1 + _col(dtau) * x2
+        dzf = z1f + _col(dtau) * z2
+        dz = dzf[..., :m]
+        # Δs = -(HₛΔz + c)  (kktsystem.rs:195-199)
+        ds = -(cone_ops.mul_hs(layout, scaling_state, dz) + ds_const)
+    else:
+        # the homogeneous solutions grow ~1/σ_min(K) while their
+        # combination is the O(step) direction: TwoProd/TwoSum recover the
+        # cancelled bits; dz keeps its lo stream for the Hₛ product, dx
+        # collapses to f32
+        ph, pe = _dfc._two_prod(_col(dtau), z2)
+        dzf, e2 = _dfc._two_sum(z1f, ph)
+        dz_lo = sol_lo[..., n:] + pe + e2
+        if z2_lo is not None:
+            dz_lo = dz_lo + _col(dtau) * z2_lo
+        pxh, pxe = _dfc._two_prod(_col(dtau), x2)
+        dx, ex = _dfc._two_sum(x1, pxh)
+        dx_lo = sol_lo[..., :n] + pxe + ex
+        if x2_lo is not None:
+            dx_lo = dx_lo + _col(dtau) * x2_lo
+        dx = dx + dx_lo
+        dz = dzf[..., :m]
+        # Δs through Hₛ, with HₛΔz + c TwoSummed before its one rounding
+        hs_hi, hs_lo = cone_ops.mul_hs_df(layout, scaling_state, dz, dz_lo[..., :m])
+        sh, se = _dfc._two_sum(hs_hi, ds_const)
+        ds = -(sh + (se + hs_lo))
 
     # Δκ (kktsystem.rs:202-203)
     dkappa = -(rkappa + kappa * dtau) / tau
@@ -453,7 +555,7 @@ def kkt_solve(
     stacked, ds_const = kkt_solve_rhs(
         layout, scaling_state, rhs, variables, is_combined
     )
-    (sol, _), ok = solve_kkt_refined(
+    sol, ok = solve_kkt_refined(
         factors, K_true, stacked, settings, want_lo=True, keep_ext=True
     )
     step = kkt_solve_finish(
@@ -561,6 +663,18 @@ def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state,
 
     Hs = cone_ops.hs_dense(layout, scaling_state, dtype, P.device, batch)
     K, K_reg = kkt_dense.assemble(P, A, Hs, settings)
+    if method == "lu" and dtype == torch.float32:
+        # f32 "lu" (and only that name; its aliases take the plain pivoted
+        # LU with the compensated refinement): the double-float LU, the only
+        # f32 dense factorization whose refinement still contracts at the
+        # cond(K) ~ 1/μ² reached at strict complementarity; above
+        # DF_LU_MAX_DIM the Jacobi-equilibrated LU (the JAX package's
+        # loop.py:764-781)
+        if K.shape[-1] <= kkt_dense.DF_LU_MAX_DIM:
+            factors, ok = kkt_dense.factor_df(K_reg, None)
+        else:
+            factors, ok = kkt_dense.factor_jacobi(K_reg, settings, n)
+        return factors, K, ok
     factors, ok = _make_factor_fn(layout, settings, dtype, n, use_pallas, method)(K_reg)
     return factors, K, ok
 
@@ -840,22 +954,24 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         rhs_aff, dsc_aff = kkt_solve_rhs(
             layout, scaling_state, affine_rhs, variables, is_combined=False,
         )
-        if sparse_kkt is not None:
+        if sparse_kkt is not None or factors[0] == "df_lu":
             # the constant-term and affine reduced solves are independent:
-            # they ride the levelized sweeps together as one 2-RHS solve
-            (joint, _), ok_c = solve_kkt_refined(
+            # they ride one 2-RHS solve, the multifrontal engine's levelized
+            # sweeps or the double-float LU's two N-step substitutions
+            (j_hi, j_lo), ok_c = solve_kkt_refined(
                 factors, K, torch.stack([rhs_const, rhs_aff], dim=-1), settings,
                 want_lo=True, keep_ext=True,
             )
-            sol_c, sol_a, ok_a = joint[..., 0], joint[..., 1], ok_c
+            col = lambda v, i: None if v is None else v[..., i]
+            sol_c, sol_a = (j_hi[..., 0], col(j_lo, 0)), (j_hi[..., 1], col(j_lo, 1))
+            ok_a = ok_c
         else:
-            (sol_c, _), ok_c = kkt_dense.solve_refined(
-                factors, K, rhs_const, settings, want_lo=True
-            )
-            (sol_a, _), ok_a = kkt_dense.solve_refined(
-                factors, K, rhs_aff, settings, want_lo=True
-            )
-        x2, z2 = sol_c[..., :n], sol_c[..., n:]
+            sol_c, ok_c = kkt_dense.solve_refined(factors, K, rhs_const, settings, want_lo=True)
+            sol_a, ok_a = kkt_dense.solve_refined(factors, K, rhs_aff, settings, want_lo=True)
+        # the constant-term solution with its lo stream, for every finish
+        c_hi, c_lo = sol_c
+        x2 = (c_hi[..., :n], None if c_lo is None else c_lo[..., :n])
+        z2 = (c_hi[..., n:], None if c_lo is None else c_lo[..., n:])
         aff = kkt_solve_finish(
             layout, scaling_state, P, q, A, b, x2, z2, sol_a, dsc_aff,
             affine_rhs, variables,

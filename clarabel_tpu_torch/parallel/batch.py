@@ -2,14 +2,14 @@
 
 PyTorch port of ``clarabel_tpu/parallel/batch.py`` on one device over
 zero, nonnegative, second-order, exponential, power, generalized power and
-PSD triangle cones: at f64, and at f32 where the KKT method is a structured
-Schur path ("auto" picks "schur_diag" or "schur_lr" on the zero,
-nonnegative and second-order cones).  B conic programs with the same cones
-and shapes but different numbers (scenarios, MPC horizons, portfolio
-draws) solve as one run of the IPM loop on tensors with a leading batch
-dimension: every factorization factors the B KKT matrices at once (batched
-pivoted LU or Cholesky, or one launch of the hand-written LDLᵀ kernel for
-all of them), and the host reads the device as often as for one problem.
+PSD triangle cones: at f64, and at f32 on every dense KKT method on layouts
+without PSD cones ("multifrontal" runs the pivoted LU here, as in the JAX
+package).  B conic programs with the same cones and shapes but different
+numbers (scenarios, MPC horizons, portfolio draws) solve as one run of the
+IPM loop on tensors with a leading batch dimension: every factorization
+factors the B KKT matrices at once (batched pivoted LU or Cholesky, or one
+launch of a hand-written kernel for all of them: the LDLᵀ or, at f32, the
+double-float LU), and the host reads the device as often as for one problem.
 Problems that have converged freeze while the others run on, as under the
 JAX package's ``jax.vmap``, so each problem's iterations and history equal
 its solve alone; the wall time is that of the slowest problem.
@@ -151,7 +151,7 @@ class BatchSolver:
         self.B, self.n, self.m = B, n, m
         self._p_is_zero = not np.any(P)
         use_pallas = self._device.type == "cuda"
-        check_ported_dtype(self._layout, self.settings, self._dtype, n, use_pallas)
+        check_ported_dtype(self._layout, self._dtype)
         dtype = getattr(torch, self._dtype)
 
         self._put = lambda v: torch.tensor(v, dtype=dtype, device=self._device)

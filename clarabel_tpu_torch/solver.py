@@ -20,9 +20,10 @@ Problems solve as
 The solve runs on a CUDA device unless the caller passes ``device="cpu"``;
 without a CUDA device and without that argument the constructor raises.
 f64 solves stay on the card, which runs f64 natively (the JAX package sends
-them to the host CPU instead).  ``dtype="float32"`` runs where the KKT
-method is a structured Schur path ("auto" picks one on the ported cones),
-never on the sparse path.
+them to the host CPU instead).  ``dtype="float32"`` runs on every dense KKT
+method, on layouts without PSD cones: the structured Schur paths, the
+LDLᵀ kernels and the pivoted LU with compensated refinement, and "lu"
+through the double-float LU; never on the sparse path.
 """
 
 from __future__ import annotations
@@ -43,13 +44,10 @@ from .cones import api
 from .cones.layout import ConeLayout
 from .infbound import get_infinity
 from .kkt.dense import _amax0
-from .loop import _demoted_kkt_method, _resolved_kkt_method, run_ipm
+from .loop import _resolved_kkt_method, run_ipm
 from .settings import DefaultSettings
 from .statuses import SolverStatus
 from .timers import Timers
-
-#: the methods that run at f32: the others need the compensated f32 stack
-_F32_METHODS = ("schur_diag", "schur_lr")
 
 
 @dataclasses.dataclass
@@ -487,19 +485,14 @@ def check_ported(dtype: Optional[str]) -> str:
     return dtype
 
 
-def check_ported_dtype(layout: ConeLayout, settings: DefaultSettings, dtype: str,
-                       n: int, use_pallas: bool) -> None:
-    """Raises for an f32 solve whose KKT method, resolved and demoted as
-    ``_kkt_prepare`` runs it, is not a structured Schur path: f32 through
-    "lu", "pallas", "schur" or an LU alias needs the compensated f32 stack."""
-    if dtype != "float32":
-        return
-    method = _demoted_kkt_method(layout, _resolved_kkt_method(
-        layout, settings, torch.float32, n, use_pallas))
-    if method not in _F32_METHODS:
+def check_ported_dtype(layout: ConeLayout, dtype: str) -> None:
+    """Raises for an f32 solve on a layout with PSD cones: their
+    double-float scaling is not ported.  Every dense KKT method runs at f32
+    on the other layouts (the sparse path raises in its own setup)."""
+    if dtype == "float32" and layout.num_psd:
         raise _not_ported(
-            f"dtype='float32' through the {method!r} KKT method (the compensated "
-            "f32 refinement and the double-float LU)", "12b")
+            "dtype='float32' with PSD cones (the double-float PSD scaling and "
+            "the f32 centering recovery)", "12b")
 
 
 class DefaultSolver:
@@ -510,8 +503,8 @@ class DefaultSolver:
     cliques (chordal decomposition): on the dense path at f64 through every
     ported KKT method (the structured Schur paths fall back to LU on the
     nonsymmetric and PSD cones, as in the JAX package), at f32 through
-    "schur_diag" and "schur_lr" on the zero, nonnegative and second-order
-    cones; on the sparse multifrontal path at f64.  Its data can be updated
+    every dense KKT method on every cone but PSD; on the sparse
+    multifrontal path at f64.  Its data can be updated
     between solves (unless presolve or the decomposition changed the
     problem), a solve warm-started and stopped by a callback.  The problem
     saves to and loads from the reference's JSON format, and the report of
@@ -754,8 +747,7 @@ class DefaultSolver:
         self._b = self._put(b)
 
         self._use_pallas = self._device.type == "cuda"
-        check_ported_dtype(self._layout, self.settings, self._dtype, self._n_int,
-                           self._use_pallas)
+        check_ported_dtype(self._layout, self._dtype)
 
         with self.timers.scope("kktinit"):
             self._solve_fn = self._build_solve_fn()

@@ -9,7 +9,9 @@ N = 96) once through each f64 KKT backend ("pallas" and "auto"), then the
 box-QP batch and the JAX bench's SOCP batch (n = 32, one
 SecondOrderConeT(33), B = 1024) at f32 through "auto" (the Schur paths
 "schur_diag" and "schur_lr"), chip_smoke.py's entropy maximization
-(n = 500, 500 exponential cones, N = 2540) and its PSD problems -- the
+(n = 500, 500 exponential cones, N = 2540), its B = 512 entropy batch
+(n = 40, N = 208) at f64 through "pallas" and at f32 through "auto" (the
+double-float LU kernels), and its PSD problems -- the
 max-cut SDP (one PSDTriangleConeT(100), N = 10200), the chordal max-cut
 (PSDTriangleConeT(124) of a sparse graph, decomposed into its cliques) and
 the bench's SDP batch at B = 2048 (N = 58) -- through "pallas" and "auto"
@@ -306,6 +308,10 @@ def main():
         # chip_smoke.py phase 3d's entropy maximization
         "entropy_n500": (chip_smoke.entropy_max(500, 20, 20, args.seed + 20),
                          tt.DefaultSolver, f64),
+        # chip_smoke.py phase 3d's entropy batch (N = 208): f64 through the
+        # unblocked LDLᵀ, f32 through "auto" -> "lu" -> the double-float LU
+        "entropy_batch_B512": (chip_smoke.entropy_batch(512, 40, 4, 4, args.seed + 23),
+                               tt.BatchSolver, [("pallas", "float64"), ("auto", "float32")]),
         # chip_smoke.py phase 3e's PSD problems
         "maxcut_n100": (chip_smoke.maxcut_primal(100, 248, args.seed + 30), tt.DefaultSolver, f64),
         # "auto": dense or the multifrontal engine, as the card's cost

@@ -136,20 +136,13 @@ def _f32(method):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    # f32 runs only through the structured Schur paths
-    (_f32("lu"), "item 12b"),
-    (_f32("pallas"), "item 12b"),
-    (_f32("schur"), "item 12b"),
     # the sparse multifrontal path runs at f64 only
     (_f32("multifrontal"), "item 12b"),
-    # BatchSolver: a batch of two copies of the same problem
-    (dict(batch=True, **_f32("lu")), "item 12b"),
-    # BatchSolver runs "multifrontal" as dense LU, as the JAX package's does
-    (dict(batch=True, **_f32("multifrontal")), "item 12b"),
     (dict(batch=True, mesh=object()), "item 16"),
-    # f32 on a nonsymmetric layout: "auto" resolves to "lu" there
-    (dict(batch=True, cones=[tt.ZeroConeT(1), tt.NonnegativeConeT(1),
-                             tt.GenPowerConeT([0.5, 0.5], 1)], **_f32("auto")), "item 12b"),
+    # f32 with a PSD cone, through "auto" and through a dense LU
+    (dict(cones=[tt.NonnegativeConeT(2), tt.PSDTriangleConeT(2)], **_f32("auto")), "item 12b"),
+    (dict(batch=True, cones=[tt.NonnegativeConeT(2), tt.PSDTriangleConeT(2)], **_f32("lu")),
+     "item 12b"),
 ])
 def test_unported_options_raise(kwargs, item):
     P, q, A, b, cones = _tiny_qp()
@@ -164,12 +157,49 @@ def test_unported_options_raise(kwargs, item):
             tt.DefaultSolver(P, q, A, b, cones, device="cpu", **kwargs)
 
 
+def _solved_like_f64(kwargs, make=None):
+    """Solve ``make()``'s problem (the tiny QP) with ``kwargs`` at f32 and
+    at f64 through "auto"; both Solved (every lane of a batch), the
+    objectives within 1e-3 relative (the f32 gate of chip_smoke.py phase
+    3c)."""
+    P, q, A, b, cones = (make or _tiny_qp)()
+    kwargs = dict(kwargs)
+    cones = kwargs.pop("cones", cones)
+    batch = kwargs.pop("batch", False)
+    f64 = dict(settings=tt.DefaultSettings(verbose=False))
+    if batch:
+        P, q, A, b = (np.stack([v, v]) for v in (P, q, A, b))
+        solve = lambda kw: tt.BatchSolver(P, q, A, b, cones, device="cpu", **kw).solve()
+        got, ref = solve(kwargs), solve(f64)
+        assert got.statuses() == ref.statuses() == [tt.SolverStatus.Solved] * 2
+    else:
+        solve = lambda kw: tt.DefaultSolver(P, q, A, b, cones, device="cpu", **kw).solve()
+        got, ref = solve(kwargs), solve(f64)
+        assert got.status == ref.status == tt.SolverStatus.Solved
+    assert np.all(np.abs(got.obj_val - ref.obj_val) <= 1e-3 * np.maximum(1.0, np.abs(ref.obj_val)))
+
+
+@pytest.mark.parametrize("kwargs", [
+    # f32 through every dense KKT method (these raised until the compensated
+    # f32 stack was ported)
+    _f32("lu"), _f32("pallas"), _f32("schur"),
+    # BatchSolver: a batch of two copies of the same problem; it runs
+    # "multifrontal" as dense LU, as the JAX package's does
+    dict(batch=True, **_f32("lu")), dict(batch=True, **_f32("multifrontal")),
+    # f32 on a nonsymmetric layout: "auto" resolves to "lu" there
+    dict(batch=True, cones=[tt.ZeroConeT(1), tt.NonnegativeConeT(1),
+                            tt.GenPowerConeT([0.5, 0.5], 1)], **_f32("auto")),
+])
+def test_f32_dense_options_solve(kwargs):
+    _solved_like_f64(kwargs)
+
+
 @pytest.mark.parametrize("entry, item", [
     # the sparse batch runs at f64 on one device
     ("SparseBatchSolver float32", "item 12b"),
     ("SparseBatchSolver mesh", "item 16"),
     # a problem file loads at f32 only where the solve would run at f32
-    ("load_from_file float32 lu", "item 12b"),
+    ("load_from_file float32 PSD", "item 12b"),
     # BatchSolver on one device
     ("BatchSolver mesh", "item 16"),
 ])
@@ -186,12 +216,27 @@ def test_unported_entry_points_raise(entry, item, tmp_path):
             tt.BatchSolver(*(np.stack([v, v]) for v in (P, q, A, b)), cones,
                            tt.DefaultSettings(verbose=False), device="cpu", mesh=object())
         return
-    s = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(
-        verbose=False, direct_solve_method="lu"), device="cpu")
+    s = tt.DefaultSolver(np.eye(2), np.ones(2), np.ones((3, 2)), np.ones(3),
+                         [tt.PSDTriangleConeT(2)], tt.DefaultSettings(verbose=False), device="cpu")
     s.save_to_file(tmp_path / "problem.json")
     with pytest.raises(NotImplementedError, match=item):
         tt.DefaultSolver.load_from_file(tmp_path / "problem.json", dtype="float32",
                                         device="cpu")
+
+
+def test_load_from_file_float32_lu_solves(tmp_path):
+    """A problem file loads at f32 and solves through "lu" (the double-float
+    LU; this raised until the compensated f32 stack was ported), within 1e-3
+    of the f64 solve of the same file."""
+    P, q, A, b, cones = _tiny_qp()
+    s = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(
+        verbose=False, direct_solve_method="lu"), device="cpu")
+    ref = s.solve()
+    s.save_to_file(tmp_path / "problem.json")
+    got = tt.DefaultSolver.load_from_file(tmp_path / "problem.json", dtype="float32",
+                                          device="cpu").solve()
+    assert got.status == ref.status == tt.SolverStatus.Solved
+    assert abs(got.obj_val - ref.obj_val) <= 1e-3 * max(1.0, abs(ref.obj_val))
 
 
 def test_batch_solver_defaults_to_cuda_and_has_no_time_limit(monkeypatch):
@@ -215,10 +260,10 @@ def test_sparse_batch_solver_defaults_to_cuda_and_has_no_time_limit(monkeypatch)
 
 
 @pytest.mark.parametrize("cone, kwargs, item", [
-    # the PSD, exponential and power cones run at f64 only
+    # the PSD cones run at f64 only, through every method
     (api.PSDTriangleConeT(2), _f32("auto"), "item 12b"),
-    (api.ExponentialConeT(), _f32("auto"), "item 12b"),
-    (api.PowerConeT(0.3), _f32("pallas"), "item 12b"),
+    (api.PSDTriangleConeT(2), _f32("lu"), "item 12b"),
+    (api.PSDTriangleConeT(2), _f32("pallas"), "item 12b"),
 ])
 def test_unported_cones_raise(cone, kwargs, item):
     m = cone.nvars
@@ -227,6 +272,27 @@ def test_unported_cones_raise(cone, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         tt.DefaultSolver(np.eye(2), np.ones(2), np.ones((m, 2)), np.ones(m), [cone],
                          settings, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("cone, kwargs", [
+    # the exponential and power cones at f32 (they raised until the
+    # compensated f32 stack was ported): "auto" resolves to the
+    # double-float LU, "pallas" runs the LDLᵀ's f32 twin
+    (api.ExponentialConeT(), _f32("auto")),
+    (api.PowerConeT(0.3), _f32("pallas")),
+])
+def test_f32_nonsymmetric_cones_solve(cone, kwargs):
+    """min ½|x|² - x₁ - x₂ with the cone active at the optimum and a
+    strictly feasible point (x = 0): s = (x₁, 1, 3 - x₂) in the
+    exponential cone (e^x₁ ≤ 3 - x₂), s = (1 - x₁, 1 - x₂, x₁ + x₂) in the
+    power cone.  (The raising case's A = 1, b = 1 keeps s on the cone's
+    boundary, a problem without an interior.)"""
+    if cone.kind == api.EXP:
+        A, b = np.array([[-1.0, 0.0], [0.0, 0.0], [0.0, 1.0]]), np.array([0.0, 1.0, 3.0])
+    else:
+        A, b = np.array([[1.0, 0.0], [0.0, 1.0], [-1.0, -1.0]]), np.array([1.0, 1.0, 0.0])
+    _solved_like_f64(dict(cones=[cone], **kwargs),
+                     lambda: (np.eye(2), -np.ones(2), A, b, [cone]))
 
 
 def test_sparse_auto_route_raises():

@@ -357,7 +357,7 @@ def test_buildinfo_reports_torch_and_never_jax():
     for key in ("version", "python", "system", "torch", "cuda", "ldl_library_built",
                 "native_symbolic"):
         assert key in info, key
-    assert info["version"] == tt.__version__ == "0.9.0"
+    assert info["version"] == tt.__version__ == "0.10.0"
     assert not any("jax" in key for key in info)
     assert isinstance(info["native_symbolic"], bool)
     with contextlib.redirect_stdout(io.StringIO()) as out:

@@ -213,23 +213,26 @@ def test_unblocked_plan_fits_shared_memory(N, itemsize, capacity):
 
 
 def test_ctypes_signatures_match_the_cuda_source():
-    """Every C entry point of csrc/ldl.cu is declared in build.py with one
-    ctypes type per parameter: a pointer left undeclared would be passed as
-    a 32-bit int and cut."""
+    """Every C entry point of csrc/ldl.cu (and of every other kernel source
+    build.py binds, csrc/df_lu.cu) is declared in build.py with one ctypes
+    type per parameter: a pointer left undeclared would be passed as a
+    32-bit int and cut."""
     import re
 
     from clarabel_tpu_torch.kkt import build
 
-    source = (build.CSRC / "ldl.cu").read_text()
-    extern_c = source[source.index('extern "C" {'):]
+    assert sorted(build._SIGNATURES) == sorted(p.name for p in build.CSRC.glob("*.cu"))
     ctype = {"double": ctypes.c_double, "float": ctypes.c_float, "int": ctypes.c_int}
-    found = {}
-    for name, params in re.findall(r"^int (\w+)\(([^)]*)\)", extern_c, flags=re.M):
-        types = []
-        for param in params.split(","):
-            param = " ".join(param.split())
-            if param in ("", "void"):
-                continue
-            types.append(ctypes.c_void_p if "*" in param else ctype[param.split()[-2]])
-        found[name] = tuple(types)
-    assert found == build._SIGNATURES
+    for name_cu, signatures in build._SIGNATURES.items():
+        source = (build.CSRC / name_cu).read_text()
+        extern_c = source[source.index('extern "C" {'):]
+        found = {}
+        for name, params in re.findall(r"^int (\w+)\(([^)]*)\)", extern_c, flags=re.M):
+            types = []
+            for param in params.split(","):
+                param = " ".join(param.split())
+                if param in ("", "void"):
+                    continue
+                types.append(ctypes.c_void_p if "*" in param else ctype[param.split()[-2]])
+            found[name] = tuple(types)
+        assert found == signatures, name_cu

@@ -183,13 +183,18 @@ def test_exp_primal_infeasible_ldl_end_game_is_rounding(monkeypatch):
 
 
 def test_f32_with_an_exponential_cone_raises():
-    """At f32, "auto" resolves to "lu" on a nonsymmetric layout, which
-    needs the compensated f32 stack (ROADMAP item 12b)."""
+    """At f32, "auto" resolves to "lu" on a nonsymmetric layout, which runs
+    the double-float LU with the compensated refinement (until that f32
+    stack was ported, this case raised, naming ROADMAP item 12b): Solved,
+    within 1e-3 of the f64 solve's objective (chip_smoke.py's f32 gate)."""
     P, q, A, b, cones = tp.PROBLEMS["exp_feasible"]()
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tt.DefaultSolver(P, q, A, b, tp.port_cones(cones),
-                         tt.DefaultSettings.for_float32(verbose=False),
-                         dtype="float32", device="cpu")
+    solve = lambda dtype, settings: tt.DefaultSolver(
+        P, q, A, b, tp.port_cones(cones), settings(verbose=False), dtype=dtype,
+        device="cpu").solve()
+    got = solve("float32", tt.DefaultSettings.for_float32)
+    ref = solve("float64", tt.DefaultSettings)
+    assert got.status == ref.status == tt.SolverStatus.Solved
+    assert abs(got.obj_val - ref.obj_val) <= 1e-3 * max(1.0, abs(ref.obj_val))
 
 
 @pytest.mark.parametrize("method", ["schur_diag", "schur_lr", "schur"])
