@@ -26,8 +26,14 @@ Phases:
      twins, factor, permutation, scaling and ok flag, the solve at R = 1
      and 2, at 1 x 1², 1 x 2², 1 x 512² (the DF_LU_MAX_DIM edge), 1 x 176²
      and 512 x 208² (phase 3i's solves), a zero pivot and tied candidates,
-     with a K_lo and without, timed against their twins and, as yardsticks
-     the port never calls, torch.linalg.lu_factor at f32 and f64;
+     with a K_lo and without, the factor's panel edges (1 x 7², 1 x 9²,
+     3 x 19²), the solve's row blocks (2 x 33²), a batch wider than the SMs
+     (133 x 40²) and four inputs whose twins spread NaN (the kernels' exact
+     branches: an inf, an entry past Dekker's split, right-hand sides past
+     it, a masked multiplier past f32's range), timed against their twins (the
+     previous design's recorded times in brackets), the bound and the
+     non-FMA floor and, as yardsticks the port never calls,
+     torch.linalg.lu_factor at f32 and f64;
   2. the main path at full width: a Markowitz long-only portfolio QP over
      n = 1000 assets with a k = 50 factor covariance (KKT N = 2001, f64),
      solved with direct_solve_method="pallas" and with "auto" (pivoted LU);
@@ -636,7 +642,16 @@ def df_matrices(B, N, kind, seed, device, with_lo=True):
     pivot is replaced (and every candidate ties at 0); ``"ties"``, the
     same with column 0 zero but for three candidates: K_00 = 1 and, with
     diagonals ±2 (so that the exact scaling treats them alike), +4 in row 2
-    and -4 in row N - 2, which tie as the largest (the first must win)."""
+    and -4 in row N - 2, which tie as the largest (the first must win);
+    ``"inf"``, an inf below the diagonal; ``"huge"``, 3e37 below the
+    diagonal, past Dekker's split (2^115) once scaled; ``"masked"``, column
+    0 zero below K_00 and row and column z = N // 3 zero but for K_0z = 1e18
+    (~1e33 once scaled): z's pivot becomes delta and row 0's masked
+    multiplier over it overflows.  These three make the twin spread NaN
+    through its masked updates, ``ok`` False, and the kernels take their
+    exact branches.  ``"huge rhs"`` is ``"random"``, whose right-hand sides
+    check_df_lu scales past the split: the solve's iterates overflow it on
+    a finite factor, and the solve takes its exact branch."""
     rng = np.random.default_rng(seed)
     n = max(N // 4, 1)
     m = N - n
@@ -653,16 +668,25 @@ def df_matrices(B, N, kind, seed, device, with_lo=True):
         K[:, :, 0] = 0.0
         K[:, 0, 0], K[:, 2, 2], K[:, N - 2, N - 2] = 1.0, 2.0, -2.0
         K[:, 2, 0], K[:, N - 2, 0] = 4.0, -4.0
+    elif kind == "inf":
+        K[:, N - 2, N // 2] = np.inf
+    elif kind == "huge":
+        K[:, N - 1, 1] = 3e37
+    elif kind == "masked":
+        z = N // 3
+        K[:, 1:, 0] = K[:, z, :] = K[:, :, z] = 0.0
+        K[:, 0, z] = 1e18
     K_hi = K.astype(np.float32)
-    K_lo = (K - K_hi.astype(np.float64)).astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        K_lo = np.nan_to_num((K - K_hi.astype(np.float64)).astype(np.float32), nan=0.0)
     as_t = lambda v: torch.as_tensor(v, device=device)
     return as_t(K_hi), as_t(K_lo) if with_lo else None
 
 
 def df_factor_work(B, N):
     """(operations, bytes) of one double-float LU of B N x N matrices, as the
-    kernel does them: per column the pivot search (an add and an abs per
-    candidate), about 30 operations per entry of the column (the
+    twin's order needs them: per column the pivot search (an add and an abs
+    per candidate), about 30 operations per entry of the column (the
     double-float division) and 28 per entry of the trailing block (TwoProd,
     the cross terms, two TwoSums); K_hi and K_lo read once, the (hi, lo)
     factor, the permutation and the flag written once."""
@@ -673,12 +697,26 @@ def df_factor_work(B, N):
 
 
 def df_solve_work(B, N, R):
-    """(operations, bytes) of one double-float solve of R right-hand sides:
-    each of the 2N steps updates all N rows of every right-hand side, with
-    the twin's masks (about 40 operations forward, 44 backward, per entry);
-    the factor pair, perm, s and the right-hand sides read once, the
-    solutions written once."""
-    return B * N * N * R * 84, B * (N * N * 8 + N * 12 + 8 * N * R)
+    """(operations, bytes) of one double-float solve of R right-hand sides,
+    the triangles' work whatever computes it: N(N - 1) updates per
+    right-hand side over both sweeps (a double-float product and
+    difference, 41 operations), N divisions (36) and 3 operations per entry
+    in and out; the factor pair, perm, s and the right-hand sides read once,
+    the solutions written once."""
+    ops = B * R * (41 * N * (N - 1) + 36 * N + 3 * N)
+    return ops, B * (N * N * 8 + N * 12 + 8 * N * R)
+
+
+def nonfma_floor_ms(ops, B, sm_hz):
+    """(card, one SM) floors of an error-free double-float kernel, whose
+    adds and multiplies are separate operations (an FMA breaks TwoProd and
+    bitwise equality with the twin): ``ops`` over every SM's 128 FP32 lanes
+    at the card's maximum SM clock (33.5 T operations/s on the H100 SXM),
+    and the ⌈B / SMs⌉ matrices of the busiest SM over its own lanes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = -(-B // sms) * (ops / max(B, 1))
+    lanes = SM_LANES[torch.float32] * sm_hz
+    return ops / (sms * lanes) * 1e3, per_sm / lanes * 1e3
 
 
 def work_bound_ms(ops, nbytes):
@@ -699,12 +737,23 @@ def same_bits(a, b):
     return torch.equal(a, b)
 
 
-def check_df_lu(B, N, kind, seed, device, with_lo=True, reps=10, time_it=True):
+#: the times the double-float LU kernels' previous design (one block walking
+#: the columns, the trailing block in device memory) took in this phase on an
+#: H100 80GB HBM3 at 700 W, as recorded in PERF.md, not measured here: shown
+#: in brackets in this phase's log only.  (B, N, K_lo) -> (factor ms, solve
+#: ms R = 1, R = 2)
+DF_PREVIOUS_MS = {(1, 512, True): (14.135, 1.110, 1.342), (1, 176, True): (1.087, 0.190, 0.202),
+              (1, 176, False): (1.188, 0.190, 0.202), (512, 208, False): (34.589, 0.503, 0.661)}
+#: kinds whose twin factors spread NaN through the masked updates (ok False)
+DF_NONFINITE = ("inf", "huge", "masked")
+
+
+def check_df_lu(B, N, kind, seed, device, sm_hz, with_lo=True, reps=10, time_it=True):
     """``df_lu_factor`` and ``df_lu_solve`` against their plain twins on the
     card, bit for bit: the factor's (hi, lo) pair, permutation, scaling and
-    ok flag, and the solve at R = 1 (a vector) and R = 2.  Timed against
-    the twins and, as yardsticks the port never calls,
-    torch.linalg.lu_factor of the same K at f32 and f64."""
+    ok flag, and the solve at R = 1 (a vector) and R = 2, NaN positions
+    included.  Timed against the twins, the bound at the FP32 peak and the non-FMA floors, and, as yardsticks the
+    port never calls, torch.linalg.lu_factor of the same K at f32 and f64."""
     from clarabel_tpu_torch.kkt import df_ldl
 
     K_hi, K_lo = df_matrices(B, N, kind, seed, device, with_lo)
@@ -718,9 +767,10 @@ def check_df_lu(B, N, kind, seed, device, with_lo=True, reps=10, time_it=True):
             f"{label}: factor {name} not bitwise equal to its twin, max|Δ| "
             f"{float((got.double() - want.double()).abs().max()):.3e}")
     assert torch.equal(ok, ok_ref), f"{label}: ok differs from its twin"
-    assert bool(ok.all()), f"{label}: non-finite factor"
+    assert bool(ok.all()) == (kind not in DF_NONFINITE), f"{label}: ok {ok.tolist()}"
     rng = np.random.default_rng(seed + 1)
-    rhs = {R: torch.as_tensor(rng.normal(size=(B, N) if R == 1 else (B, N, R)),
+    scale = 1e36 if kind == "huge rhs" else 1.0
+    rhs = {R: torch.as_tensor(scale * rng.normal(size=(B, N) if R == 1 else (B, N, R)),
                               dtype=torch.float32, device=device) for R in (1, 2)}
     for R, b in rhs.items():
         x = df_ldl.solve(fac, b)
@@ -728,7 +778,7 @@ def check_df_lu(B, N, kind, seed, device, with_lo=True, reps=10, time_it=True):
         torch.cuda.synchronize()
         assert same_bits(x, x_ref), f"{label}: solve R={R} not bitwise equal to its twin"
         finite = bool(torch.isfinite(x).all())
-        assert finite == (kind != "zero pivot"), f"{label}: solve R={R} finite={finite}"
+        assert finite == (kind in ("random", "ties")), f"{label}: solve R={R} finite={finite}"
     if kind == "ties":
         assert bool((fac[2][:, 0] == 2).all()), f"{label}: the first tied candidate lost"
     if B == 1:
@@ -746,8 +796,10 @@ def check_df_lu(B, N, kind, seed, device, with_lo=True, reps=10, time_it=True):
     else:
         fwd = None
     df_ldl.factor.launches, df_ldl.solve.launches = before
+    nonfinite = int((~torch.isfinite(fac[0])).sum())
     row = dict(B=B, N=N, kind=kind, K_lo=with_lo, bitwise=True, max_abs_err=0.0,
-               forward_error=fwd, pivots=fac[2][0, : min(N, 4)].tolist())
+               forward_error=fwd, pivots=fac[2][0, : min(N, 4)].tolist(),
+               ok=ok.tolist()[:4], nonfinite_factor_entries=nonfinite)
     if time_it:
         row["factor_ms"] = cuda_ms(lambda: df_ldl.factor(K_hi, K_lo), reps)
         row["factor_plain_ms"] = cuda_ms(lambda: df_ldl.factor_plain(K_hi, K_lo), 1)
@@ -757,20 +809,31 @@ def check_df_lu(B, N, kind, seed, device, with_lo=True, reps=10, time_it=True):
         row["lu_factor_f32_ms"] = cuda_ms(lambda: torch.linalg.lu_factor_ex(K_hi), reps)
         Kd = K_hi.double()
         row["lu_factor_f64_ms"] = cuda_ms(lambda: torch.linalg.lu_factor_ex(Kd), reps)
-        row["factor_bound_ms"], row["factor_bound_by"] = work_bound_ms(*df_factor_work(B, N))
-        row["solve_bound_ms"], row["solve_bound_by"] = {}, {}
+        ops, nbytes = df_factor_work(B, N)
+        row["factor_bound_ms"], row["factor_bound_by"] = work_bound_ms(ops, nbytes)
+        row["factor_nonfma_floor_ms"], row["factor_one_sm_nonfma_floor_ms"] = nonfma_floor_ms(
+            ops, B, sm_hz)
+        row["solve_bound_ms"], row["solve_bound_by"], row["solve_nonfma_floor_ms"] = {}, {}, {}
         for R in rhs:
-            row["solve_bound_ms"][R], row["solve_bound_by"][R] = work_bound_ms(
-                *df_solve_work(B, N, R))
+            ops, nbytes = df_solve_work(B, N, R)
+            row["solve_bound_ms"][R], row["solve_bound_by"][R] = work_bound_ms(ops, nbytes)
+            row["solve_nonfma_floor_ms"][R] = nonfma_floor_ms(ops, B, sm_hz)[0]
         df_ldl.factor.launches, df_ldl.solve.launches = before
-    log(f"  {label}: bitwise equal (factor, ok, solve R=1 and 2), pivots "
+    previous = DF_PREVIOUS_MS.get((B, N, with_lo)) if time_it else None
+    log(f"  {label}: bitwise equal (factor, ok {row['ok']}, solve R=1 and 2), pivots "
         f"{row['pivots']}" + (f", forward error {fwd:.2e}" if fwd is not None else "")
-        + (f"; factor {row['factor_ms']:.3f} ms (plain {row['factor_plain_ms']:.1f}, bound "
-           f"{row['factor_bound_ms']:.4f} {row['factor_bound_by']}), solve R=1/2 "
-           f"{row['solve_ms'][1]:.3f}/{row['solve_ms'][2]:.3f} ms (plain "
-           f"{row['solve_plain_ms'][1]:.1f}/{row['solve_plain_ms'][2]:.1f}, bound "
-           f"{row['solve_bound_ms'][1]:.4f}/{row['solve_bound_ms'][2]:.4f}), lu_factor f32 "
-           f"{row['lu_factor_f32_ms']:.3f} ms, f64 {row['lu_factor_f64_ms']:.3f} ms"
+        + (f", {nonfinite} non-finite factor entries" if nonfinite else "")
+        + (f"; factor {row['factor_ms']:.3f} ms"
+           + (f" [previous design, recorded: {previous[0]:.3f}]" if previous else "")
+           + f" (plain {row['factor_plain_ms']:.1f}, bound {row['factor_bound_ms']:.4f} "
+           f"{row['factor_bound_by']}, non-FMA floor {row['factor_nonfma_floor_ms']:.4f}, one SM "
+           f"{row['factor_one_sm_nonfma_floor_ms']:.4f}), solve R=1/2 "
+           f"{row['solve_ms'][1]:.3f}/{row['solve_ms'][2]:.3f} ms"
+           + (f" [recorded: {previous[1]:.3f}/{previous[2]:.3f}]" if previous else "")
+           + f" (plain {row['solve_plain_ms'][1]:.1f}/{row['solve_plain_ms'][2]:.1f}, bound "
+           f"{row['solve_bound_ms'][1]:.4f}/{row['solve_bound_ms'][2]:.4f}, non-FMA floor "
+           f"{row['solve_nonfma_floor_ms'][1]:.4f}/{row['solve_nonfma_floor_ms'][2]:.4f}), "
+           f"lu_factor f32 {row['lu_factor_f32_ms']:.3f} ms, f64 {row['lu_factor_f64_ms']:.3f} ms"
            if time_it else ""))
     return row
 
@@ -778,7 +841,12 @@ def check_df_lu(B, N, kind, seed, device, with_lo=True, reps=10, time_it=True):
 #: the double-float LU's phase 1 shapes: (B, N, kind, with K_lo, timed).
 #: 1 x 1² and 1 x 2², the DF_LU_MAX_DIM edge 1 x 512², the shapes of phase
 #: 3i's solves (the geometric means' 1 x 176², the entropy batch's
-#: 512 x 208²), a zero pivot and tied candidates, with K_lo and without
+#: 512 x 208²), a zero pivot and tied candidates, with K_lo and without;
+#: the factor's panel edges at its panel width 8 (1 x 7², 1 x 9², 3 x 19²),
+#: the solve's 32-row blocks (2 x 33²), a batch wider than the SM count
+#: (133 x 40²), and four inputs whose twins spread NaN (an inf entry; an
+#: entry past Dekker's split; right-hand sides past it; a masked multiplier
+#: past f32's range)
 DF_SHAPES = (
     (1, 1, "random", True, False), (1, 2, "random", True, False),
     (1, 2, "random", False, False), (1, 512, "random", True, True),
@@ -786,11 +854,16 @@ DF_SHAPES = (
     (512, 208, "random", False, True), (512, 208, "random", True, False),
     (2, 16, "zero pivot", True, False), (2, 16, "zero pivot", False, False),
     (3, 24, "ties", True, False), (3, 24, "ties", False, False),
+    (1, 7, "random", True, False), (1, 9, "random", False, False),
+    (3, 19, "random", True, False), (2, 33, "random", False, False),
+    (133, 40, "random", True, False), (2, 35, "inf", True, False),
+    (2, 37, "huge", True, False), (2, 36, "huge rhs", True, False),
+    (2, 40, "masked", False, False),
 )
 
 
-def df_phase1(seed, device):
-    return [check_df_lu(B, N, kind, seed + B + N, device, with_lo, time_it=timed,
+def df_phase1(seed, device, sm_hz):
+    return [check_df_lu(B, N, kind, seed + B + N, device, sm_hz, with_lo, time_it=timed,
                         reps=3 if B > 1 else 10)
             for B, N, kind, with_lo, timed in DF_SHAPES]
 
@@ -2462,32 +2535,38 @@ def f32_solve(label, problem, method, f64_obj, route, batch=False):
     return row
 
 
+#: phase 3i's f32 problems (also scripts/f32_df_parity.py's): label, the
+#: problem from the seed, method, KKT route (as f32_solve reads it), batch
+F32_PROBLEMS = (
+    ("portfolio QP n=1000", lambda s: portfolio_qp(1000, 50, s), "pallas", "blocked", False),
+    ("portfolio SOCP n=500", lambda s: portfolio_socp(500, 50, s + 1), "pallas", "blocked",
+     False),
+    ("small QP n=100", lambda s: portfolio_qp(100, 10, s + 2), "pallas", "unrolled", False),
+    ("box QP B=2048", lambda s: BATCHES["box QP B=2048"][0](s), "pallas", "unrolled", True),
+    ("geometric means k=16", lambda s: geomean_allocation(16, 4, 16, s + 22), "auto", "df",
+     False),
+    ("entropy B=512", lambda s: entropy_batch(512, 40, 4, 4, s + 23), "auto", "df", True),
+    ("entropy n=500", lambda s: entropy_max(500, 20, 20, s + 20), "auto", "jacobi", False),
+    ("p-norm p=1.5 300x100", lambda s: pnorm_regression(300, 100, 1.5, s + 21), "auto",
+     "jacobi", False),
+    ("portfolio QP n=1000", lambda s: portfolio_qp(1000, 50, s), "schur", "plain", False),
+    ("portfolio QP n=1000", lambda s: portfolio_qp(1000, 50, s), "qdldl", "plain", False),
+)
+
+
 def f32_dense_phase(seed, report, f64_objectives):
     """Phase 3i: dense f32 solves on the card with the f32 preset, each
     against the same problem's f64 solve of an earlier phase."""
-    small = report["small_qp"]["obj"]
-    rows = {}
-    qp = portfolio_qp(1000, 50, seed)
-    for label, problem, method, f64, route, batch in (
-            ("portfolio QP n=1000", qp, "pallas", report["qp"]["obj_lu"], "blocked", False),
-            ("portfolio SOCP n=500", portfolio_socp(500, 50, seed + 1), "pallas",
-             report["socp"]["obj_lu"], "blocked", False),
-            ("small QP n=100", portfolio_qp(100, 10, seed + 2), "pallas", small, "unrolled",
-             False),
-            ("box QP B=2048", BATCHES["box QP B=2048"][0](seed), "pallas",
-             f64_objectives["box QP B=2048"], "unrolled", True),
-            ("geometric means k=16", geomean_allocation(16, 4, 16, seed + 22), "auto",
-             report["nonsym"]["genpow"]["obj_lu"], "df", False),
-            ("entropy B=512", entropy_batch(512, 40, 4, 4, seed + 23), "auto",
-             np.asarray(report["nonsym"]["batch"]["obj_lu_lanes"]), "df", True),
-            ("entropy n=500", entropy_max(500, 20, 20, seed + 20), "auto",
-             report["nonsym"]["entropy"]["obj_lu"], "jacobi", False),
-            ("p-norm p=1.5 300x100", pnorm_regression(300, 100, 1.5, seed + 21), "auto",
-             report["nonsym"]["pnorm"]["obj_lu"], "jacobi", False),
-            ("portfolio QP n=1000", qp, "schur", report["qp"]["obj_lu"], "plain", False),
-            ("portfolio QP n=1000", qp, "qdldl", report["qp"]["obj_lu"], "plain", False)):
-        rows[f"{label} {method}"] = f32_solve(label, problem, method, f64, route, batch)
-    return rows
+    f64 = {"portfolio QP n=1000": report["qp"]["obj_lu"],
+           "portfolio SOCP n=500": report["socp"]["obj_lu"],
+           "small QP n=100": report["small_qp"]["obj"],
+           "box QP B=2048": f64_objectives["box QP B=2048"],
+           "geometric means k=16": report["nonsym"]["genpow"]["obj_lu"],
+           "entropy B=512": np.asarray(report["nonsym"]["batch"]["obj_lu_lanes"]),
+           "entropy n=500": report["nonsym"]["entropy"]["obj_lu"],
+           "p-norm p=1.5 300x100": report["nonsym"]["pnorm"]["obj_lu"]}
+    return {f"{label} {method}": f32_solve(label, make(seed), method, f64[label], route, batch)
+            for label, make, method, route, batch in F32_PROBLEMS}
 
 
 def main(argv=None) -> int:
@@ -2615,7 +2694,7 @@ def run(args) -> int:
                   for B, N in FRONT_SHAPES]
         report["front_blocks_vs_plain"] = fronts
         # the double-float LU's factor and solve kernels, bit for bit
-        df_rows = df_phase1(args.seed, device)
+        df_rows = df_phase1(args.seed, device, sm_hz)
         report["df_lu_vs_plain"] = df_rows
 
         # ---- phases 2-3: the main path, launches counted from zero
@@ -2850,19 +2929,20 @@ def run(args) -> int:
         counts = f32[label]["counts"]
         row = next(r for r in df_rows if r["B"] == B and r["N"] == N and not r["K_lo"]
                    and "factor_ms" in r)
-        for name, count, replaces, ms, plain, bound, by in (
+        for name, count, replaces, ms, plain, bound, by, floor in (
                 ("df_lu_factor", counts["df_factor"], "clarabel_tpu/kkt/df_ldl.py:93",
                  row["factor_ms"], row["factor_plain_ms"], row["factor_bound_ms"],
-                 row["factor_bound_by"]),
+                 row["factor_bound_by"], row["factor_nonfma_floor_ms"]),
                 ("df_lu_solve", counts["df_solve"], "clarabel_tpu/kkt/df_ldl.py:179",
                  row["solve_ms"][1], row["solve_plain_ms"][1], row["solve_bound_ms"][1],
-                 row["solve_bound_by"][1])):
+                 row["solve_bound_by"][1], row["solve_nonfma_floor_ms"][1])):
             assert count > 0, f"{name} never launched by phase 3i's {label}"
             kernels.append(dict(
                 name=name, route="cuda", source=DF_SOURCE, replaces=replaces, launches=count,
                 max_abs_err=row["max_abs_err"], ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by=by, library_ms=None, shape=[B, N, N], dtype="float32",
                 path=f"dense f32, phase 3i {label}", tpu_kernel=False,
+                nonfma_floor_ms=floor,
                 yardstick_lu_factor_f32_ms=row["lu_factor_f32_ms"],
                 yardstick_lu_factor_f64_ms=row["lu_factor_f64_ms"],
                 **({"ms_R2": row["solve_ms"][2], "bound_ms_R2": row["solve_bound_ms"][2]}

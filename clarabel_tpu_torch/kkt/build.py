@@ -42,12 +42,16 @@ _SIGNATURES = {"ldl.cu": {
     "ldl_blocked_f32": (_P, _P, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P),
     "ldl_panel_width": (),
 }, "df_lu.cu": {
-    # K_hi, K_lo (or null), s, Ah, Al, perm, ok, B, N, delta, smem capacity, stream
-    "df_lu_factor": (_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
-    # Ah, Al, perm, s, rhs, out, B, N, R, shared-memory bytes, stream
-    "df_lu_solve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # K_hi, K_lo (or null), s, Ah, Al, perm, ok, B, N, delta, threads,
+    # shared-memory bytes, stream
+    "df_lu_factor": (_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
+    # Ah, Al, perm, s, rhs, out, B, N, R, rc, shared-memory bytes, stream
+    "df_lu_solve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "df_lu_smem_capacity": (),
 }}
+#: the entry points only a build with -DDF_LU_PROFILE has, never the one
+#: :func:`library` loads (the factor's cycle counters: scripts/df_lu_phases.py)
+PROFILE_SIGNATURES = {"df_lu.cu": {"df_lu_profile_read": (_P,)}}
 
 
 def _nvcc() -> str:

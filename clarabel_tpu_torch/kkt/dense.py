@@ -99,10 +99,20 @@ def factor(K_reg):
     return ("lu", (lu, piv)), ok
 
 
+def _df_lu_max_dim():
+    n = int(os.environ.get("CT_DF_LU_MAX_DIM", "512"))
+    if n > df_ldl.MAX_DIM:
+        raise ValueError(f"CT_DF_LU_MAX_DIM={n} exceeds {df_ldl.MAX_DIM}, the largest order "
+                         "the double-float LU kernels take")
+    return n
+
+
 #: the largest N the f32 "lu" route factors with the double-float LU
 #: (``kkt/df_ldl.py``); larger dense systems take :func:`factor_jacobi`, as
-#: in the JAX package.  Env-overridable (CT_DF_LU_MAX_DIM=0 disables it).
-DF_LU_MAX_DIM = int(os.environ.get("CT_DF_LU_MAX_DIM", "512"))
+#: in the JAX package.  Env-overridable (CT_DF_LU_MAX_DIM=0 disables it) up
+#: to the kernels' ceiling ``df_ldl.MAX_DIM`` = 512, which the JAX package
+#: does not have: a larger value raises on import.
+DF_LU_MAX_DIM = _df_lu_max_dim()
 
 
 def factor_df(K_reg, K_reg_lo=None):

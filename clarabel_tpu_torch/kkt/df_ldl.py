@@ -23,10 +23,21 @@ operation, each in its own PyTorch operation, so nothing is contracted into
 an FMA; they are the CPU path and the twins the kernels are held to.  On a
 CUDA tensor :func:`factor` and :func:`solve` launch the hand-written kernels
 of ``csrc/df_lu.cu`` (``factor.launches`` and ``solve.launches`` count
-them) or raise; nothing falls back.  In eager PyTorch the plain factor is
-about 30 launches per column and the plain solve about 40 per column, which
-is why the card runs kernels.  The JAX package computes this outside Pallas,
-so it replaces no TPU kernel.
+them) or raise; nothing falls back.  The factor kernel is a panel-blocked
+right-looking LU, one block per matrix: each panel of ``nb`` columns is
+factored in shared memory, its swaps are applied late, and every trailing
+entry takes the panel's ``nb`` updates in registers between one read and
+one write.  The solve kernel gives each matrix a block, a warp per 32 rows,
+and runs the row-oriented substitution blocked by 32.  Both are bitwise
+equal to the twins: each entry sees the twin's operations in the twin's
+order, and where the twin's masked updates would spread a non-finite value
+the kernels recompute the matrix along the twin's own schedule.  Their
+floor on the H100 is the non-FMA issue rate (33.5 T operations/s;
+error-free arithmetic cannot fuse), 1.29 ms for the factor at 512 x 208².
+:func:`factor_launch` and :func:`solve_launch` choose the launch
+parameters; both kernels take N up to :data:`MAX_DIM` = 512, the ceiling of
+``kkt.dense.DF_LU_MAX_DIM``.  The JAX package computes this outside Pallas, so it replaces
+no TPU kernel.
 """
 
 from __future__ import annotations
@@ -213,6 +224,63 @@ def _smem_capacity() -> int:
     return capacity
 
 
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+#: the largest N the kernels take: the solve's block has a warp per 32 rows
+#: and at most 16 warps (``kkt.dense.DF_LU_MAX_DIM`` may not exceed it)
+MAX_DIM = 512
+#: the factor kernel's panel width (``NB`` in ``csrc/df_lu.cu``)
+FACTOR_NB = 8
+
+
+def factor_smem_bytes(N):
+    """Dynamic shared memory of the factor kernel (``factor_smem_bytes`` in
+    ``csrc/df_lu.cu``): the panel's N x FACTOR_NB pairs at an odd row
+    stride, its U rows over the trailing columns, the permutation and the
+    panel's row sources."""
+    nb = FACTOR_NB
+    return (2 * N * (nb + 1) + 2 * nb * max(N - nb, 1) + 2 * N) * 4
+
+
+def factor_launch(B, N, smem_capacity, sm_count):
+    """(threads per block, shared-memory bytes) of ``df_lu_factor`` for B
+    matrices of order N: 512 threads while each SM holds at most one matrix,
+    fewer as more matrices share an SM, so that a batch of up to four per SM
+    runs in one wave.  Raises rather than degrading for N above
+    :data:`MAX_DIM` (the ceiling of ``DF_LU_MAX_DIM``) or a panel that does
+    not fit the card."""
+    if N > MAX_DIM:
+        raise ValueError(f"df_lu_factor takes N <= {MAX_DIM} (the ceiling of DF_LU_MAX_DIM), "
+                         f"got {N}")
+    per_sm = -(-B // sm_count)
+    threads = 512 if per_sm <= 1 else 256 if per_sm <= 2 else 128
+    nbytes = factor_smem_bytes(N)
+    if nbytes > smem_capacity:
+        raise ValueError(f"df_lu_factor at N={N} needs {nbytes} bytes of shared memory, the "
+                         f"card has {smem_capacity}")
+    return threads, nbytes
+
+
+def solve_launch(N, R, smem_capacity):
+    """(right-hand sides per pass, shared-memory bytes) of ``df_lu_solve``:
+    one block per matrix with a warp per 32-row block (N <= MAX_DIM), a
+    32 x 16 half tile per warp and two more, a 32 x 32 tile for the diagonal
+    block, and the [N, rc] iterate with its split hi parts
+    (``solve_smem_bytes`` in ``csrc/df_lu.cu``).  Raises for N > MAX_DIM or
+    a block that does not fit."""
+    if N > MAX_DIM:
+        raise ValueError(f"df_lu_solve takes N <= {MAX_DIM} (a warp per 32 rows), got {N}")
+    rc = 1 if R == 1 else 2
+    nbytes = ((-(-N // 32) + 2) * 2 * 32 * 17 + 2 * 32 * 33 + 4 * N * rc) * 4
+    if nbytes > smem_capacity:
+        raise ValueError(f"df_lu_solve at N={N} needs {nbytes} bytes of shared memory, the "
+                         f"card has {smem_capacity}")
+    return rc, nbytes
+
+
 def _check(name, t, dims):
     if t.dtype != torch.float32:
         raise TypeError(f"the double-float LU takes float32, got {name} of {t.dtype}")
@@ -220,13 +288,13 @@ def _check(name, t, dims):
         raise ValueError(f"{name} needs at least {dims} dimensions, got {tuple(t.shape)}")
 
 
-def _launch_factor(K_hi, K_lo, delta):
-    from . import build
-
-    lib = build.library("df_lu.cu")
+def _launch_factor(lib, K_hi, K_lo, delta):
+    """``df_lu_factor`` of ``lib`` (the built ``csrc/df_lu.cu``) with
+    factor_launch's parameters."""
     batch, N = K_hi.shape[:-2], K_hi.shape[-1]
     Kh = K_hi.reshape(-1, N, N).contiguous()
     B = Kh.shape[0]
+    threads, nbytes = factor_launch(B, N, _smem_capacity(), _sm_count(Kh.device))
     Kl = None if K_lo is None else K_lo.reshape(-1, N, N).contiguous()
     s = _pow2_jacobi(Kh).contiguous()
     Ah, Al = torch.empty_like(Kh), torch.empty_like(Kh)
@@ -237,7 +305,7 @@ def _launch_factor(K_hi, K_lo, delta):
             err = lib.df_lu_factor(
                 Kh.data_ptr(), None if Kl is None else Kl.data_ptr(), s.data_ptr(),
                 Ah.data_ptr(), Al.data_ptr(), perm.data_ptr(), ok.data_ptr(), B, N,
-                float(delta), _smem_capacity(), torch.cuda.current_stream().cuda_stream)
+                float(delta), threads, nbytes, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"df_lu_factor launch failed: CUDA error {err}")
         factor.launches += 1
@@ -257,7 +325,9 @@ def factor(K_hi, K_lo=None, delta=1e-6):
         return factor_plain(K_hi, K_lo, delta)
     if K_hi.device.type != "cuda":
         raise RuntimeError(f"no double-float LU kernel for device {K_hi.device}")
-    return _launch_factor(K_hi, K_lo, delta)
+    from . import build
+
+    return _launch_factor(build.library("df_lu.cu"), K_hi, K_lo, delta)
 
 
 factor.launches = 0
@@ -276,7 +346,6 @@ def solve(factors, rhs):
         raise RuntimeError(f"no double-float LU kernel for device {Ah.device}")
     from . import build
 
-    lib = build.library("df_lu.cu")
     N = Ah.shape[-1]
     vec = rhs.dim() == Ah.dim() - 1
     b = rhs.unsqueeze(-1) if vec else rhs
@@ -285,19 +354,18 @@ def solve(factors, rhs):
     if shape != Ah.shape[:-2]:
         raise ValueError(f"rhs of shape {tuple(rhs.shape)} does not fit factors of "
                          f"{tuple(Ah.shape)}")
-    nbytes = 2 * N * R * 4
-    if nbytes > _smem_capacity():
-        raise ValueError(f"df_lu_solve keeps 2·N·R floats in shared memory: N={N}, R={R} "
-                         f"need {nbytes} bytes, the card has {_smem_capacity()}")
     b = b.expand(*shape, N, R).reshape(-1, N, R).contiguous()
     B = b.shape[0]
+    rc, nbytes = solve_launch(N, R, _smem_capacity())
+    lib = build.library("df_lu.cu")
     out = torch.empty_like(b)
     if B:
         with torch.cuda.device(Ah.device):
             err = lib.df_lu_solve(
                 Ah.contiguous().data_ptr(), Al.contiguous().data_ptr(),
                 perm.contiguous().data_ptr(), s.contiguous().data_ptr(), b.data_ptr(),
-                out.data_ptr(), B, N, R, nbytes, torch.cuda.current_stream().cuda_stream)
+                out.data_ptr(), B, N, R, rc, nbytes,
+                torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"df_lu_solve launch failed: CUDA error {err}")
         solve.launches += 1

@@ -35,6 +35,7 @@ from clarabel_tpu.kkt import dense as jdense
 from clarabel_tpu.kkt import df_ldl as jdf
 from clarabel_tpu_torch.kkt import dense as tdense
 from clarabel_tpu_torch.kkt import df_ldl as tdf
+from clarabel_tpu_torch.kkt.compensated import _two_prod, _two_sum
 from test_df_lu import _quasidef
 
 ULP4 = 4 * 2.0**-23
@@ -211,3 +212,288 @@ def test_f32_lu_routes_match_reference(route, monkeypatch):
     if route == "jacobi":
         # the JAX package traces its loop once; the port calls it per iteration
         assert traced and len(calls) == f32d.port(("expcone", route)).solution.iterations
+
+
+# -----------------------------------------------------------------
+# CPU models of the kernels' schedules (csrc/df_lu.cu), bitwise against
+# the twins: the same elementwise operations, reordered as the kernels
+# order them, with the kernels' test for the twin's masked effects
+# -----------------------------------------------------------------
+
+SPLIT_SAFE = 2.0**115  # below this, Dekker's split of a value cannot overflow
+
+
+def _update(a, al, lh, ll, rh, rl):
+    """One step of the twin's trailing update of the pairs (a, al) by the
+    multiplier (lh, ll) and the U entry (rh, rl)."""
+    uh, ue = _two_prod(lh, rh)
+    cross = lh * rl + ll * rh
+    sh, e1 = _two_sum(a, -uh)
+    return _two_sum(sh, al + (e1 - ue - cross))
+
+
+def _finite(*ts):
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+def _scaled(K_hi, K_lo):
+    s = tdf._pow2_jacobi(K_hi)
+    lo = torch.zeros_like(K_hi) if K_lo is None else K_lo
+    return s, K_hi * s[:, None] * s[None, :], lo * s[:, None] * s[None, :]
+
+
+def _pivot(dh, dl, delta):
+    if dh == 0.0:
+        return torch.tensor(delta, dtype=torch.float32), torch.tensor(0.0)
+    return dh, dl
+
+
+def _factor_exact_model(K_hi, K_lo, delta):
+    """The factor kernel's exact branch: the twin's masked schedule, column j
+    left out of the update and then given its multipliers."""
+    N = K_hi.shape[-1]
+    s, Ah, Al = _scaled(K_hi, K_lo)
+    perm, idx = torch.arange(N), torch.arange(N)
+    for j in range(N):
+        p = j + int(torch.argmax(torch.abs(Ah[j:, j] + Al[j:, j])))
+        Ah[[j, p]], Al[[j, p]], perm[[j, p]] = Ah[[p, j]], Al[[p, j]], perm[[p, j]]
+        dh, dl = _pivot(Ah[j, j], Al[j, j], delta)
+        lh, ll = tdf._df_div(Ah[:, j], Al[:, j], dh, dl)
+        below = (idx > j).float()
+        mh, ml = lh * below, ll * below
+        h, l = _update(Ah, Al, mh[:, None], ml[:, None], Ah[j] * below, Al[j] * below)
+        rest = idx != j
+        Ah, Al = torch.where(rest, h, Ah), torch.where(rest, l, Al)
+        Ah[j + 1:, j], Al[j + 1:, j] = mh[j + 1:], ml[j + 1:]
+    return (Ah, Al, perm, s), _finite(Ah, Al)
+
+
+def _factor_model(K_hi, K_lo, nb, delta=1e-6):
+    """The factor kernel's schedule for one matrix: panels of nb columns
+    factored alone (with the masked multipliers of rows <= j computed for
+    their finiteness), the panel's swaps applied late to the other columns,
+    its U rows finished by a triangular sweep, and the trailing block given
+    the panel's nb updates in step order; the exact branch when an entry
+    ends non-finite or a masked multiplier is."""
+    N = K_hi.shape[-1]
+    s, Ah, Al = _scaled(K_hi, K_lo)
+    perm = torch.arange(N)
+    fin = tamed = True
+    for j0 in range(0, N, nb):
+        w = min(nb, N - j0)
+        c0 = j0 + w
+        Ph, Pl = Ah[:, j0:c0].clone(), Al[:, j0:c0].clone()
+        piv = []
+        for c in range(w):
+            j = j0 + c
+            p = j + int(torch.argmax(torch.abs(Ph[j:, c] + Pl[j:, c])))
+            piv.append(p)
+            Ph[[j, p]], Pl[[j, p]], perm[[j, p]] = Ph[[p, j]], Pl[[p, j]], perm[[p, j]]
+            if j == 1:  # step 0 renormalized row 0, step 1 renormalizes (0, 0)
+                Ph[0], Pl[0] = _two_sum(Ph[0], Pl[0])
+            dh, dl = _pivot(Ph[j, c], Pl[j, c], delta)
+            lh, ll = tdf._df_div(Ph[:, c], Pl[:, c], dh, dl)
+            tamed = tamed and _finite(lh[:j + 1], ll[:j + 1])
+            Ph[j + 1:, c], Pl[j + 1:, c] = lh[j + 1:], ll[j + 1:]
+            Ph[j + 1:, c + 1:], Pl[j + 1:, c + 1:] = _update(
+                Ph[j + 1:, c + 1:], Pl[j + 1:, c + 1:], lh[j + 1:, None], ll[j + 1:, None],
+                Ph[j, c + 1:], Pl[j, c + 1:])
+        Ah[j0:, j0:c0], Al[j0:, j0:c0] = Ph[j0:], Pl[j0:]
+        fin = fin and _finite(Ph[j0:], Pl[j0:])
+        rest = torch.tensor([k for k in range(N) if not j0 <= k < c0], dtype=torch.long)
+        for c, p in enumerate(piv):
+            for M in (Ah, Al):
+                sub = M[:, rest]
+                sub[[j0 + c, p]] = sub[[p, j0 + c]]
+                M[:, rest] = sub
+        U, Ul = Ah[j0:c0, c0:].clone(), Al[j0:c0, c0:].clone()
+        for r in range(1, w):
+            for t in range(r):
+                U[r], Ul[r] = _update(U[r], Ul[r], Ph[j0 + r, t], Pl[j0 + r, t], U[t], Ul[t])
+        Ah[j0:c0, c0:], Al[j0:c0, c0:] = U, Ul
+        if j0 == 0:
+            Ah[0, c0:], Al[0, c0:] = _two_sum(U[0], Ul[0])
+        fin = fin and _finite(Ah[j0:c0, c0:], Al[j0:c0, c0:])
+        T, Tl = Ah[c0:, c0:], Al[c0:, c0:]
+        for t in range(w):
+            T, Tl = _update(T, Tl, Ph[c0:, t, None], Pl[c0:, t, None], U[t], Ul[t])
+        Ah[c0:, c0:], Al[c0:, c0:] = T, Tl
+    if fin and tamed:
+        return (Ah, Al, perm, s), True
+    return _factor_exact_model(K_hi, K_lo, delta)
+
+
+def _tame(h, l):
+    return bool((torch.abs(h) < SPLIT_SAFE).all()) and _finite(l)
+
+
+def _solve_model(factors, rhs, bs=8):
+    """The solve kernel's schedule for one matrix, rhs [N, R]: row blocks of
+    bs, each row taking the triangle's updates in the twin's column order
+    (off-diagonal blocks first, then the diagonal block); the twin's own
+    schedule when a factor entry, an iterate or an output is non-finite or
+    an iterate too large to split."""
+    Ah, Al, perm, s = factors
+    N = Ah.shape[-1]
+    fin = _finite(Ah, Al)
+    yh, yl = rhs[perm] * s[perm][:, None], torch.zeros_like(rhs)
+    blocks = [(i0, min(N, i0 + bs)) for i0 in range(0, N, bs)]
+    for i0, i1 in blocks:
+        xh, xl = yh[i0:i1].clone(), yl[i0:i1].clone()
+        for j in range(i0):
+            uh, ul = tdf._df_mul(Ah[i0:i1, j, None], Al[i0:i1, j, None], yh[j], yl[j])
+            xh, xl = tdf._df_sub(xh, xl, uh, ul)
+        for jj in range(i1 - i0):
+            j = i0 + jj
+            uh, ul = tdf._df_mul(Ah[j + 1:i1, j, None], Al[j + 1:i1, j, None], xh[jj], xl[jj])
+            xh[jj + 1:], xl[jj + 1:] = tdf._df_sub(xh[jj + 1:], xl[jj + 1:], uh, ul)
+        yh[i0:i1], yl[i0:i1] = xh, xl
+        fin = fin and _tame(xh, xl)
+    out = torch.empty_like(rhs)
+    for i0, i1 in reversed(blocks):
+        xh, xl = yh[i0:i1].clone(), yl[i0:i1].clone()
+        for j in range(N - 1, i1 - 1, -1):
+            ph, pl = tdf._df_mul(Ah[i0:i1, j, None], Al[i0:i1, j, None], yh[j], yl[j])
+            xh, xl = tdf._df_sub(xh, xl, ph, pl)
+        for jj in range(i1 - i0 - 1, -1, -1):
+            j = i0 + jj
+            xh[jj], xl[jj] = tdf._df_div(xh[jj], xl[jj], Ah[j, j], Al[j, j])
+            ph, pl = tdf._df_mul(Ah[i0:j, j, None], Al[i0:j, j, None], xh[jj], xl[jj])
+            xh[:jj], xl[:jj] = tdf._df_sub(xh[:jj], xl[:jj], ph, pl)
+        yh[i0:i1], yl[i0:i1] = xh, xl
+        out[i0:i1] = (xh + xl) * s[i0:i1, None]
+        fin = fin and _tame(xh, xl) and _finite(out[i0:i1])
+    # the exact branch repeats the twin's masked schedule operation for
+    # operation (PR-13 form): the twin itself stands for it here
+    return out if fin else tdf.solve_plain(factors, rhs)
+
+
+def _model_matrix(N, kind, seed=3):
+    """K [N, N] (f64): test_df_lu.py's quasidefinite matrix, or one of its
+    edges: a zero row and column (``zero pivot``), tied candidates
+    (``ties``), an inf or a value past Dekker's split range in the lower
+    triangle (``inf``, ``huge``), a masked multiplier past f32's range
+    (``masked``)."""
+    n = max(N // 4, 1)
+    K = _quasidef(n, N - n, 3.0, seed=seed + N)
+    if kind == "zero pivot":
+        K[N // 3, :] = K[:, N // 3] = 0.0
+    elif kind == "ties":
+        K[:, 0] = 0.0
+        K[0, 0], K[2, 2], K[N - 2, N - 2] = 1.0, 2.0, -2.0
+        K[2, 0], K[N - 2, 0] = 4.0, -4.0
+    elif kind == "inf":
+        K[N - 2, N // 2] = np.inf
+    elif kind == "huge":
+        K[N - 1, 1] = 3e37
+    elif kind == "masked":
+        # column 0 zero below K_00 and row and column z zero: z's pivot
+        # becomes delta, and row 0's U entry over it (~1e33 once scaled by
+        # the zero diagonal's 2^50) gives a masked multiplier past f32's range
+        z = N // 3
+        K[1:, 0] = K[z, :] = K[:, z] = 0.0
+        K[0, z] = 1e18
+    return K
+
+
+def _model_cases():
+    cases = []
+    for nb in (8, 16):
+        for N in (1, 2, nb - 1, nb, nb + 1, 2 * nb + 3):
+            cases += [(nb, N, "random", "split"), (nb, N, "random", None)]
+        N = 2 * nb + 3
+        cases += [(nb, N, "zero pivot", "split"), (nb, N, "zero pivot", None),
+                  (nb, N, "ties", None), (nb, N, "inf", "split"), (nb, N, "huge", None),
+                  (nb, N, "masked", None), (nb, N, "random", "loose")]
+    return sorted(set(cases), key=str)
+
+
+def _model_inputs(N, kind, lo):
+    """K_hi, K_lo (None, the exact split of K, or a ``loose`` lo part up to
+    64 ulps of hi, whose pairs are not normalized)."""
+    K = _model_matrix(N, kind)
+    with np.errstate(invalid="ignore"):
+        hi, split_lo = _split(K)
+    if lo is None:
+        return torch.as_tensor(hi), None
+    if lo == "loose":
+        rng = np.random.default_rng(N)
+        split_lo = (np.spacing(hi) * rng.integers(-64, 65, size=hi.shape)).astype(np.float32)
+    return torch.as_tensor(hi), torch.as_tensor(np.nan_to_num(split_lo, nan=0.0))
+
+
+def _assert_same_bits(got, want, what):
+    assert torch.equal(torch.isnan(got), torch.isnan(want)), f"{what}: NaN positions differ"
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)), f"{what} differs"
+
+
+@pytest.mark.parametrize("nb, N, kind, lo", _model_cases())
+def test_factor_schedule_model_matches_twin(nb, N, kind, lo):
+    """The factor kernel's panel-blocked schedule gives factor_plain's Ah, Al,
+    perm, s and ok bit for bit (NaN positions included) at the panel edges
+    N = 1, 2, nb - 1, nb, nb + 1, 2·nb + 3, with and without K_lo, with a
+    loose K_lo, a zero pivot, ties, an inf, a value past the split and a
+    masked multiplier past f32's range.  The kernel's panel width is 8;
+    nb = 16 shows that the reordering does not hang on the width."""
+    K_hi, K_lo = _model_inputs(N, kind, lo)
+    (Ah, Al, perm, s), ok = _factor_model(K_hi, K_lo, nb)
+    (rAh, rAl, rperm, rs), rok = tdf.factor_plain(K_hi, K_lo)
+    for name, got, want in (("Ah", Ah, rAh), ("Al", Al, rAl), ("s", s, rs)):
+        _assert_same_bits(got, want, name)
+    assert torch.equal(perm, rperm)
+    assert ok == bool(rok)
+    assert ok == (kind not in ("inf", "huge", "masked"))
+
+
+@pytest.mark.parametrize("nb, N, kind, lo", _model_cases())
+def test_solve_schedule_model_matches_twin(nb, N, kind, lo):
+    """The solve kernel's row-oriented blocked schedule gives solve_plain's
+    result bit for bit, NaN positions included, at R = 1 and 2 on the same
+    factors (a zero pivot or a non-finite factor takes the exact branch)."""
+    K_hi, K_lo = _model_inputs(N, kind, lo)
+    fac, _ = tdf.factor_plain(K_hi, K_lo)
+    rhs = torch.as_tensor(np.random.default_rng(N).normal(size=(N, 2)), dtype=torch.float32)
+    for b in (rhs[:, :1], rhs):
+        _assert_same_bits(_solve_model(fac, b), tdf.solve_plain(fac, b), f"solve R={b.shape[1]}")
+
+
+def test_launch_parameters():
+    """factor_launch and solve_launch choose the kernels' shapes from (B, N,
+    R) and the card's shared memory, and raise rather than degrade; nothing
+    is launched.  (H100: 232,448 bytes per block, 132 SMs.)"""
+    cap, sms = 232448, 132
+    assert tdf.factor_launch(1, 176, cap, sms) == (512, tdf.factor_smem_bytes(176))
+    assert tdf.factor_smem_bytes(176) == (2 * 176 * 9 + 2 * 8 * 168 + 2 * 176) * 4
+    assert tdf.factor_launch(264, 208, cap, sms)[0] == 256
+    threads, nbytes = tdf.factor_launch(512, 208, cap, sms)
+    # four blocks of the entropy batch share an SM (228 KB, 1 KB reserved each)
+    assert threads == 128 and 4 * (nbytes + 1024 + 512) <= 233472
+    assert tdense.DF_LU_MAX_DIM <= tdf.MAX_DIM == 512
+    assert tdf.factor_launch(1, tdense.DF_LU_MAX_DIM, cap, sms)[1] <= cap
+    with pytest.raises(ValueError, match="DF_LU_MAX_DIM"):
+        tdf.factor_launch(1, tdense.DF_LU_MAX_DIM + 1, cap, sms)
+    with pytest.raises(ValueError, match="shared memory"):
+        tdf.factor_launch(1, 512, 50_000, sms)
+    assert tdf.solve_launch(176, 1, cap) == (1, (8 * 2 * 32 * 17 + 2 * 32 * 33 + 4 * 176) * 4)
+    rc, nbytes = tdf.solve_launch(208, 2, cap)
+    # four blocks of the entropy batch's solve share an SM: one wave of 512
+    assert rc == 2 and 4 * (nbytes + 1024) <= 233472
+    assert tdf.solve_launch(512, 3, cap)[0] == 2
+    with pytest.raises(ValueError, match="N <= 512"):
+        tdf.solve_launch(513, 1, cap)
+    with pytest.raises(ValueError, match="shared memory"):
+        tdf.solve_launch(512, 2, 50_000)
+
+
+@pytest.mark.parametrize("value, accepted", [("256", True), ("1024", False)])
+def test_df_lu_max_dim_ceiling(value, accepted, monkeypatch):
+    """CT_DF_LU_MAX_DIM may lower the double-float LU's order, not raise it
+    past the kernels' ceiling (df_ldl.MAX_DIM): the value kkt/dense.py reads
+    on import (DF_LU_MAX_DIM = _df_lu_max_dim()) raises for a larger one,
+    before any solve, rather than partway through one."""
+    monkeypatch.setenv("CT_DF_LU_MAX_DIM", value)
+    if accepted:
+        assert tdense._df_lu_max_dim() == int(value)
+    else:
+        with pytest.raises(ValueError, match="CT_DF_LU_MAX_DIM=1024 exceeds 512"):
+            tdense._df_lu_max_dim()

@@ -25,7 +25,8 @@ from clarabel_tpu_torch.kkt import pallas_ldl
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "clarabel_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_solve.py",
-    ROOT / "scripts" / "ab_unblocked_kernel.py"]
+    ROOT / "scripts" / "ab_unblocked_kernel.py", ROOT / "scripts" / "f32_df_parity.py",
+    ROOT / "scripts" / "df_lu_phases.py"]
 
 
 def _tiny_qp():

@@ -216,18 +216,19 @@ def test_ctypes_signatures_match_the_cuda_source():
     """Every C entry point of csrc/ldl.cu (and of every other kernel source
     build.py binds, csrc/df_lu.cu) is declared in build.py with one ctypes
     type per parameter: a pointer left undeclared would be passed as a
-    32-bit int and cut."""
+    32-bit int and cut.  Those only a -DDF_LU_PROFILE build has are
+    declared apart (build.PROFILE_SIGNATURES), never in the library the
+    wrappers load."""
     import re
 
     from clarabel_tpu_torch.kkt import build
 
     assert sorted(build._SIGNATURES) == sorted(p.name for p in build.CSRC.glob("*.cu"))
     ctype = {"double": ctypes.c_double, "float": ctypes.c_float, "int": ctypes.c_int}
-    for name_cu, signatures in build._SIGNATURES.items():
-        source = (build.CSRC / name_cu).read_text()
-        extern_c = source[source.index('extern "C" {'):]
+
+    def entry_points(text):
         found = {}
-        for name, params in re.findall(r"^int (\w+)\(([^)]*)\)", extern_c, flags=re.M):
+        for name, params in re.findall(r"^int (\w+)\(([^)]*)\)", text, flags=re.M):
             types = []
             for param in params.split(","):
                 param = " ".join(param.split())
@@ -235,4 +236,12 @@ def test_ctypes_signatures_match_the_cuda_source():
                     continue
                 types.append(ctypes.c_void_p if "*" in param else ctype[param.split()[-2]])
             found[name] = tuple(types)
-        assert found == signatures, name_cu
+        return found
+
+    profiled = re.compile(r"^#ifdef DF_LU_PROFILE\n(.*?)^#endif", flags=re.M | re.S)
+    for name_cu, signatures in build._SIGNATURES.items():
+        source = (build.CSRC / name_cu).read_text()
+        extern_c = source[source.index('extern "C" {'):]
+        assert entry_points(profiled.sub("", extern_c)) == signatures, name_cu
+        assert (entry_points("".join(profiled.findall(extern_c)))
+                == build.PROFILE_SIGNATURES.get(name_cu, {})), name_cu
