@@ -11,7 +11,8 @@ Phases:
      and f32, at the shapes the solvers give it (the batch phase's
      512 and 2048 x 96², 1024 x 129², 64 x 201² and 4 x 2001², phase 3e's
      1 x 10200², the chordal max-cut's 1 x N² and 64 and 2048 x 58² among
-     them), with the solve's backward error, the kernel's and the plain
+     them; phase 3j's f32 64 and 2048 x 58² and chordal 1 x N²), with the
+     solve's backward error, the kernel's and the plain
      version's times and, as yardsticks the port never calls,
      torch.linalg.ldl_factor (pivoted, so another function; not at
      N = 10200) and torch.linalg.lu_factor; the unblocked kernel (K2/K3) bit for bit equal to its twin, also at the
@@ -25,7 +26,8 @@ Phases:
      LU's kernels (df_lu_factor, df_lu_solve) bit for bit against their
      twins, factor, permutation, scaling and ok flag, the solve at R = 1
      and 2, at 1 x 1², 1 x 2², 1 x 512² (the DF_LU_MAX_DIM edge), 1 x 176²
-     and 512 x 208² (phase 3i's solves), a zero pivot and tied candidates,
+     and 512 x 208² (phase 3i's solves), 64 and 2048 x 58² with K_lo
+     (phase 3j's), a zero pivot and tied candidates,
      with a K_lo and without, the factor's panel edges (1 x 7², 1 x 9²,
      3 x 19²), the solve's row blocks (2 x 33²), a batch wider than the SMs
      (133 x 40²) and four inputs whose twins spread NaN (the kernels' exact
@@ -165,8 +167,29 @@ Phases:
      the compensated refinement); each printing ms per iteration, refinement
      sweeps per refined solve, reads per iteration and, for batches,
      solves/s;
-  4. the launch counts of phases 2-3, 3b, 3d, 3e, 3f, 3g, 3h and 3i and one
-     JSON line per kernel and shape.
+  3j. f32 on PSD layouts (the double-float PSD scaling: eigh-floored NT
+     factors, double-float svec conversions, skron blocks and congruences,
+     K_lo through the refinement, the centering recovery): phase 3e's SDP
+     batch at B = 64 and 2048 (N = 58) through "auto" (the double-float LU
+     with K_lo, once per iteration; solved twice, bit for bit equal) and
+     "pallas" (K2 at f32), the Solved lanes' objectives within 1e-3 of
+     phase 3e's f64 lanes and x within 1e-3 of the generator's x* at
+     B = 64 (at B = 2048 within the distance each lane's f32 stopping point
+     admits, √(2·gap/λ_min(P)): the f32 tolerances leave a few lanes 1-2e-3
+     from x*, in the JAX package too);
+     "auto" at B = 64 every lane Solved, as in the JAX package; the lanes
+     short of Solved held to the JAX package's own count at B = 64
+     (scripts/f32_reference_status.py --problem sdp64, "pallas" 6 of 64)
+     or its rate (B = 2048), and through "auto" each solved alone; lane 0
+     through DefaultSolver with res_primal, res_dual < 1e-5; the chordal
+     max-cut at f32 through "lu" (the Jacobi LU: N = 2181 > 512) and
+     "pallas" (K1), within 1e-3 of phase 3e's undecomposed f64 solve; each
+     printing ms per iteration and solves/s beside phase 3e's f64 figures,
+     device reads and waits per iteration (and at B = 64 the device
+     operations, kernels and copies, by the profiler) and how often the
+     centering recovery fired;
+  4. the launch counts of phases 2-3, 3b, 3d, 3e, 3f, 3g, 3h, 3i and 3j and
+     one JSON line per kernel and shape.
 
 With --deterministic the run also sets torch.use_deterministic_algorithms
 (warn only) and lists each operation PyTorch reports as having no
@@ -434,12 +457,13 @@ def maxcut_dual(order, degree, seed):
             [PSDTriangleConeT(order)])
 
 
-def sdp_batch(B, n, dmat, seed):
+def sdp_batch(B, n, dmat, seed, optimum=False):
     """The JAX bench's batched SDP (bench.py:194-256), B strictly
     complementary instances built from a known primal-dual optimal pair:
     interior x*, complementary s* ⊥ z* on NonnegativeConeT(2n) (a quarter
     of the rows active) and on PSDTriangleConeT(dmat) (S*, Z* PSD on
-    orthogonal complements), then b = Ax* + s*, q = -(Px* + Aᵀz*)."""
+    orthogonal complements), then b = Ax* + s*, q = -(Px* + Aᵀz*).  With
+    ``optimum`` returns (problem, x*)."""
     from clarabel_tpu_torch import NonnegativeConeT, PSDTriangleConeT
 
     tri = dmat * (dmat + 1) // 2
@@ -464,7 +488,8 @@ def sdp_batch(B, n, dmat, seed):
     z_star = np.concatenate([z_nn, _svec(Z)], axis=1)
     b = np.einsum("bmn,bn->bm", A, x_star) + s_star
     q = -(np.einsum("bij,bj->bi", P, x_star) + np.einsum("bmn,bm->bn", A, z_star))
-    return P, q, A, b, [NonnegativeConeT(2 * n), PSDTriangleConeT(dmat)]
+    problem = P, q, A, b, [NonnegativeConeT(2 * n), PSDTriangleConeT(dmat)]
+    return (problem, x_star) if optimum else problem
 
 
 # -----------------------------------------------------------------
@@ -841,7 +866,8 @@ def check_df_lu(B, N, kind, seed, device, sm_hz, with_lo=True, reps=10, time_it=
 #: the double-float LU's phase 1 shapes: (B, N, kind, with K_lo, timed).
 #: 1 x 1² and 1 x 2², the DF_LU_MAX_DIM edge 1 x 512², the shapes of phase
 #: 3i's solves (the geometric means' 1 x 176², the entropy batch's
-#: 512 x 208²), a zero pivot and tied candidates, with K_lo and without;
+#: 512 x 208²) and of phase 3j's (64 and 2048 x 58² with K_lo), a zero
+#: pivot and tied candidates, with K_lo and without;
 #: the factor's panel edges at its panel width 8 (1 x 7², 1 x 9², 3 x 19²),
 #: the solve's 32-row blocks (2 x 33²), a batch wider than the SM count
 #: (133 x 40²), and four inputs whose twins spread NaN (an inf entry; an
@@ -859,6 +885,8 @@ DF_SHAPES = (
     (133, 40, "random", True, False), (2, 35, "inf", True, False),
     (2, 37, "huge", True, False), (2, 36, "huge rhs", True, False),
     (2, 40, "masked", False, False),
+    # phase 3j's SDP batches through "auto", with K_lo
+    (64, 58, "random", True, True), (2048, 58, "random", True, True),
 )
 
 
@@ -1560,10 +1588,11 @@ def psd_phase(seed):
     # the bench's batched SDP, K2 at N = 58
     out["batches"] = {}
     for label, B in (("SDP B=64", 64), ("SDP B=2048", 2048)):
-        out["batches"][label], _ = check_batch(label, sdp_batch(B, 16, 4, seed + 32 + B),
-                                               "unrolled", SDP_ITERATIONS_APART,
-                                               count_syncs=True)
+        out["batches"][label], obj = check_batch(label, sdp_batch(B, 16, 4, seed + 32 + B),
+                                                 "unrolled", SDP_ITERATIONS_APART,
+                                                 count_syncs=True)
         batch = out["batches"][label]
+        batch["obj_lu_lanes"] = obj.tolist()
         log(f"  {label}: {batch['pallas']['solves_per_s']:.1f} solves/s through \"pallas\", "
             f"{batch['auto']['solves_per_s']:.1f} through \"auto\"")
     return out
@@ -2434,6 +2463,15 @@ F32_REFERENCE_STATUS = {
     "portfolio SOCP n=500 pallas": (("NumericalError",), None),
     "portfolio QP n=1000 schur": (("NumericalError",), None),
     "entropy B=512 auto": (("Solved", "AlmostSolved", "InsufficientProgress"), JAX_ENTROPY_SHORT),
+    # phase 3j's chordal max-cut through "pallas" at f32: the unpivoted f32
+    # LDLᵀ of a PSD layout's KKT near cond(K) ~ 1/μ² (which is why the JAX
+    # package routes f32 PSD layouts to "lu"); its plain twins on the CPU end
+    # NumericalError after 8 iterations, and on phase 3j's SDP batch at
+    # B = 2048 "pallas" leaves lanes at each of these statuses.  The JAX package's own status is not
+    # recorded: its kernel runs in interpret mode on the CPU, out of reach at
+    # N = 2181.  A Solved run is held to the objective gate
+    "chordal max-cut n=124 pallas": (("Solved", "AlmostSolved", "InsufficientProgress",
+                                      "NumericalError", "MaxIterations"), None),
 }
 
 
@@ -2518,7 +2556,9 @@ def f32_solve(label, problem, method, f64_obj, route, batch=False):
         assert agree, f"{label} f32 {method}: {len(off)} lanes short of Solved, JAX {len(jax_short)}"
         assert all(n == "Solved" for n in alone.values()), f"{label} f32 {method}: alone {alone}"
     failed = "NumericalError" in allowed  # the JAX package's own failure
-    assert failed or rel.max() <= 1e-3, f"{label} f32 {method}: objective {rel.max():.3e} from f64"
+    solved = np.array([n == "Solved" for n in names])
+    assert rel[solved].max(initial=0.0) <= 1e-3 and (failed or rel.max() <= 1e-3), \
+        f"{label} f32 {method}: objective {rel.max():.3e} from f64"
     assert same, f"{label} f32 {method}: a repeated solve differs"
     # a solve that stops early factors fewer times than it has iterations
     max_it = 1 if failed else int(its.max())
@@ -2569,6 +2609,213 @@ def f32_dense_phase(seed, report, f64_objectives):
             for label, make, method, route, batch in F32_PROBLEMS}
 
 
+# -----------------------------------------------------------------
+# phase 3j: f32 with PSD cones (the double-float PSD scaling)
+# -----------------------------------------------------------------
+
+#: the lanes of phase 3j's SDP batch at B = 64 that the JAX package's f32
+#: "pallas" ends short of Solved (scripts/f32_reference_status.py --problem
+#: sdp64 --method pallas, on the CPU); its "auto" solves all 64
+JAX_SDP64_SHORT = {"pallas": {1: "InsufficientProgress", 9: "AlmostSolved",
+                              10: "AlmostSolved", 28: "AlmostSolved", 51: "AlmostSolved",
+                              63: "AlmostSolved"},
+                   "auto": {}}
+
+
+def rate_not_above(short, total, ref_short, ref_total, alpha=0.01):
+    """The one-sided Fisher exact test that a run's rate of lanes short of
+    Solved (``short`` of ``total``) is not above a reference run's on other
+    lanes of the same class (``ref_short`` of ``ref_total``): passes while
+    P(X ≥ short) ≥ ``alpha`` for X the run's share of all short lanes under
+    one shared rate (hypergeometric).  Returns (passes, that probability)."""
+    n, k = total + ref_total, short + ref_short
+    tail = sum(math.comb(k, i) * math.comb(n - k, total - i)
+               for i in range(short, min(k, total) + 1)) / math.comb(n, total)
+    return tail >= alpha, tail
+
+
+def device_operations(fn):
+    """The kernels and copies one call of ``fn`` puts on the card, counted
+    by torch.profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
+
+
+def f32_psd_batch(label, problem, x_star, method, f64_obj, f64_run):
+    """The SDP batch at f32 through ``method`` ("auto" twice, the repeat bit
+    for bit the first); each Solved lane's objective within 1e-3 relative of
+    its f64 solve (phase 3e) and its x within 1e-3 of x* at B = 64, within
+    the distance its own f32 stopping point admits at B = 2048 (P ⪰ λI
+    makes ½λ|x - x*|² ≤ f(x) - f(x*) ≲ the duality gap, so |x - x*|₂ ≤
+    √(2·gap/λ_min(P)), the gap no less than the preset's tolerance
+    tol_gap_abs + tol_gap_rel·|obj|: the f32 tolerances stop some lanes
+    1-2e-3 from x*, in the JAX package too, scripts/f32_reference_status.py
+    --problem sdp2048 --lanes ...); the lanes short of Solved held as phase
+    3i holds the entropy batch's: at B = 64 to the JAX package's own lanes
+    ("auto": none; "pallas": the count by the one-sided exact test of
+    entropy_counts_agree), at B = 2048 to its B = 64 rate
+    (:func:`rate_not_above`), and through "auto" each solved alone (a batch
+    of one) must be Solved; the KKT route "df" (the double-float LU, one
+    factor per iteration) or "unrolled" (K2 at f32).  Prints ms per
+    iteration and solves/s beside phase 3e's f64 figures, device reads and
+    waits per iteration (at B = 64 device operations too), and how often
+    the centering recovery fired."""
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch import loop
+
+    P, q, A, b, cones = problem
+    B = q.shape[0]
+    settings = tt.DefaultSettings.for_float32(verbose=False, direct_solve_method=method)
+    make = lambda: tt.BatchSolver(P, q, A, b, cones, settings, dtype="float32", device="cuda")
+    runs = []
+    for _ in range(2 if method == "auto" else 1):
+        solver = make()
+        torch.cuda.synchronize()
+        read = f32_counts()
+        loop._centering_recovery.centering_steps = 0
+        with SyncCounter() as syncs:
+            t0 = time.perf_counter()
+            sol = solver.solve()
+            secs = time.perf_counter() - t0
+        runs.append((sol, secs, read(), syncs.count,
+                     int(loop._centering_recovery.centering_steps)))
+    (sol, secs, counts, waits, fired), again = runs[0], runs[-1][0]
+    secs2 = runs[-1][1]
+    # the kernels and copies per iteration do not depend on B: counted at 64
+    ops = device_operations(lambda: make().solve()) if B == 64 else None
+    names = [s.name for s in sol.statuses()]
+    its = sol.iterations
+    max_it = int(its.max())
+    solved = np.array([n == "Solved" for n in names])
+    xerr = np.abs(sol.x - x_star).max(axis=1)
+    # the gap the lane stopped at, or the f32 preset's gap tolerance where
+    # the rounded objectives meet
+    gap = np.maximum(np.abs(sol.obj_val - sol.obj_val_dual),
+                     settings.tol_gap_abs + settings.tol_gap_rel * np.abs(sol.obj_val))
+    admitted = np.sqrt(2.0 * gap / np.linalg.eigvalsh(P)[:, 0])
+    xnorm = np.linalg.norm(sol.x - x_star, axis=1)
+    rel = np.abs(sol.obj_val - f64_obj) / np.maximum(1.0, np.abs(f64_obj))
+    same = (np.array_equal(again.x, sol.x, equal_nan=True)
+            and np.array_equal(again.z, sol.z, equal_nan=True)
+            and np.array_equal(again.iterations, sol.iterations))
+    row = dict(label=label, method=method, B=B, N=q.shape[1] + b.shape[1],
+               solved=int(solved.sum()), iterations_min=int(its.min()), iterations_max=max_it,
+               wall_ms=secs * 1e3, wall_ms_repeat=secs2 * 1e3,
+               ms_per_iteration=secs * 1e3 / max(max_it, 1), solves_per_s=B / secs,
+               reads_per_iteration=counts["reads"] / max(max_it, 1),
+               waits_per_iteration=waits / max(max_it, 1),
+               device_operations_per_iteration=None if ops is None else ops / max(max_it, 1),
+               centering_steps=fired, max_x_err_solved=float(xerr[solved].max(initial=0.0)),
+               lanes_x_past_1e3=int((solved & (xerr > 1e-3)).sum()),
+               max_x_over_admitted=float((xnorm / admitted)[solved].max(initial=0.0)),
+               max_rel_obj_solved=float(rel[solved].max(initial=0.0)),
+               repeat_bitwise_equal=bool(same), counts=counts,
+               f64_ms_per_iteration=f64_run["ms_per_iteration"],
+               f64_solves_per_s=f64_run["solves_per_s"])
+    off = {i: n for i, n in enumerate(names) if n != "Solved"}
+    worst = int(np.argmax(np.where(solved, xerr, -1.0)))
+    slowest = np.argsort(its)[-3:][::-1].tolist()
+    row.update(worst_x_lane=worst, slowest_lanes={i: int(its[i]) for i in slowest},
+               iterations_histogram=np.bincount(its).tolist())
+    log(f"  {label} f32 {method}: {row['solved']}/{B} Solved, iterations {its.min()}-{max_it}, "
+        f"{row['ms_per_iteration']:.2f} ms/iteration, {row['solves_per_s']:.1f} solves/s "
+        f"(f64 {method} in phase 3e: {f64_run['ms_per_iteration']:.2f} ms/iteration, "
+        f"{f64_run['solves_per_s']:.1f} solves/s; wall {secs * 1e3:.1f} ms"
+        + (f", repeat {secs2 * 1e3:.1f}" if method == "auto" else "")
+        + f"), per iteration {row['reads_per_iteration']:.1f} device reads, "
+        f"{row['waits_per_iteration']:.1f} waits"
+        + ("" if ops is None else f", {row['device_operations_per_iteration']:.0f} device "
+           "operations") + f"; centering recovery taken {fired} times; Solved lanes: x within "
+        f"{row['max_x_err_solved']:.2e} of x* ({row['lanes_x_past_1e3']} past 1e-3; at most "
+        f"{row['max_x_over_admitted']:.2f} of the distance the stopping point admits), "
+        f"objective {row['max_rel_obj_solved']:.2e} from f64"
+        + (f"; repeat bitwise equal {same}" if method == "auto" else "") + f"; launches {counts}")
+    log(f"    the worst Solved lane's x: lane {worst} ({float(xerr[worst]):.2e}, "
+        f"{int(its[worst])} iterations); the slowest lanes (lane: iterations) "
+        f"{row['slowest_lanes']}")
+    if off:
+        log(f"    lanes not Solved: {off}")
+    assert same, f"{label} f32 {method}: a repeated solve differs"
+    if B == 64:
+        assert row["max_x_err_solved"] <= 1e-3, \
+            f"{label} f32 {method}: x {row['max_x_err_solved']:.2e} from x*"
+    assert row["max_x_over_admitted"] <= 1.0, \
+        f"{label} f32 {method}: x past the distance its stopping point admits"
+    assert row["max_rel_obj_solved"] <= 1e-3, \
+        f"{label} f32 {method}: objective {row['max_rel_obj_solved']:.2e} from f64"
+    assert all(n in ("Solved", "AlmostSolved", "InsufficientProgress", "NumericalError",
+                     "MaxIterations") for n in names), f"{label} f32 {method}: {off}"
+    ref = JAX_SDP64_SHORT[method]
+    if B == 64:
+        if method == "auto":
+            assert not off, f"{label} f32 auto: {off}"
+        agree, tail = entropy_counts_agree(len(off), len(ref))
+    else:
+        agree, tail = rate_not_above(len(off), B, len(ref), 64)
+    row.update(short=off, jax_b64_short=len(ref), short_rate_p=tail)
+    log(f"    {len(off)} of {B} lanes short of Solved, the JAX package {len(ref)} of 64 (B = 64): "
+        f"P = {tail:.3f}")
+    assert agree, f"{label} f32 {method}: {len(off)} lanes short, P = {tail:.4f}"
+    if method == "auto" and off:
+        # the lanes short of Solved at another rounding: each as a batch of one
+        alone = {i: tt.BatchSolver(P[[i]], q[[i]], A[[i]], b[[i]], cones, settings,
+                                   dtype="float32", device="cuda").solve().statuses()[0].name
+                 for i in off}
+        row["alone"] = alone
+        log(f"    alone (B = 1): {alone}")
+        assert all(n == "Solved" for n in alone.values()), f"{label} f32 auto: alone {alone}"
+    if method == "auto":
+        assert max_it <= counts["df_factor"] <= max_it + 2, \
+            f"{label}: {counts['df_factor']} df factors for {max_it} iterations"
+        assert counts["df_solve"] > 0 and counts["unrolled"] == counts["blocked"] == 0
+    else:
+        assert counts["unrolled"] >= max_it and counts["df_factor"] == counts["df_solve"] == 0
+    return row
+
+
+def f32_psd_phase(seed, report):
+    """Phase 3j: f32 on PSD layouts on the card, against phase 3e's f64
+    solves of the same data."""
+    import clarabel_tpu_torch as tt
+
+    psd = report["psd"]
+    out = {}
+    for B in (64, 2048):
+        label = f"SDP B={B}"
+        problem, x_star = sdp_batch(B, 16, 4, seed + 32 + B, optimum=True)
+        f64 = psd["batches"][label]
+        for method in ("auto", "pallas"):
+            out[f"{label} {method}"] = f32_psd_batch(
+                label, problem, x_star, method, np.asarray(f64["obj_lu_lanes"]), f64[method])
+        if B == 64:
+            # one lane through DefaultSolver: the JAX package's test_df_lu.py
+            # residual gate
+            P, q, A, b, cones = problem
+            solver = tt.DefaultSolver(P[0], q[0], A[0], b[0], cones,
+                                      tt.DefaultSettings.for_float32(verbose=False),
+                                      dtype="float32", device="cuda")
+            sol = solver.solve()
+            info = solver.info
+            out["SDP lane 0 DefaultSolver"] = dict(
+                status=sol.status.name, iterations=sol.iterations, res_primal=info.res_primal,
+                res_dual=info.res_dual, x_err=float(np.abs(sol.x - x_star[0]).max()))
+            log(f"  SDP lane 0 through DefaultSolver at f32: {sol.status.name}, "
+                f"{sol.iterations} iterations, res_primal {info.res_primal:.2e}, res_dual "
+                f"{info.res_dual:.2e}, x within {out['SDP lane 0 DefaultSolver']['x_err']:.2e} "
+                f"of x*")
+            assert sol.status == tt.SolverStatus.Solved
+            assert info.res_primal < 1e-5 and info.res_dual < 1e-5
+    # the chordal max-cut at f32, against phase 3e's f64 solve without the
+    # decomposition
+    dual = maxcut_dual(124, 3, seed + 31)
+    obj64 = psd["chordal"]["undecomposed_lu"]["obj"]
+    for method, route in (("lu", "jacobi"), ("pallas", "blocked")):
+        out[f"chordal {method}"] = f32_solve("chordal max-cut n=124", dual, method, obj64, route)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2606,6 +2853,7 @@ def run(args) -> int:
     device = "cuda"
     settings = tt.DefaultSettings()
     report = {"seed": args.seed}
+    started = time.perf_counter()
 
     # ---- phase 0: the card and the build
     card = card_line()
@@ -2663,6 +2911,9 @@ def run(args) -> int:
                       "SDP B=64": ("unrolled", 64, 16, 42),
                       "SDP B=2048": ("unrolled", 2048, 16, 42)}
         shapes[torch.float64] += list(psd_shapes.values())
+        # phase 3j's f32 shapes: the SDP batches through "pallas" (K2) and
+        # the chordal max-cut (K1)
+        shapes[torch.float32] += [psd_shapes[k] for k in ("SDP B=64", "SDP B=2048", "chordal")]
         rows = []
         for dtype, cases in shapes.items():
             for variant, B, n, m in cases:
@@ -2780,6 +3031,15 @@ def run(args) -> int:
         report["f32_dense"] = f32_dense_phase(args.seed, report, f64_objectives)
         report["f32_dense_seconds"] = time.perf_counter() - t0
         log(f"  phase 3i took {report['f32_dense_seconds']:.1f} s")
+
+        # ---- phase 3j: f32 with PSD cones; the kernels' launches counted
+        # from zero for each solve
+        log("phase 3j: f32 with PSD cones (double-float PSD scaling, df LU with K_lo, "
+            "K1/K2 at f32)")
+        t0 = time.perf_counter()
+        report["f32_psd"] = f32_psd_phase(args.seed, report)
+        report["f32_psd_seconds"] = time.perf_counter() - t0
+        log(f"  phase 3j took {report['f32_psd_seconds']:.1f} s")
 
     # ---- phase 4: launch counts and the kernels line
     log(f"phase 4: launches on the main path {launches}")
@@ -2965,6 +3225,50 @@ def run(args) -> int:
             yardstick_ldl_factor_ms=row["ldl_factor_ms"],
             yardstick_lu_factor_ms=row["lu_factor_ms"],
         ))
+    # phase 3j's paths: the double-float LU's kernels with K_lo on the SDP
+    # batches (64 and 2048 x 58²), K2 at f32 on them, K1 at f32 on the
+    # chordal max-cut
+    f32p = report["f32_psd"]
+    for label, B, N in (("SDP B=64 auto", 64, 58), ("SDP B=2048 auto", 2048, 58)):
+        counts = f32p[label]["counts"]
+        row = next(r for r in df_rows if r["B"] == B and r["N"] == N and r["K_lo"]
+                   and "factor_ms" in r)
+        for name, count, replaces, ms, plain, bound, by, floor in (
+                ("df_lu_factor", counts["df_factor"], "clarabel_tpu/kkt/df_ldl.py:93",
+                 row["factor_ms"], row["factor_plain_ms"], row["factor_bound_ms"],
+                 row["factor_bound_by"], row["factor_nonfma_floor_ms"]),
+                ("df_lu_solve", counts["df_solve"], "clarabel_tpu/kkt/df_ldl.py:179",
+                 row["solve_ms"][1], row["solve_plain_ms"][1], row["solve_bound_ms"][1],
+                 row["solve_bound_by"][1], row["solve_nonfma_floor_ms"][1])):
+            assert count > 0, f"{name} never launched by phase 3j's {label}"
+            kernels.append(dict(
+                name=name, route="cuda", source=DF_SOURCE, replaces=replaces, launches=count,
+                max_abs_err=row["max_abs_err"], ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=None, shape=[B, N, N], dtype="float32", K_lo=True,
+                path=f"f32 PSD, phase 3j {label}", tpu_kernel=False, nonfma_floor_ms=floor,
+                yardstick_lu_factor_f32_ms=row["lu_factor_f32_ms"],
+                yardstick_lu_factor_f64_ms=row["lu_factor_f64_ms"],
+                **({"ms_R2": row["solve_ms"][2], "bound_ms_R2": row["solve_bound_ms"][2]}
+                   if name == "df_lu_solve" else {})))
+    for label, count_of, (variant, B, n, m) in (
+            ("SDP B=64 pallas", "unrolled", psd_shapes["SDP B=64"]),
+            ("SDP B=2048 pallas", "unrolled", psd_shapes["SDP B=2048"]),
+            ("chordal pallas", "blocked", psd_shapes["chordal"])):
+        count = f32p[label]["counts"][count_of]
+        assert count > 0, f"{KERNELS[variant]['name']} never launched by phase 3j's {label}"
+        row = next(r for r in rows if r["variant"] == variant and r["B"] == B
+                   and r["N"] == n + m and r["dtype"] == "float32")
+        kernels.append(dict(
+            name=KERNELS[variant]["name"], route="cuda", source=SOURCE,
+            replaces=KERNELS[variant]["replaces"], launches=count,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            shape=[B, n + m, n + m], dtype="float32", path=f"f32 PSD, phase 3j {label}",
+            yardstick_ldl_factor_ms=row["ldl_factor_ms"],
+            yardstick_lu_factor_ms=row["lu_factor_ms"],
+        ))
+    report["seconds"] = time.perf_counter() - started
+    log(f"chip_smoke took {report['seconds']:.1f} s")
     report["launches"] = launches
     report["launches_3d"] = launches_3d
     report["launches_3h"] = launches_3h

@@ -281,11 +281,17 @@ def update_scaling(layout: ConeLayout, state, s, z, mu, strategy):
     return state, ok
 
 
-def hs_dense(layout: ConeLayout, state, dtype, device, batch=()):
+def hs_dense(layout: ConeLayout, state, dtype, device, batch=(), want_lo=False):
     """Dense [..., m, m] block-diagonal scaling matrices Hs = WᵀW for KKT
     assembly (zero cones contribute zero rows), one per problem of the
-    batch shape ``batch``.  reference: per-cone ``get_Hs``."""
+    batch shape ``batch``.  reference: per-cone ``get_Hs``.
+
+    With ``want_lo`` returns (H, H_lo): on f32 PSD layouts H_lo holds the
+    PSD blocks' double-float rounding remainder (and the blocks are stashed
+    in ``state``, ``psd.hs_dense``), else it is None."""
     H = torch.zeros(tuple(batch) + (layout.m, layout.m), dtype=dtype, device=device)
+    H_lo = (torch.zeros_like(H)
+            if want_lo and layout.num_psd and dtype == torch.float32 else None)
 
     if layout.n_nn:
         sl = layout.slice_of(api.NONNEGATIVE)
@@ -315,9 +321,9 @@ def hs_dense(layout: ConeLayout, state, dtype, device, batch=()):
     if layout.num_psd:
         from . import psd as _psd
 
-        H = _psd.hs_dense(layout, state, H)
+        H, H_lo = _psd.hs_dense(layout, state, H, H_lo)
 
-    return H
+    return (H, H_lo) if want_lo else H
 
 
 def hs_diag(layout: ConeLayout, state, dtype, device, batch=()):
@@ -356,8 +362,9 @@ def hs_diag_lowrank(layout: ConeLayout, state, dtype, device, batch=()):
     return h, U
 
 
-def mul_hs(layout: ConeLayout, state, x):
-    """y = Hs x without materializing Hs.  reference: per-cone ``mul_Hs``."""
+def mul_hs(layout: ConeLayout, state, x, psd=True):
+    """y = Hs x without materializing Hs.  reference: per-cone ``mul_Hs``.
+    ``psd=False`` leaves the PSD rows of y zero."""
     y = torch.zeros_like(x)
 
     if layout.n_nn:
@@ -380,7 +387,7 @@ def mul_hs(layout: ConeLayout, state, x):
 
         y = _ns.mul_hs(layout, state, x, y)
 
-    if layout.num_psd:
+    if layout.num_psd and psd:
         from . import psd as _psd
 
         y = _psd.mul_hs(layout, state, x, y)
@@ -396,13 +403,11 @@ def mul_hs_df(layout: ConeLayout, state, x, x_lo=None):
     primal consistency; keeping the product's rounding remainder in a lo
     stream until after the cancellation removes it.  NN takes an exact
     TwoProd; SOC, exp, pow and genpow the plain product (their hi image)
-    with only the x_lo image compensated, as in the JAX package
-    (clarabel_tpu/cones/ops.py:313-360).  PSD cones raise: their
-    double-float product is not ported."""
-    if layout.num_psd:
-        raise NotImplementedError(
-            "the double-float Hs product of PSD cones is not ported "
-            "(ROADMAP.md Queue 1 item 12b)")
+    with only the x_lo image compensated; a PSD bucket applies the skron
+    blocks ``hs_dense`` stashed for the solved K with a compensated matvec,
+    else (no stash) the double-float congruence of n ≤ 32 buckets, else the
+    plain product, as in the JAX package (clarabel_tpu/cones/ops.py:
+    313-401)."""
     from ..kkt import compensated as dfc
 
     hi = torch.zeros_like(x)
@@ -424,9 +429,39 @@ def mul_hs_df(layout: ConeLayout, state, x, x_lo=None):
             xr_lo[..., sl] = 0.0
 
     if layout.num_soc or _has_nonsym(layout):
-        hi = hi + mul_hs(layout, state, xr)
+        hi = hi + mul_hs(layout, state, xr, psd=False)
         if xr_lo is not None:
-            lo = lo + mul_hs(layout, state, xr_lo)
+            lo = lo + mul_hs(layout, state, xr_lo, psd=False)
+
+    if layout.num_psd:
+        from . import psd as _psd
+
+        sl = layout.slice_of(api.PSD)
+        parts_h, parts_l = [], []
+        for bi, b, t in _psd._buckets(layout, x):
+            R = state[f"psd{bi}_R"]
+            xv = _psd._gather(layout, t, x)
+            xlv = None if x_lo is None else _psd._gather(layout, t, x_lo)
+            if f"psd{bi}_skron" in state:
+                # the blocks of the solved K, by a compensated matvec
+                Sh, Sl = state[f"psd{bi}_skron"]
+                p, e = dfc._two_prod(Sh, xv.unsqueeze(-2))
+                e = e + Sl * xv.unsqueeze(-2)
+                if xlv is not None:
+                    e = e + Sh * xlv.unsqueeze(-2)
+                vh, vl = dfc._df_reduce_last(p, e)
+            elif _psd._use_df(b, x.dtype):
+                Yh, Yl = _psd._df_axa(R, *_psd._to_mat_df(b, t, xv, xlv))
+                vh, vl = _psd._to_svec_df(b, t, Yh, Yl)
+            else:
+                A = R @ R.mT
+                vh = _psd._to_svec(t, A @ _psd._to_mat(t, xv) @ A.mT)
+                vl = (torch.zeros_like(vh) if xlv is None
+                      else _psd._to_svec(t, A @ _psd._to_mat(t, xlv) @ A.mT))
+            parts_h.append((t, vh))
+            parts_l.append((t, vl))
+        hi[..., sl] = hi[..., sl] + _psd._scatter(layout, parts_h, x)
+        lo[..., sl] = lo[..., sl] + _psd._scatter(layout, parts_l, x)
     return hi, lo
 
 

@@ -1,8 +1,10 @@
 """Double-float (compensated f32) residuals for iterative refinement.
 
 PyTorch port of the part of ``clarabel_tpu/kkt/compensated.py`` that the
-dense f32 KKT path runs: the error-free transformations and the
-double-float residual ``rhs - K x``.
+dense f32 KKT path runs: the error-free transformations, the double-float
+residual ``rhs - (K + K_lo) x`` and the double-float products of the small
+per-cone matrices of the PSD scaling (:func:`df_matmul`,
+:func:`df_matmul_df`).
 
 Near convergence cond(K) ~ 1/μ, and an f32 residual bounds the refined
 step's forward error at O(eps32 · cond(K)).  Classic mixed-precision
@@ -16,7 +18,8 @@ Every function works elementwise over any leading batch dimensions and
 reduces over the last one only, so a problem inside a batch sums exactly as
 it does alone.  Each operation is one PyTorch operation: nothing fuses a
 product into a sum (an FMA would break the split).  The tree over N entries
-costs about 10·log2 N launches per residual (ROADMAP Queue 2).
+costs about 10·log2 N launches per residual, and each double-float
+product about 10·log2 l + 20 (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -67,23 +70,44 @@ def _df_reduce_last(hi, lo):
     return hi[..., 0], lo[..., 0]
 
 
-def residual(K, x, rhs):
-    """rhs - K x evaluated in double-float, f32 at the end.
+def df_matmul(A, B):
+    """Matrix product in double-float: A[..., i, l] @ B[..., l, j] as a
+    (hi, lo) pair with A @ B = hi + lo to ~eps².  It builds the
+    [..., i, j, l] exact-product tensor: meant for the small per-cone
+    matrices of the PSD scaling, not for K."""
+    p, e = _two_prod(A[..., :, :, None], B[..., None, :, :])
+    return _df_reduce_last(p.movedim(-2, -1), e.movedim(-2, -1))
+
+
+def df_matmul_df(Ah, Al, Bh, Bl):
+    """Double-float matrix product of double-float operands (hi/lo pairs)."""
+    p, e = _two_prod(Ah[..., :, :, None], Bh[..., None, :, :])
+    e = e + Ah[..., :, :, None] * Bl[..., None, :, :]
+    e = e + Al[..., :, :, None] * Bh[..., None, :, :]
+    return _df_reduce_last(p.movedim(-2, -1), e.movedim(-2, -1))
+
+
+def residual(K, x, rhs, K_lo=None):
+    """rhs - (K + K_lo) x evaluated in double-float, f32 at the end.
 
     K: [..., N, N]; x and rhs: [..., N], or [..., N, R] for R right-hand
     sides (told apart by their dimension against K's).  Accurate to
-    ~eps²·‖K‖‖x‖ instead of eps·‖K‖‖x‖.  The JAX package's ``K_lo`` (the lo
-    part of a double-float K) serves its PSD and sparse paths and comes with
-    them (ROADMAP item 12b)."""
+    ~eps²·‖K‖‖x‖ instead of eps·‖K‖‖x‖.  ``K_lo`` optionally carries the lo
+    part of a double-float K (the PSD Hs blocks' rounding remainder); its
+    contribution is already eps-scaled, so a plain product serves."""
     multi = x.dim() == K.dim()
     if multi:
         xe = x.mT.unsqueeze(-2)  # [..., R, 1, N]
         rhs_e = rhs.mT  # [..., R, N]
         K = K.unsqueeze(-3)
+        if K_lo is not None:
+            K_lo = K_lo.unsqueeze(-3)
     else:
         xe = x.unsqueeze(-2)  # [..., 1, N]
         rhs_e = rhs
     p, e = _two_prod(K, xe)  # exact products
+    if K_lo is not None:
+        e = e + K_lo * xe
     s_hi, s_lo = _df_reduce_last(p, e)
     d_hi, d_err = _two_sum(rhs_e, -s_hi)
     out = d_hi + (d_err - s_lo)

@@ -44,21 +44,62 @@ from . import compensated, df_ldl, multifrontal, pallas_ldl
 from ..timers import host_read
 
 
+def pairwise_sum(v):
+    """The sum over the last dimension by a fixed pairwise tree (entry 2i
+    with 2i + 1, level by level, an odd length padded with a zero): every
+    problem of a batch sums in the same order whatever the batch's size,
+    which neither the CPU's batched products nor ``sum`` guarantee."""
+    while v.shape[-1] > 1:
+        if v.shape[-1] % 2:
+            v = torch.nn.functional.pad(v, (0, 1))
+        v = v[..., 0::2] + v[..., 1::2]
+    return v[..., 0]
+
+
+def _lane_exact(M):
+    """Whether a batched f32 product on ``M`` takes elementwise products and
+    :func:`pairwise_sum`: on the CPU, whose batched products round a
+    problem's sums differently at other batch sizes.  Near the end of an
+    f32 solve that decides its steps, and so a lane of an f32 batch computes
+    there what it does as a batch of one (the JAX package makes Δτ
+    batch-shape independent the same way).  On a card the products stay
+    cuBLAS's: there the SVD and the eigenvalue solves depend on the batch
+    shape anyway."""
+    return M.dtype == torch.float32 and M.device.type == "cpu"
+
+
 def matvec(M, v):
     """M v over any leading batch dimensions (M [..., r, c], v [..., c]);
     one problem takes PyTorch's matrix-vector product itself, a sparse
-    ``algebra.coo.COOMat`` (one or a batch) its own."""
+    ``algebra.coo.COOMat`` (one or a batch) its own, a batch at f32 on the
+    CPU a :func:`pairwise_sum` of products (:func:`_lane_exact`)."""
     if v.dim() == 1 or not isinstance(M, torch.Tensor):
         return M @ v
+    if _lane_exact(M):
+        return pairwise_sum(M * v.unsqueeze(-2))
     return (M @ v.unsqueeze(-1)).squeeze(-1)
 
 
 _mv = matvec  # the module's matvec, under a name the Schur closures keep
 
 
+def matmul(M, V):
+    """M V for M [..., r, c] and R right-hand sides V [..., c, R]; a batch
+    at f32 on the CPU as a :func:`pairwise_sum` of products
+    (:func:`_lane_exact`)."""
+    if M.dim() == 2 or not _lane_exact(M):
+        return M @ V
+    return pairwise_sum(M.unsqueeze(-3) * V.mT.unsqueeze(-2)).mT
+
+
 def dot(a, b):
-    """aᵀb over any leading batch dimensions (a, b [..., k])."""
-    return a @ b if a.dim() == 1 else (a.unsqueeze(-2) @ b.unsqueeze(-1))[..., 0, 0]
+    """aᵀb over any leading batch dimensions (a, b [..., k]); a batch at f32
+    on the CPU as a :func:`pairwise_sum` of products (:func:`_lane_exact`)."""
+    if a.dim() == 1:
+        return a @ b
+    if _lane_exact(a):
+        return pairwise_sum(a * b)
+    return (a.unsqueeze(-2) @ b.unsqueeze(-1))[..., 0, 0]
 
 
 def assemble(P, A, Hs, settings):
@@ -389,10 +430,18 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
     over all of them, as in the JAX package: a dense K's [..., N, R], and on
     the multifrontal factors (``"mf"``) one problem's [N] or [N, r] or, for
     a batch of factors, each lane's [N, r] of ``rhs [B, N, r]``.
+    ``K_true`` may also be a (K, K_lo) pair (f32 PSD layouts): K_lo holds
+    the PSD Hs blocks' double-float rounding remainder
+    (``loop._kkt_prepare``), the factor is of K, and the refinement refines
+    against K + K_lo, so the solved Δz is consistent to ~eps² with the exact
+    NT geometry the Δs recovery and the step length use.
     reference: directldlkktsolver.rs:266-321 — bounded refinement loop
     with stall detection.
     """
     solve_refined.calls += 1
+    K_lo = None
+    if isinstance(K_true, tuple):
+        K_true, K_lo = K_true
     x0 = _raw_solve(factors, rhs)
     dense = not callable(K_true)
     if (factors[0] == "mf" and multifrontal.batch_shape(factors[1][2])) or (
@@ -416,10 +465,13 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
         return ((x0, None), ok) if want_lo else (x0, ok)
     if not dense:
         k_matvec = K_true
+        lo_matvec = None
     elif rhs.dim() == K_true.dim():
-        k_matvec = lambda v: K_true @ v
+        k_matvec = lambda v: matmul(K_true, v)
+        lo_matvec = lambda v: matmul(K_lo, v)
     else:
         k_matvec = lambda v: matvec(K_true, v)
+        lo_matvec = lambda v: matvec(K_lo, v)
 
     reltol = settings.iterative_refinement_reltol
     abstol = settings.iterative_refinement_abstol
@@ -456,7 +508,9 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
         def error_norm(x, x_lo):
             # the residual against the double-float solution: x_lo's
             # contribution is eps-scaled, a plain product of it suffices
-            e = compensated.residual(K_true, x, rhs) - k_matvec(x_lo)
+            e = compensated.residual(K_true, x, rhs, K_lo=K_lo) - k_matvec(x_lo)
+            if K_lo is not None:
+                e = e - lo_matvec(x_lo)
             return e, amax(e)
 
         def accumulate(x, x_lo, dx):

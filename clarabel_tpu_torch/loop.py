@@ -661,22 +661,30 @@ def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state,
         h, U = cone_ops.hs_diag_lowrank(layout, scaling_state, dtype, P.device, batch)
         return kkt_dense.prepare_schur_lowrank(P, A, h, U, settings, n_eq=layout.n_zero)
 
-    Hs = cone_ops.hs_dense(layout, scaling_state, dtype, P.device, batch)
+    Hs, Hs_lo = cone_ops.hs_dense(layout, scaling_state, dtype, P.device, batch,
+                                  want_lo=True)
     K, K_reg = kkt_dense.assemble(P, A, Hs, settings)
+    # f32 PSD layouts: K is a double-float (K, K_lo) pair, K_lo the PSD Hs
+    # blocks' rounding remainder (the JAX package's loop.py:763-789); the
+    # factor is of the hi part, the refinement refines against hi + lo
+    K_lo = None
+    if Hs_lo is not None:
+        K_lo = torch.zeros_like(K)
+        K_lo[..., n:, n:] = -Hs_lo
     if method == "lu" and dtype == torch.float32:
         # f32 "lu" (and only that name; its aliases take the plain pivoted
         # LU with the compensated refinement): the double-float LU, the only
         # f32 dense factorization whose refinement still contracts at the
-        # cond(K) ~ 1/μ² reached at strict complementarity; above
-        # DF_LU_MAX_DIM the Jacobi-equilibrated LU (the JAX package's
-        # loop.py:764-781)
+        # cond(K) ~ 1/μ² reached at strict complementarity, factoring
+        # K_reg + K_lo; above DF_LU_MAX_DIM the Jacobi-equilibrated LU (the
+        # JAX package's loop.py:764-781)
         if K.shape[-1] <= kkt_dense.DF_LU_MAX_DIM:
-            factors, ok = kkt_dense.factor_df(K_reg, None)
+            factors, ok = kkt_dense.factor_df(K_reg, K_lo)
         else:
             factors, ok = kkt_dense.factor_jacobi(K_reg, settings, n)
-        return factors, K, ok
-    factors, ok = _make_factor_fn(layout, settings, dtype, n, use_pallas, method)(K_reg)
-    return factors, K, ok
+    else:
+        factors, ok = _make_factor_fn(layout, settings, dtype, n, use_pallas, method)(K_reg)
+    return factors, (K if K_lo is None else (K, K_lo)), ok
 
 
 def _make_factor_fn(layout, settings, dtype, n, use_pallas=False, method=None):
@@ -757,6 +765,50 @@ def _shift_to_cone_interior(layout, v, pd, floor=1.0):
     v = cone_ops.scaled_unit_shift(layout, v, shift1, pd)
     v = cone_ops.scaled_unit_shift(layout, v, shift2, pd)
     return v
+
+
+def _centering_recovery(layout, settings, scaling_state, factors, K, P, q, A, b, x2, z2, r,
+                        mu, affine_rhs, variables, scaling, any_dual, comb, alpha, alpha_aff,
+                        fail_ne, retry_ne):
+    """The f32 PSD recovery of the JAX package (its loop.py:1180-1223): at
+    cond(K) ~ 1/μ² the Mehrotra corrector is the noisiest part of the
+    combined direction, so where the combined step collapses while the
+    affine step was healthy (α < 0.3·α_aff, α < 0.7), a pure centering
+    direction (σ = 1, no second-order term), solved on the same factors,
+    replaces it if its step is more than twice as long.  Per problem.
+    Returns (direction, α, fail_ne); ``centering_steps`` counts on the
+    device the problems that took it."""
+    z = variables[2]
+    cent_shift = cone_ops.combined_ds_shift(
+        layout, scaling_state, torch.zeros_like(comb[2]), torch.zeros_like(comb[1]), mu, z)
+    tau, kappa = variables[3], variables[4]
+    cent_rhs = (
+        torch.zeros_like(r.rx),
+        affine_rhs[1] + cent_shift,
+        torch.zeros_like(r.rz),
+        torch.zeros_like(r.rtau),
+        -mu + tau * kappa,
+    )
+    cent, ok_cent = kkt_solve(
+        layout, scaling_state, factors, K, P, q, A, b, x2, z2,
+        cent_rhs, variables, settings, is_combined=True,
+    )
+    alpha_cent = calc_step_length(
+        layout, scaling_state, cent, variables, settings,
+        is_combined=True, scaling=scaling, any_dual=any_dual,
+    )
+    use_cent = (alpha < 0.3 * alpha_aff) & (alpha < 0.7) & (alpha_cent > 2.0 * alpha)
+    _centering_recovery.centering_steps = (
+        _centering_recovery.centering_steps + use_cent.sum())
+    comb = tuple(_select(use_cent, c, d) for c, d in zip(cent, comb))
+    alpha = torch.where(use_cent, alpha_cent, alpha)
+    fail_ne = fail_ne | (use_cent & (~ok_cent) & (~retry_ne))
+    return comb, alpha, fail_ne
+
+
+#: the problems that took the centering direction, summed over solves on
+#: the device (an int until the first f32 PSD iteration); set it to 0 to count
+_centering_recovery.centering_steps = 0
 
 
 def _select(mask, new, old):
@@ -1030,6 +1082,12 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             layout, scaling_state, comb, variables, settings,
             is_combined=True, scaling=st.scaling, any_dual=any_dual,
         )
+
+        if dtype == torch.float32 and layout.num_psd:
+            comb, alpha, fail_ne = _centering_recovery(
+                layout, settings, scaling_state, factors, K, P, q, A, b, x2, z2, r, mu,
+                affine_rhs, variables, st.scaling, any_dual, comb, alpha, alpha_aff,
+                fail_ne, retry_ne)
 
         # direction finiteness: a non-finite direction or step length is a
         # KKT numerical error (reference analog: solver.rs:611-630)

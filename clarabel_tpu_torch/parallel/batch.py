@@ -2,9 +2,8 @@
 
 PyTorch port of ``clarabel_tpu/parallel/batch.py`` on one device over
 zero, nonnegative, second-order, exponential, power, generalized power and
-PSD triangle cones: at f64, and at f32 on every dense KKT method on layouts
-without PSD cones ("multifrontal" runs the pivoted LU here, as in the JAX
-package).  B conic programs with the same cones and shapes but different
+PSD triangle cones: at f64 and at f32, on every dense KKT method
+("multifrontal" runs the pivoted LU here, as in the JAX package).  B conic programs with the same cones and shapes but different
 numbers (scenarios, MPC horizons, portfolio draws) solve as one run of the
 IPM loop on tensors with a leading batch dimension: every factorization
 factors the B KKT matrices at once (batched pivoted LU or Cholesky, or one
@@ -35,7 +34,6 @@ from ..solver import (
     _not_ported,
     build_solve_core,
     check_ported,
-    check_ported_dtype,
     full_precision,
     resolve_device,
 )
@@ -151,7 +149,6 @@ class BatchSolver:
         self.B, self.n, self.m = B, n, m
         self._p_is_zero = not np.any(P)
         use_pallas = self._device.type == "cuda"
-        check_ported_dtype(self._layout, self._dtype)
         dtype = getattr(torch, self._dtype)
 
         self._put = lambda v: torch.tensor(v, dtype=dtype, device=self._device)

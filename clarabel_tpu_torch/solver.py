@@ -21,9 +21,10 @@ The solve runs on a CUDA device unless the caller passes ``device="cpu"``;
 without a CUDA device and without that argument the constructor raises.
 f64 solves stay on the card, which runs f64 natively (the JAX package sends
 them to the host CPU instead).  ``dtype="float32"`` runs on every dense KKT
-method, on layouts without PSD cones: the structured Schur paths, the
-LDLᵀ kernels and the pivoted LU with compensated refinement, and "lu"
-through the double-float LU; never on the sparse path.
+method, on every cone: the structured Schur paths, the LDLᵀ kernels and the
+pivoted LU with compensated refinement, and "lu" through the double-float
+LU, PSD cones with their double-float scaling (``cones/psd.py``); never on
+the sparse path.
 """
 
 from __future__ import annotations
@@ -478,21 +479,12 @@ def _not_ported(what: str, item):
 def check_ported(dtype: Optional[str]) -> str:
     """The dtype name a solve runs at ("float64" unless given); raises for
     another dtype.  Every ``direct_solve_method`` the settings accept is
-    ported (which ones run at f32: :func:`check_ported_dtype`)."""
+    ported, and every dense one runs at f32 on every cone (the sparse path
+    raises for f32 in its own setup)."""
     dtype = dtype or "float64"
     if dtype not in ("float64", "float32"):
         raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
     return dtype
-
-
-def check_ported_dtype(layout: ConeLayout, dtype: str) -> None:
-    """Raises for an f32 solve on a layout with PSD cones: their
-    double-float scaling is not ported.  Every dense KKT method runs at f32
-    on the other layouts (the sparse path raises in its own setup)."""
-    if dtype == "float32" and layout.num_psd:
-        raise _not_ported(
-            "dtype='float32' with PSD cones (the double-float PSD scaling and "
-            "the f32 centering recovery)", "12b")
 
 
 class DefaultSolver:
@@ -503,7 +495,7 @@ class DefaultSolver:
     cliques (chordal decomposition): on the dense path at f64 through every
     ported KKT method (the structured Schur paths fall back to LU on the
     nonsymmetric and PSD cones, as in the JAX package), at f32 through
-    every dense KKT method on every cone but PSD; on the sparse
+    every dense KKT method on every cone; on the sparse
     multifrontal path at f64.  Its data can be updated
     between solves (unless presolve or the decomposition changed the
     problem), a solve warm-started and stopped by a callback.  The problem
@@ -747,7 +739,6 @@ class DefaultSolver:
         self._b = self._put(b)
 
         self._use_pallas = self._device.type == "cuda"
-        check_ported_dtype(self._layout, self._dtype)
 
         with self.timers.scope("kktinit"):
             self._solve_fn = self._build_solve_fn()

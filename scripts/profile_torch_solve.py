@@ -15,7 +15,8 @@ double-float LU kernels), and its PSD problems -- the
 max-cut SDP (one PSDTriangleConeT(100), N = 10200), the chordal max-cut
 (PSDTriangleConeT(124) of a sparse graph, decomposed into its cliques) and
 the bench's SDP batch at B = 2048 (N = 58) -- through "pallas" and "auto"
-(the chordal max-cut through "pallas", "lu" and "auto"), and phase 3f's
+(the chordal max-cut through "pallas", "lu" and "auto"; the SDP batch also
+at f32 through "auto", the double-float PSD scaling), and phase 3f's
 sparse problems -- the JAX bench's banded QP (n = 20000, KKT N = 60000)
 and banded SDP (PSDTriangleConeT(250), decomposed) -- through
 "multifrontal", and phase 3g's sparse batches through SparseBatchSolver
@@ -23,7 +24,9 @@ and banded SDP (PSDTriangleConeT(250), decomposed) -- through
 B = 512), each under torch.profiler after one untraced warm-up solve, and prints for
 each: the wall time, the summed device time of the kernels, the device's
 idle share (1 - device time / wall time; the kernels of one stream do not
-overlap), the kernels that take the most device time, and, from a second
+overlap), the kernels and copies it launched, those of the double-float
+products of kkt/compensated.py (each traced as a range), the kernels that
+take the most device time, and, from a second
 untraced solve, the device reads through ``timers.host_read`` and every
 device wait ``torch.cuda.set_sync_debug_mode`` reports (the reads among
 them; on PSD layouts the SVDs and eigenvalue solves add theirs).  For the
@@ -63,6 +66,44 @@ import clarabel_tpu_torch as tt  # noqa: E402
 from clarabel_tpu_torch.solver import full_precision  # noqa: E402
 
 
+#: the double-float products of kkt/compensated.py (the PSD scaling's, at
+#: f32), each traced as a range of its own
+DF_PRODUCTS = ("df_matmul", "df_matmul_df")
+
+
+def traced_df_products():
+    """Wrap each of DF_PRODUCTS in a profiler range of its name (the PSD
+    scaling calls them through the module, so the wrappers take effect)."""
+    from clarabel_tpu_torch.kkt import compensated
+
+    for name in DF_PRODUCTS:
+        fn = getattr(compensated, name)
+
+        def ranged(*args, _fn=fn, _name=name, **kwargs):
+            with torch.profiler.record_function(_name):
+                return _fn(*args, **kwargs)
+
+        setattr(compensated, name, ranged)
+
+
+def range_kernels(prof, names):
+    """Per range name: the kernels launched inside the ranges of that name
+    (their descendants' included) and their device milliseconds."""
+    out = {name: dict(launches=0, device_ms=0.0) for name in names}
+
+    def walk(event, into):
+        for k in getattr(event, "kernels", ()):
+            into["launches"] += 1
+            into["device_ms"] += k.duration / 1e3
+        for child in event.cpu_children:
+            walk(child, into)
+
+    for event in prof.events():
+        if event.name in out and (event.cpu_parent is None or event.cpu_parent.name not in out):
+            walk(event, out[event.name])
+    return out
+
+
 def profile_solve(problem, method, top, solver_type=tt.DefaultSolver, dtype="float64"):
     P, q, A, b, cones = problem
     settings = (tt.DefaultSettings.for_float32(verbose=False, direct_solve_method=method)
@@ -78,8 +119,13 @@ def profile_solve(problem, method, top, solver_type=tt.DefaultSolver, dtype="flo
         sol = solver.solve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # the DF_PRODUCTS ranges also show on the device's timeline, as spans
+    # over their kernels: not kernels themselves
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and e.key not in DF_PRODUCTS]
     device_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    df = range_kernels(prof, DF_PRODUCTS)
     kernels = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
     waits = device_waits(make)
     if solver_type in (tt.BatchSolver, tt.SparseBatchSolver):  # the slowest lane's
@@ -89,8 +135,8 @@ def profile_solve(problem, method, top, solver_type=tt.DefaultSolver, dtype="flo
         status, iterations = sol.status.name, sol.iterations
     return dict(
         method=method, dtype=dtype, status=status, iterations=iterations,
-        wall_ms=wall * 1e3, device_ms=device_us / 1e3,
-        idle_share=1.0 - device_us / 1e6 / wall, **waits,
+        wall_ms=wall * 1e3, device_ms=device_us / 1e3, device_operations=launches,
+        df_products=df, idle_share=1.0 - device_us / 1e6 / wall, **waits,
         kernels=[dict(name=e.key[:90], calls=e.count,
                       device_ms=e.self_device_time_total / 1e3) for e in kernels],
     )
@@ -121,6 +167,8 @@ def waits_per_call():
         S = M @ M.mT + torch.eye(shape[-1], dtype=torch.float64, device="cuda")
         calls = {"svd": lambda: torch.linalg.svd(M, full_matrices=False),
                  "eigvalsh": lambda: torch.linalg.eigvalsh(S),
+                 # f32 update_scaling: S and Z of a bucket in one call
+                 "eigh f32 S and Z": lambda: torch.linalg.eigh(torch.stack([S, S]).float()),
                  "cholesky_ex": lambda: torch.linalg.cholesky_ex(S),
                  "lu_factor_ex": lambda: torch.linalg.lu_factor_ex(S)}
         for name, fn in calls.items():
@@ -319,8 +367,10 @@ def main():
         "chordal_maxcut_n124": (chip_smoke.maxcut_dual(124, 3, args.seed + 31),
                                 tt.DefaultSolver, [("pallas", "float64"), ("lu", "float64"),
                                                    ("auto", "float64")]),
+        # and at f32 through "auto" (chip_smoke.py phase 3j: the double-float
+        # LU with K_lo, the double-float PSD scaling)
         "sdp_batch_B2048": (chip_smoke.sdp_batch(2048, 16, 4, args.seed + 32 + 2048),
-                            tt.BatchSolver, f64),
+                            tt.BatchSolver, f64 + [("auto", "float32")]),
         # chip_smoke.py phase 3f's sparse problems
         "banded_qp_n20000": (chip_smoke.banded_qp(20000, args.seed + 40), tt.DefaultSolver,
                              [("multifrontal", "float64")]),
@@ -334,6 +384,7 @@ def main():
     }
     chosen = set(problems if args.problems is None else args.problems.split(","))
     report = dict(card=card, runs=[])
+    traced_df_products()
     with full_precision():
         for label, (problem, solver_type, runs) in problems.items():
             if label not in chosen:
@@ -348,6 +399,11 @@ def main():
                       f"idle {100 * r['idle_share']:.1f}%, device reads "
                       f"{r['device_reads'] / its:.1f} and waits {r['device_waits'] / its:.1f} "
                       f"per iteration")
+                print(f"    device operations (kernels and copies) {r['device_operations']} "
+                      f"({r['device_operations'] / its:.0f} per iteration); double-float "
+                      "products: " + ", ".join(
+                          f"{name} {d['launches']} launches, {d['device_ms']:.2f} device ms"
+                          for name, d in r["df_products"].items()))
                 for k in r["kernels"]:
                     print(f"    {k['device_ms']:9.3f} ms  {k['calls']:6d}x  {k['name']}")
         report["waits_per_call"] = waits_per_call()

@@ -148,8 +148,36 @@ def test_mul_hs_df(name):
     assert torch.equal(bh[1], hi) and torch.equal(bl[1], lo)
 
 
-def test_mul_hs_df_psd_raises():
-    jl = JaxLayout(ct.cones.api.collapse_cones([ct.PSDTriangleConeT(2)]))
+def test_mul_hs_df_psd():
+    """PSD cones (this raised until the double-float PSD scaling was
+    ported): y = Hs (x + x_lo) through the double-float congruence of a
+    PSD(3) and a PSD(2) beside a nonnegative cone, on a scaling the JAX
+    package computes at f32, bit for bit the JAX package's (tests/
+    test_torch_f32_psd.py holds the stashed skron blocks and the larger
+    buckets)."""
+    jl = JaxLayout(ct.cones.api.collapse_cones(
+        [ct.NonnegativeConeT(2), ct.PSDTriangleConeT(3), ct.PSDTriangleConeT(2)]))
     tl = TorchLayout(tp.port_cones(jl.cones))
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tops.mul_hs_df(tl, {}, torch.zeros(tl.m))
+    rng = np.random.default_rng(11)
+
+    def interior():
+        v = np.concatenate([rng.uniform(0.5, 2.0, 2), np.zeros(jl.m - 2)])
+        pos = 2
+        for c in jl.cones[1:]:
+            Q, _ = np.linalg.qr(rng.normal(size=(c.dim, c.dim)))
+            M = Q @ np.diag(np.geomspace(1e-3, 1.0, c.dim)) @ Q.T
+            v[pos:pos + c.nvars] = [M[i, j] * (1.0 if i == j else np.sqrt(2.0))
+                                    for j in range(c.dim) for i in range(j + 1)]
+            pos += c.nvars
+        return v.astype(np.float32)
+
+    s, z = interior(), interior()
+    jstate, ok = jops.update_scaling(jl, jops.set_identity_scaling(jl, jnp.float32),
+                                     jnp.asarray(s), jnp.asarray(z), np.float32(1.0), 0)
+    assert bool(ok)
+    x, x_lo = _f32(rng, jl.m, scale=1e3), _f32(rng, jl.m, scale=1e-5)
+    ref = jops.mul_hs_df(jl, jstate, jnp.asarray(x), jnp.asarray(x_lo))
+    state = {k: torch.as_tensor(np.array(v)) for k, v in jstate.items()}
+    got = tops.mul_hs_df(tl, state, torch.as_tensor(x), torch.as_tensor(x_lo))
+    for g, r in zip(got, ref):
+        _equal(g, r)

@@ -136,18 +136,25 @@ def _f32(method):
         verbose=False, direct_solve_method=method))
 
 
+def _psd2():
+    """min x₁ + x₂ subject to [[x₁, ½], [½, x₂]] ⪰ 0 (one PSDTriangleConeT(2):
+    s = svec(X) = b - A x), optimum x = (½, ½), objective 1; x = (1, 1) is
+    strictly feasible.  (A PSD(2) with A = 1, b = 1 has no interior.)"""
+    A = -np.array([[1.0, 0.0], [0.0, 0.0], [0.0, 1.0]])
+    b = np.array([0.0, np.sqrt(2.0) / 2.0, 0.0])
+    return np.zeros((2, 2)), np.ones(2), A, b, [tt.PSDTriangleConeT(2)]
+
+
 @pytest.mark.parametrize("kwargs, item", [
     # the sparse multifrontal path runs at f64 only
     (_f32("multifrontal"), "item 12b"),
     (dict(batch=True, mesh=object()), "item 16"),
-    # f32 with a PSD cone, through "auto" and through a dense LU
-    (dict(cones=[tt.NonnegativeConeT(2), tt.PSDTriangleConeT(2)], **_f32("auto")), "item 12b"),
-    (dict(batch=True, cones=[tt.NonnegativeConeT(2), tt.PSDTriangleConeT(2)], **_f32("lu")),
-     "item 12b"),
+    # so does an f32 PSD problem routed there
+    (dict(psd=True, **_f32("multifrontal")), "item 12b"),
 ])
 def test_unported_options_raise(kwargs, item):
-    P, q, A, b, cones = _tiny_qp()
     kwargs = dict(kwargs)
+    P, q, A, b, cones = _psd2() if kwargs.pop("psd", False) else _tiny_qp()
     kwargs.setdefault("settings", tt.DefaultSettings(verbose=False))
     cones = kwargs.pop("cones", cones)
     with pytest.raises(NotImplementedError, match=item):
@@ -156,6 +163,15 @@ def test_unported_options_raise(kwargs, item):
             tt.BatchSolver(P, q, A, b, cones, device="cpu", **kwargs).solve()
         else:
             tt.DefaultSolver(P, q, A, b, cones, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    # f32 with a PSD cone, through "auto" and through a dense LU (these
+    # raised until the double-float PSD scaling was ported)
+    _f32("auto"), dict(batch=True, **_f32("lu")),
+])
+def test_f32_psd_options_solve(kwargs):
+    _solved_like_f64(kwargs, _psd2)
 
 
 def _solved_like_f64(kwargs, make=None):
@@ -199,8 +215,6 @@ def test_f32_dense_options_solve(kwargs):
     # the sparse batch runs at f64 on one device
     ("SparseBatchSolver float32", "item 12b"),
     ("SparseBatchSolver mesh", "item 16"),
-    # a problem file loads at f32 only where the solve would run at f32
-    ("load_from_file float32 PSD", "item 12b"),
     # BatchSolver on one device
     ("BatchSolver mesh", "item 16"),
 ])
@@ -212,24 +226,26 @@ def test_unported_entry_points_raise(entry, item, tmp_path):
             tt.SparseBatchSolver(sp.csc_matrix(P), np.stack([q, q]), sp.csc_matrix(A),
                                  np.stack([b, b]), cones, device="cpu", **kwargs)
         return
-    if entry.startswith("BatchSolver"):
-        with pytest.raises(NotImplementedError, match=item):
-            tt.BatchSolver(*(np.stack([v, v]) for v in (P, q, A, b)), cones,
-                           tt.DefaultSettings(verbose=False), device="cpu", mesh=object())
-        return
-    s = tt.DefaultSolver(np.eye(2), np.ones(2), np.ones((3, 2)), np.ones(3),
-                         [tt.PSDTriangleConeT(2)], tt.DefaultSettings(verbose=False), device="cpu")
-    s.save_to_file(tmp_path / "problem.json")
     with pytest.raises(NotImplementedError, match=item):
-        tt.DefaultSolver.load_from_file(tmp_path / "problem.json", dtype="float32",
-                                        device="cpu")
+        tt.BatchSolver(*(np.stack([v, v]) for v in (P, q, A, b)), cones,
+                       tt.DefaultSettings(verbose=False), device="cpu", mesh=object())
 
 
 def test_load_from_file_float32_lu_solves(tmp_path):
     """A problem file loads at f32 and solves through "lu" (the double-float
     LU; this raised until the compensated f32 stack was ported), within 1e-3
     of the f64 solve of the same file."""
-    P, q, A, b, cones = _tiny_qp()
+    _load_and_solve_f32(_tiny_qp(), tmp_path)
+
+
+def test_load_from_file_float32_psd_solves(tmp_path):
+    """The same for a PSD problem (this raised until the double-float PSD
+    scaling was ported)."""
+    _load_and_solve_f32(_psd2(), tmp_path)
+
+
+def _load_and_solve_f32(problem, tmp_path):
+    P, q, A, b, cones = problem
     s = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(
         verbose=False, direct_solve_method="lu"), device="cpu")
     ref = s.solve()
@@ -260,19 +276,13 @@ def test_sparse_batch_solver_defaults_to_cuda_and_has_no_time_limit(monkeypatch)
         tt.SparseBatchSolver(*args, tt.DefaultSettings(verbose=False))
 
 
-@pytest.mark.parametrize("cone, kwargs, item", [
-    # the PSD cones run at f64 only, through every method
-    (api.PSDTriangleConeT(2), _f32("auto"), "item 12b"),
-    (api.PSDTriangleConeT(2), _f32("lu"), "item 12b"),
-    (api.PSDTriangleConeT(2), _f32("pallas"), "item 12b"),
-])
-def test_unported_cones_raise(cone, kwargs, item):
-    m = cone.nvars
-    kwargs = dict(kwargs)
-    settings = kwargs.pop("settings", tt.DefaultSettings(verbose=False))
-    with pytest.raises(NotImplementedError, match=item):
-        tt.DefaultSolver(np.eye(2), np.ones(2), np.ones((m, 2)), np.ones(m), [cone],
-                         settings, device="cpu", **kwargs)
+@pytest.mark.parametrize("method", ["auto", "lu", "pallas"])
+def test_f32_psd_cones_solve(method):
+    """The PSD cone at f32 through each dense route: "auto" and "lu" the
+    double-float LU with K_lo, "pallas" the LDLᵀ's f32 twin with the
+    (K, K_lo) refinement (these raised until the double-float PSD scaling
+    was ported)."""
+    _solved_like_f64(_f32(method), _psd2)
 
 
 @pytest.mark.parametrize("cone, kwargs", [
