@@ -188,8 +188,30 @@ Phases:
      device reads and waits per iteration (and at B = 64 the device
      operations, kernels and copies, by the profiler) and how often the
      centering recovery fired;
-  4. the launch counts of phases 2-3, 3b, 3d, 3e, 3f, 3g, 3h, 3i and 3j and
-     one JSON line per kernel and shape.
+  3k. f32 on the sparse path (the compensated sparse refinement: the
+     limb-split segment sums and the DIA products' ``.df``, the
+     K-consistent Δs recovery; K3 at f32 on the fronts' diagonal blocks),
+     each problem against its f64 solve in this run, with the f32 preset:
+     the banded QP of phase 3f (N = 60000) through "multifrontal", solved
+     twice bit for bit; the banded SDP through "auto" (chordally decomposed,
+     the multifrontal engine); phase 3g's sparse QP batches at B = 32 (twice,
+     bit for bit) and 512 and its NN + SOC batch (the cone active) through
+     SparseBatchSolver(dtype="float32"); the JAX package's f32 expansion
+     test problem at d = 300 (ZeroConeT(1) + SecondOrderConeT(300), the
+     rank-2 expansion and the segment matvec), with its host primal
+     residual at the f32 preset's tol_feas.  Every problem (lane) Solved
+     within 1e-4 relative of its f64 objective, the unblocked kernel
+     launched -- but the NN + SOC batch, whose f32 end game leaves 46 of 64
+     lanes short of Solved in the JAX package too (SPARSE_F32_JAX_SHORT):
+     its lanes end in the statuses the JAX package's do, the counts of
+     lanes short and failed held to that package's by the one-sided exact
+     test at 1 %, the lanes Solved within 1e-4 of f64; each printing ms per
+     iteration at f32 and f64, refinement sweeps per iteration and the
+     kernel's launches per factor; phase 1 holds the kernel at f32 with the
+     f32 preset's regularization bit for bit against its twin at the fronts'
+     shapes (287, 35, 2752 and 44032 x 32²);
+  4. the launch counts of phases 2-3, 3b, 3d, 3e, 3f, 3g, 3h, 3i, 3j and
+     3k and one JSON line per kernel and shape.
 
 With --deterministic the run also sets torch.use_deterministic_algorithms
 (warn only) and lists each operation PyTorch reports as having no
@@ -260,6 +282,10 @@ DF_SOURCE = "clarabel_tpu_torch/kkt/csrc/df_lu.cu"
 #: n = 1000 QP's widest bucket, 86 fronts, in 32 and 512 lanes) and edge
 #: widths
 FRONT_SHAPES = ((287, 32), (35, 32), (2752, 32), (44032, 32), (7, 1), (7, 17), (7, 32))
+#: the same kernel at f32 on phase 3k's fronts, the same plans' widest
+#: buckets (the banded QP's and SDP's, the sparse batches'), with the f32
+#: preset's regularization
+FRONT_SHAPES_F32 = ((287, 32), (35, 32), (2752, 32), (44032, 32))
 
 
 def log(*args):
@@ -603,7 +629,7 @@ def check_regularization(variant, n, pivots, device, settings):
         f"{fired[0].nonzero().flatten().tolist()} in both, max|Δ| {err:.2e}")
 
 
-def front_blocks(B, N, seed, device):
+def front_blocks(B, N, seed, device, dtype=torch.float64):
     """B symmetric N x N blocks as the multifrontal engine hands them to the
     unblocked kernel, with their [B, N] expected signs: each block
     diagonally dominant in its own mixed signs, and two pivots that fire
@@ -617,19 +643,20 @@ def front_blocks(B, N, seed, device):
     K[0, 0, :] = K[0, :, 0] = 0.0
     K[0, 0, 0] = 1e-15 * sign[0, 0]
     K[-1, -1, -1] = -5.0 * sign[-1, -1]
-    as_t = lambda v: torch.as_tensor(v, dtype=torch.float64, device=device)
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return as_t(K), as_t(sign)
 
 
-def check_front_blocks(B, N, seed, device, settings, sm_hz, reps=20):
+def check_front_blocks(B, N, seed, device, settings, sm_hz, reps=20, dtype=torch.float64):
     """``ldl_unblocked_kernel`` with per-matrix signs (a sign stride of N),
     the multifrontal engine's route for its diagonal blocks, against its
-    plain twin on the card: bit for bit, the regularization firing on the
-    same pivots."""
+    plain twin on the card at ``dtype`` (with the regularization of
+    ``settings``: the f32 preset's at f32): bit for bit, the regularization
+    firing on the same pivots."""
     from clarabel_tpu_torch.kkt import pallas_ldl as pl
     from clarabel_tpu_torch.kkt import sparse as kkt_sparse
 
-    K, sign = front_blocks(B, N, seed, device)
+    K, sign = front_blocks(B, N, seed, device, dtype)
     eps, delta = kkt_sparse._regularization(settings)
     before = pl.ldl_unblocked.launches
     packed = pl.ldl_unblocked(K, sign, eps, delta)
@@ -643,15 +670,16 @@ def check_front_blocks(B, N, seed, device, settings, sm_hz, reps=20):
     fired = (d == delta * sign).nonzero().tolist()
     assert torch.equal(d == delta * sign, ref.diagonal(dim1=1, dim2=2) == delta * sign)
     assert [0, 0] in fired and [B - 1, N - 1] in fired
-    row = dict(variant="fori", signs="per-matrix", B=B, N=N, dtype="float64", max_abs_err=err,
-               max_abs_ref=float(ref.abs().max()), regularized=fired)
+    name = str(dtype).replace("torch.", "")
+    row = dict(variant="fori", signs="per-matrix", B=B, N=N, dtype=name, eps=eps, delta=delta,
+               max_abs_err=err, max_abs_ref=float(ref.abs().max()), regularized=fired)
     row["ms"] = cuda_ms(lambda: pl.ldl_unblocked(K, sign, eps, delta), reps)
     row["plain_ms"] = cuda_ms(lambda: pl.ldl_unblocked_plain(K, sign, eps, delta), 1)
     row["lu_factor_ms"] = cuda_ms(lambda: torch.linalg.lu_factor_ex(K), reps)
-    row["bound_ms"], row["bound_by"] = bound_ms(B, N, torch.float64)
-    row.update(one_sm_ms(B, N, torch.float64, sm_hz))
+    row["bound_ms"], row["bound_by"] = bound_ms(B, N, dtype)
+    row.update(one_sm_ms(B, N, dtype, sm_hz))
     pl.ldl_unblocked.launches = before
-    log(f"  fori     B={B} N={N:4d} float64, [B, N] signs: bitwise equal, regularized {fired}, "
+    log(f"  fori     B={B} N={N:4d} {name}, [B, N] signs: bitwise equal, regularized {fired}, "
         f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, lu_factor "
         f"{row['lu_factor_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), "
         f"one SM: non-FMA floor {row['one_sm_nonfma_floor_ms']:.5f} ms, peak "
@@ -1686,22 +1714,34 @@ def time_multifrontal(solver, reps=5):
                 launches_per_factor=per_factor)
 
 
-def sparse_solve(label, problem, method, **settings):
-    """One DefaultSolver solve on the card, as :func:`psd_solve`, with the
-    multifrontal engine's plan, setup, cost model and the unblocked
-    kernel's launches (counted from 0 just before the solve) when the
-    solve takes that engine."""
+def sparse_settings(dtype, **settings):
+    """The settings of a sparse-path solve at ``dtype``: the f32 preset at
+    f32."""
     import clarabel_tpu_torch as tt
-    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+
+    make = tt.DefaultSettings.for_float32 if dtype == "float32" else tt.DefaultSettings
+    return make(verbose=False, **settings)
+
+
+def sparse_solve(label, problem, method, dtype="float64", **settings):
+    """One DefaultSolver solve on the card at ``dtype``, as
+    :func:`psd_solve`, with the multifrontal engine's plan, setup, cost
+    model and the unblocked kernel's launches, the refined solves' sweeps
+    and the double-float LU's factors (each counted from 0 just before the
+    solve) when the solve takes that engine."""
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch.kkt import dense as kkt_dense, df_ldl, pallas_ldl as pl
     from clarabel_tpu_torch.timers import host_read
 
     P, q, A, b, cones = problem
     t0 = time.perf_counter()
-    solver = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings(
-        verbose=False, direct_solve_method=method, **settings), device="cuda")
+    solver = tt.DefaultSolver(P, q, A, b, cones, sparse_settings(
+        dtype, direct_solve_method=method, **settings), dtype=dtype, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     pl.ldl_unblocked.launches = 0
+    df_ldl.factor.launches = 0
+    kkt_dense.solve_refined.sweeps = 0
     host_read.count = 0
     with SyncCounter() as syncs:
         t0 = time.perf_counter()
@@ -1711,14 +1751,17 @@ def sparse_solve(label, problem, method, **settings):
     assert np.all(np.isfinite(sol.x)) and sol.x.shape == (q.shape[0],)
     its = max(sol.iterations, 1)
     info = solver.info.linear_solver
-    row = dict(method=method, kkt=info.name, N=info.dim, status=sol.status.name,
+    row = dict(method=method, dtype=dtype, kkt=info.name, N=info.dim, status=sol.status.name,
                iterations=sol.iterations, obj=sol.obj_val, setup_s=setup_s, ms=seconds * 1e3,
                ms_per_iteration=seconds * 1e3 / its, reads=host_read.count, syncs=syncs.count,
-               unblocked_launches=launches, cost_model=info.cost_model)
-    log(f"  {label} {method} ({info.name}, N={info.dim}): {sol.status.name}, "
+               unblocked_launches=launches, df_factor_launches=df_ldl.factor.launches,
+               sweeps_per_iteration=kkt_dense.solve_refined.sweeps / its,
+               cost_model=info.cost_model)
+    log(f"  {label} {method} {dtype} ({info.name}, N={info.dim}): {sol.status.name}, "
         f"{sol.iterations} iterations, obj {sol.obj_val:.12e}, setup {setup_s:.2f} s, solve "
         f"{seconds * 1e3:.1f} ms ({row['ms_per_iteration']:.2f} ms/iteration), device reads "
-        f"{host_read.count / its:.1f}/iteration, waits {syncs.count / its:.1f}/iteration")
+        f"{host_read.count / its:.1f}/iteration, waits {syncs.count / its:.1f}/iteration, "
+        f"refinement sweeps {row['sweeps_per_iteration']:.2f}/iteration")
     if info.cost_model is not None:
         log(f"    cost model: {info.cost_model}")
     if solver._sparse:
@@ -1894,51 +1937,60 @@ def lane_solution(sol, i):
                                  obj_val=float(sol.obj_val[i]))
 
 
-def sparse_batch_solve(label, problem, repeat=False):
-    """One SparseBatchSolver solve on the card: (solver, solution, report
-    row), with the unblocked kernel's launches and the device reads counted
-    from 0 just before the solve, the solve's peak device memory, the plan,
-    and one factor and solve timed by CUDA events.  ``repeat`` solves again
-    and requires the same bits."""
+def sparse_batch_solve(label, problem, repeat=False, dtype="float64"):
+    """One SparseBatchSolver solve on the card at ``dtype``: (solver,
+    solution, report row), with the unblocked kernel's launches, the
+    refined solves' sweeps and the device reads counted from 0 just before
+    the solve, the solve's peak device memory, the plan, each lane's status
+    and objective, and one factor and solve timed by CUDA events.
+    ``repeat`` solves again and requires the same bits."""
     import clarabel_tpu_torch as tt
-    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+    from clarabel_tpu_torch.kkt import dense as kkt_dense, pallas_ldl as pl
     from clarabel_tpu_torch.timers import host_read
 
     P, q, A, b, cones = problem
     B = q.shape[0]
     t0 = time.perf_counter()
-    solver = tt.SparseBatchSolver(P, q, A, b, cones, tt.DefaultSettings(
-        verbose=False, direct_solve_method="multifrontal"), device="cuda")
+    solver = tt.SparseBatchSolver(P, q, A, b, cones, sparse_settings(
+        dtype, direct_solve_method="multifrontal"), dtype=dtype, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     pl.ldl_unblocked.launches = 0
+    kkt_dense.solve_refined.sweeps = 0
     host_read.count = 0
     t0 = time.perf_counter()
     sol = solver.solve()
     seconds = time.perf_counter() - t0
     launches, reads = pl.ldl_unblocked.launches, host_read.count
+    sweeps = kkt_dense.solve_refined.sweeps
     peak = torch.cuda.max_memory_allocated()
-    assert np.all(np.isfinite(sol.x)) and sol.x.shape == q.shape
+    # every lane's x finite at f64; at f32 a lane short of Solved may end
+    # with a non-finite x, as in the JAX package (phase 3k's NN + SOC batch)
+    checked = [s == tt.SolverStatus.Solved or dtype == "float64" for s in sol.statuses()]
+    assert np.all(np.isfinite(sol.x[checked])) and sol.x.shape == q.shape
     its = sol.iterations
     slowest = max(int(its.max()), 1)
     plan = solver.plan
     widest = max((B_.k, B_.c_pad) for lvl in plan.levels for B_ in lvl)
     statuses = sol.statuses()
-    row = dict(B=B, N=solver._skkt.N, setup_s=setup_s, ms=seconds * 1e3,
+    row = dict(B=B, N=solver._skkt.N, dtype=dtype, setup_s=setup_s, ms=seconds * 1e3,
                solves_per_s=B / seconds, ms_per_iteration=seconds * 1e3 / slowest,
                iterations_min=int(its.min()), iterations_max=int(its.max()),
                statuses={s.name: statuses.count(s) for s in set(statuses)},
+               lane_statuses=[s.name for s in statuses], lane_obj=sol.obj_val.tolist(),
                reads=reads, reads_per_iteration=reads / slowest,
+               sweeps_per_iteration=sweeps / slowest,
                unblocked_launches=launches, peak_memory_bytes=peak,
                levels=len(plan.levels), buckets=sum(len(lvl) for lvl in plan.levels),
                nnzL=plan.nnzL, total_cells=plan.total_cells, W=plan.W,
                widest_block_batch=B * widest[0], widest_block_cols=min(widest[1], 32),
                **time_multifrontal_batch(solver))
-    log(f"  {label} B={B} N={row['N']}: {row['statuses']}, iterations {its.min()}-{its.max()}, "
-        f"setup {setup_s:.2f} s, solve {seconds * 1e3:.1f} ms, {row['solves_per_s']:.1f} "
-        f"solves/s, {row['ms_per_iteration']:.2f} ms/iteration (slowest lane), device reads "
-        f"{row['reads_per_iteration']:.1f}/iteration, peak memory {peak / 2**20:.0f} MiB")
+    log(f"  {label} B={B} N={row['N']} {dtype}: {row['statuses']}, iterations "
+        f"{its.min()}-{its.max()}, setup {setup_s:.2f} s, solve {seconds * 1e3:.1f} ms, "
+        f"{row['solves_per_s']:.1f} solves/s, {row['ms_per_iteration']:.2f} ms/iteration "
+        f"(slowest lane), device reads {row['reads_per_iteration']:.1f}/iteration, refinement "
+        f"sweeps {row['sweeps_per_iteration']:.2f}/iteration, peak memory {peak / 2**20:.0f} MiB")
     log(f"    plan: {row['levels']} levels, {row['buckets']} buckets, nnzL {plan.nnzL}, "
         f"{plan.total_cells} front cells per lane; factor {row['factor_ms']:.2f} ms, solve "
         f"{row['solve_ms']:.2f} ms (2 RHS {row['solve_2rhs_ms']:.2f} ms) by CUDA events; "
@@ -2816,6 +2868,168 @@ def f32_psd_phase(seed, report):
     return out
 
 
+# -----------------------------------------------------------------
+# phase 3k: f32 on the sparse path
+# -----------------------------------------------------------------
+
+
+#: the lanes of phase 3k's f32 sparse batches that end short of Solved in
+#: the JAX package's own f32 SparseBatchSolver on the same data
+#: (scripts/f32_reference_status.py --problem nn_soc_b64, on the CPU): label
+#: -> {lane: the JAX package's status}; the sparse QP batches' lanes are not
+#: recorded (every lane of the port's ends Solved).  The NN + SOC batch with
+#: the cone active is the expanded cone's f32 end game: the JAX package ends
+#: 18 of its 64 lanes Solved, 32 AlmostSolved and 14 NumericalError (both
+#: packages return a non-finite x on most of the lanes short of Solved), and
+#: which lanes is decided by rounding (the port's CPU run ends 19 Solved, on
+#: other lanes), so that batch is held to the JAX package's counts.
+_NN_SOC_ALMOST = (0, 1, 6, 7, 9, 13, 15, 16, 17, 18, 19, 21, 23, 24, 26, 27, 28, 29, 30, 32,
+                  36, 37, 39, 40, 41, 42, 43, 46, 50, 53, 59, 63)
+_NN_SOC_FAILED = (2, 4, 11, 12, 20, 25, 31, 34, 38, 44, 48, 49, 58, 62)
+SPARSE_F32_JAX_SHORT = {
+    "NN+SOC B=64": {**{i: "AlmostSolved" for i in _NN_SOC_ALMOST},
+                    **{i: "NumericalError" for i in _NN_SOC_FAILED}},
+}
+
+
+def expanded_soc(d=300):
+    """The JAX package's f32 expansion test problem at d = 300
+    (test_f32_small_expansion_cones_stay_dense_and_solve's third one, its
+    draws in order): min ½‖x‖² + qᵀx with Σx = 1 and x in one
+    SecondOrderConeT(d), which f32 keeps on the rank-2 expansion (above
+    kkt.sparse.SOC_NO_EXPANSION_MAX_SIZE_F32 = 256)."""
+    import scipy.sparse as sp
+    from clarabel_tpu_torch import SecondOrderConeT, ZeroConeT
+
+    rng = np.random.default_rng(3)
+    rng.standard_normal(40)  # the test's d = 40 problem's q
+    q = rng.standard_normal(d)
+    A = sp.vstack([sp.csc_matrix(np.ones((1, d))), -sp.eye(d)], format="csc")
+    return (sp.eye(d, format="csc"), q, A, np.concatenate([[1.0], np.zeros(d)]),
+            [ZeroConeT(1), SecondOrderConeT(d)])
+
+
+def primal_residual(problem, sol):
+    """Host-side ‖Ax + s − b‖∞ over 1 + the largest of its terms."""
+    _, _, A, b, _ = problem
+    Ax = A @ sol.x
+    nrm = lambda *v: max(float(np.max(np.abs(u), initial=0.0)) for u in v)
+    return nrm(Ax + sol.s - b) / (1.0 + nrm(Ax, sol.s, b))
+
+
+def f32_sparse_single(label, problem, method, f64_row, repeat=False):
+    """One f32 solve of ``problem`` through ``method`` on the card, gated:
+    Solved, the objective within 1e-4 relative of its f64 solve (``f64_row``,
+    a :func:`sparse_solve` row of this run), and on the multifrontal engine
+    the unblocked kernel launched; ``repeat`` solves again on the same
+    solver and requires the same bits."""
+    import clarabel_tpu_torch as tt
+
+    solver, sol, row = sparse_solve(label, problem, method, dtype="float32")
+    row["rel_obj_vs_f64"] = abs(sol.obj_val - f64_row["obj"]) / max(1.0, abs(f64_row["obj"]))
+    row["f64_ms_per_iteration"] = f64_row["ms_per_iteration"]
+    log(f"    f32 {row['ms_per_iteration']:.2f} ms/iteration, f64 "
+        f"{f64_row['ms_per_iteration']:.2f}; {row['iterations']} iterations against "
+        f"{f64_row['iterations']}; objective {row['rel_obj_vs_f64']:.2e} from f64; unblocked "
+        f"kernel {row.get('launches_per_factor')} launches per factor, double-float LU "
+        f"{row['df_factor_launches']} factors")
+    assert sol.status == tt.SolverStatus.Solved, f"{label} f32 {method}: {sol.status.name}"
+    assert row["rel_obj_vs_f64"] <= 1e-4, f"{label} f32: objective {row['rel_obj_vs_f64']:.3e}"
+    if solver._sparse:
+        assert row["unblocked_launches"] > 0 and row["df_factor_launches"] == 0
+    if repeat:
+        x_first = sol.x.copy()
+        again = solver.solve()
+        row["repeats"] = bool(np.array_equal(again.x, x_first)
+                              and again.iterations == sol.iterations)
+        log(f"    a second f32 solve bitwise equal: {row['repeats']}")
+        assert row["repeats"], f"{label} f32: a repeated solve differs"
+    return solver, sol, row
+
+
+def f32_sparse_batch(label, problem, f64_row, repeat=False):
+    """One f32 SparseBatchSolver solve on the card, gated on the JAX
+    package's f32 outcome of the same batch (SPARSE_F32_JAX_SHORT): every
+    lane Solved where that package's are; otherwise every lane in a status
+    its lanes end in, and the counts of lanes short of Solved and of lanes
+    failed (NumericalError) held to its counts by the one-sided exact test
+    of :func:`entropy_counts_agree`.  Each lane Solved at both precisions
+    within 1e-4 relative of its f64 objective (``f64_row``, phase 3g's); the
+    unblocked kernel launched."""
+    _, sol, row = sparse_batch_solve(label, problem, repeat=repeat, dtype="float32")
+    f64_obj, f64_status = np.asarray(f64_row["lane_obj"]), f64_row["lane_statuses"]
+    names = row["lane_statuses"]
+    short = {i: n for i, n in enumerate(names) if n != "Solved"}
+    jax_short = SPARSE_F32_JAX_SHORT.get(label, {})
+    both = np.array([n == "Solved" and f == "Solved" for n, f in zip(names, f64_status)])
+    rel = np.abs(sol.obj_val - f64_obj) / np.maximum(1.0, np.abs(f64_obj))
+    failed = [i for i, n in short.items() if n == "NumericalError"]
+    jax_failed = [i for i, n in jax_short.items() if n == "NumericalError"]
+    short_agree, short_p = entropy_counts_agree(len(short), len(jax_short))
+    failed_agree, failed_p = entropy_counts_agree(len(failed), len(jax_failed))
+    row.update(short=short, jax_short=jax_short, shared_short_p=short_p,
+               shared_failed_p=failed_p, max_rel_obj_vs_f64=float(rel[both].max(initial=0.0)),
+               f64_ms_per_iteration=f64_row["ms_per_iteration"],
+               f64_solves_per_s=f64_row["solves_per_s"])
+    log(f"    f32 {row['ms_per_iteration']:.2f} ms/iteration and {row['solves_per_s']:.1f} "
+        f"solves/s, f64 {f64_row['ms_per_iteration']:.2f} and {f64_row['solves_per_s']:.1f}; "
+        f"{len(short)} lanes short of Solved ({len(failed)} NumericalError), the JAX "
+        f"package's f32 {len(jax_short)} ({len(jax_failed)}): P(Bin >= port's) {short_p:.3f} "
+        f"and {failed_p:.3f}; short in both {sorted(set(short) & set(jax_short))}, in the "
+        f"port only {sorted(set(short) - set(jax_short))}; lanes Solved at both precisions "
+        f"within {row['max_rel_obj_vs_f64']:.2e} of f64")
+    allowed = {"Solved", *jax_short.values()}
+    assert all(n in allowed for n in names), f"{label} f32: {short}, allowed {allowed}"
+    assert short_agree and failed_agree, \
+        f"{label} f32: {len(short)} short and {len(failed)} failed lanes against the JAX " \
+        f"package's {len(jax_short)} and {len(jax_failed)}"
+    assert row["max_rel_obj_vs_f64"] <= 1e-4, \
+        f"{label} f32: objective {row['max_rel_obj_vs_f64']:.3e} from f64"
+    assert row["unblocked_launches"] > 0
+    return row
+
+
+def f32_sparse_phase(seed, report):
+    """Phase 3k: f32 on the sparse path on the card, each problem against
+    its f64 solve in this run (phases 3f and 3g, and here the expanded SOC)."""
+    sparse, batches = report["sparse"], report["sparse_batch"]
+    out = {}
+    # the JAX bench's sparse_multifrontal: banded QP, N = 60000, repeated
+    _, _, out["banded QP"] = f32_sparse_single(
+        "banded QP n=20000", banded_qp(20000, seed + 40), "multifrontal",
+        sparse["qp"]["multifrontal"], repeat=True)
+    assert out["banded QP"]["kkt"] == "multifrontal" and out["banded QP"]["N"] == 60000
+    # the JAX bench's sparse_sdp_auto: "auto" decomposes and keeps the
+    # multifrontal engine, the f32 PSD Hs values of the cliques in K
+    solver, _, out["banded SDP"] = f32_sparse_single(
+        "banded SDP n=250", banded_sdp(250), "auto", sparse["sdp"]["auto"])
+    assert solver._chordal is not None and out["banded SDP"]["kkt"] == "multifrontal", \
+        f"banded SDP f32 auto: took {out['banded SDP']['kkt']}"
+    # the JAX bench's batched_sparse_qp at B = 32 (repeated) and 512
+    for label, B, extra, repeat in (("sparse QP B=32", 32, 50, True),
+                                    ("sparse QP B=512", 512, 51, False)):
+        out[label] = f32_sparse_batch(label, sparse_qp_batch(B, 1000, seed + extra),
+                                      batches[label], repeat=repeat)
+    # phase 3g's NN + SOC batch, the cone active (rank-2 expansion)
+    out["NN+SOC B=64"] = f32_sparse_batch("NN+SOC B=64", nn_soc_batch(64, 500, seed + 52),
+                                          batches["NN+SOC B=64"])
+    # the expanded SOC at d = 300: the segment matvec's .df and the
+    # K-consistent Δs recovery on the card; the primal residual at the f32
+    # preset's tolerance (no 1e-4 floor of the extension rows)
+    soc = expanded_soc(300)
+    _, _, f64_row = sparse_solve("expanded SOC d=300", soc, "multifrontal")
+    solver, sol, row = f32_sparse_single("expanded SOC d=300", soc, "multifrontal", f64_row)
+    row["primal_residual"] = primal_residual(soc, sol)
+    tol = solver.settings.tol_feas
+    log(f"    soc_expanded {solver._skkt.soc_expanded}, dia offsets "
+        f"{len(solver._skkt.dia_offsets)}; host primal residual {row['primal_residual']:.2e} "
+        f"(tol_feas {tol:.0e})")
+    assert solver._skkt.soc_expanded == (True,) and not solver._skkt.dia_offsets
+    assert row["primal_residual"] <= tol, f"expanded SOC f32: primal {row['primal_residual']:.3e}"
+    out["expanded SOC"] = dict(row, f64=f64_row)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2943,6 +3157,10 @@ def run(args) -> int:
         # the multifrontal engine's diagonal blocks, per-matrix signs
         fronts = [check_front_blocks(B, N, args.seed + B + N, device, settings, sm_hz)
                   for B, N in FRONT_SHAPES]
+        fronts += [check_front_blocks(B, N, args.seed + B + N, device,
+                                      tt.DefaultSettings.for_float32(), sm_hz,
+                                      dtype=torch.float32)
+                   for B, N in FRONT_SHAPES_F32]
         report["front_blocks_vs_plain"] = fronts
         # the double-float LU's factor and solve kernels, bit for bit
         df_rows = df_phase1(args.seed, device, sm_hz)
@@ -3041,6 +3259,15 @@ def run(args) -> int:
         report["f32_psd_seconds"] = time.perf_counter() - t0
         log(f"  phase 3j took {report['f32_psd_seconds']:.1f} s")
 
+        # ---- phase 3k: f32 on the sparse path; the kernels' launches
+        # counted from zero for each solve
+        log("phase 3k: f32 on the sparse path (compensated sparse refinement, K3 at f32 on "
+            "the fronts)")
+        t0 = time.perf_counter()
+        report["f32_sparse"] = f32_sparse_phase(args.seed, report)
+        report["f32_sparse_seconds"] = time.perf_counter() - t0
+        log(f"  phase 3k took {report['f32_sparse_seconds']:.1f} s")
+
     # ---- phase 4: launch counts and the kernels line
     log(f"phase 4: launches on the main path {launches}")
     main_shape = {"blocked": (1, 1000, 1001), "unrolled": (1, 100, 101), "fori": (8, 100, 100)}
@@ -3121,7 +3348,8 @@ def run(args) -> int:
     for label, run_ in (("banded QP n=20000", sparse["qp"]["multifrontal"]),
                         ("banded SDP n=250", sparse["sdp"]["multifrontal"])):
         B = run_["widest_block_batch"]
-        row = next(r for r in fronts if r["B"] == B and r["N"] == 32)
+        row = next(r for r in fronts if r["B"] == B and r["N"] == 32
+                   and r["dtype"] == "float64")
         assert run_["unblocked_launches"] > 0
         kernels.append(dict(
             name=KERNELS["fori"]["name"], route="cuda", source=SOURCE,
@@ -3138,7 +3366,8 @@ def run(args) -> int:
     for label in ("sparse QP B=32", "sparse QP B=512"):
         run_ = report["sparse_batch"][label]
         B, N = run_["widest_block_batch"], run_["widest_block_cols"]
-        row = next(r for r in fronts if r["B"] == B and r["N"] == N)
+        row = next(r for r in fronts if r["B"] == B and r["N"] == N
+                   and r["dtype"] == "float64")
         assert run_["unblocked_launches"] > 0
         kernels.append(dict(
             name=KERNELS["fori"]["name"], route="cuda", source=SOURCE,
@@ -3171,7 +3400,8 @@ def run(args) -> int:
             yardstick_lu_factor_ms=row["lu_factor_ms"],
         ))
     B = report["host"]["json_n60000"]["widest_block_batch"]
-    row = next(r for r in fronts if r["B"] == B and r["N"] == 32)
+    row = next(r for r in fronts if r["B"] == B and r["N"] == 32
+                   and r["dtype"] == "float64")
     assert launches_3h["fori"] > 0
     kernels.append(dict(
         name=KERNELS["fori"]["name"], route="cuda", source=SOURCE,
@@ -3265,6 +3495,24 @@ def run(args) -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
             shape=[B, n + m, n + m], dtype="float32", path=f"f32 PSD, phase 3j {label}",
             yardstick_ldl_factor_ms=row["ldl_factor_ms"],
+            yardstick_lu_factor_ms=row["lu_factor_ms"],
+        ))
+    # phase 3k's paths: the unblocked kernel at f32 on the fronts' diagonal
+    # blocks, per-matrix signs; one row per problem at its widest bucket's
+    # block shape, with the launches of its f32 multifrontal solve
+    f32s = report["f32_sparse"]
+    for label in ("banded QP", "banded SDP", "sparse QP B=32", "sparse QP B=512"):
+        run_ = f32s[label]
+        B, N = run_["widest_block_batch"], run_.get("widest_block_cols", 32)
+        row = next(r for r in fronts if r["B"] == B and r["N"] == N and r["dtype"] == "float32")
+        assert run_["unblocked_launches"] > 0
+        kernels.append(dict(
+            name=KERNELS["fori"]["name"], route="cuda", source=SOURCE,
+            replaces=KERNELS["fori"]["replaces"], launches=run_["unblocked_launches"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            shape=[B, N, N], dtype="float32", signs="per-matrix",
+            path=f"f32 sparse, phase 3k {label}, multifrontal diagonal blocks",
             yardstick_lu_factor_ms=row["lu_factor_ms"],
         ))
     report["seconds"] = time.perf_counter() - started

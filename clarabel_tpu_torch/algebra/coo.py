@@ -130,6 +130,23 @@ def segment_apply(levels, x, dim=0):
     return x
 
 
+def segment_max(levels, x, dim=0):
+    """Largest entry of each segment of a nonnegative ``x`` along ``dim``,
+    through the levels of :func:`segment_levels` (0 for an empty segment).
+    A maximum does not depend on the order, so the card and the CPU reduce
+    each padded row at once."""
+    dim = dim % x.dim()
+    for idx, mask in levels:
+        g = x.index_select(dim, idx.reshape(-1)).unflatten(dim, idx.shape)
+        g = torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - dim - 1)), g, 0.0)
+        if g.shape[dim + 1] == 0:
+            x = torch.zeros(g.shape[:dim + 1] + g.shape[dim + 2:], dtype=g.dtype,
+                            device=g.device)
+        else:
+            x = g.amax(dim=dim + 1)
+    return x
+
+
 class COOMat:
     """Sparse matrix in coordinate form supporting ``M @ x`` and ``M.T``.
 

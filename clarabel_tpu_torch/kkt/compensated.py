@@ -1,10 +1,11 @@
 """Double-float (compensated f32) residuals for iterative refinement.
 
-PyTorch port of the part of ``clarabel_tpu/kkt/compensated.py`` that the
-dense f32 KKT path runs: the error-free transformations, the double-float
-residual ``rhs - (K + K_lo) x`` and the double-float products of the small
-per-cone matrices of the PSD scaling (:func:`df_matmul`,
-:func:`df_matmul_df`).
+PyTorch port of ``clarabel_tpu/kkt/compensated.py``: the error-free
+transformations, the double-float residual ``rhs - (K + K_lo) x`` of the
+dense f32 KKT path, the double-float products of the small per-cone
+matrices of the PSD scaling (:func:`df_matmul`, :func:`df_matmul_df`) and
+the compensated segment sum of the sparse path's products
+(:func:`seg_sum_df`, ``kkt/sparse.sym_matvec_df``).
 
 Near convergence cond(K) ~ 1/μ, and an f32 residual bounds the refined
 step's forward error at O(eps32 · cond(K)).  Classic mixed-precision
@@ -15,8 +16,9 @@ exact hi + lo pair, and a pairwise TwoSum tree sums each row with its
 rounding errors carried in a lo stream.
 
 Every function works elementwise over any leading batch dimensions and
-reduces over the last one only, so a problem inside a batch sums exactly as
-it does alone.  Each operation is one PyTorch operation: nothing fuses a
+reduces over the last one only (:func:`seg_sum_df` over the dimension it is
+given, by fixed segments), so a problem inside a batch sums exactly as it
+does alone.  Each operation is one PyTorch operation: nothing fuses a
 product into a sum (an FMA would break the split).  The tree over N entries
 costs about 10·log2 N launches per residual, and each double-float
 product about 10·log2 l + 20 (ROADMAP Queue 2).
@@ -85,6 +87,46 @@ def df_matmul_df(Ah, Al, Bh, Bl):
     e = e + Ah[..., :, :, None] * Bl[..., None, :, :]
     e = e + Al[..., :, :, None] * Bh[..., None, :, :]
     return _df_reduce_last(p.movedim(-2, -1), e.movedim(-2, -1))
+
+
+def seg_sum_df(p, e, seg_ids, levels, dim=0):
+    """Compensated segment sum: Σ_seg (p + e) as a (hi, lo) pair, to ~2⁻³⁴
+    of each segment's largest |p|.
+
+    ``p`` carries exact products' hi parts and ``e`` their low parts (from
+    :func:`_two_prod`), their entries along ``dim``; ``seg_ids`` the sorted
+    segment of each entry and ``levels`` the fixed-order sums over those
+    segments (``algebra.coo.segment_levels``).  A plain f32 sum of a long
+    cancelling segment floors at eps·Σ|p|, so each segment is scaled by a
+    power of two (exact), split into 11-bit limbs on a common grid -- partial
+    sums of up to 2¹² such terms are exact in f32, in any order -- and each
+    limb stream summed on its own.  Three limbs put the grid's floor at ~2⁻³⁴
+    of the segment's max.  The JAX package's ``seg_sum_df``; its segment sums
+    add here in the levels' fixed order (no scatter-add on the card)."""
+    from ..algebra.coo import segment_apply, segment_max
+
+    mag = torch.clamp(segment_max(levels, torch.abs(p), dim=dim), min=1e-30)
+    # the exact power-of-two scale of each segment
+    _, expo = torch.frexp(mag)
+    s = torch.ldexp(torch.ones_like(mag), expo)
+    t = p / s.index_select(dim, seg_ids)  # exact: |t| <= 1
+
+    G = 2048.0  # the 2¹¹ limb grid
+    u1 = torch.round(t * G) / G
+    r1 = t - u1  # exact (aligned grids)
+    u2 = torch.round(r1 * (G * G)) / (G * G)
+    r2 = r1 - u2  # exact
+
+    def seg(v):
+        return segment_apply(levels, v, dim=dim)
+
+    y1 = seg(u1)  # exact: multiples of 2⁻¹¹, |sum| <= 2¹²
+    y2 = seg(u2)  # exact: multiples of 2⁻²², |sum| <= 1
+    y3 = seg(r2)  # |terms| <= 2⁻²³: the plain sum's error ~ eps·2⁻²³·n
+    hi, err = _two_sum(y1, y2)
+    lo = err + y3
+    # scale back (a power of two: exact) and fold in the products' low parts
+    return hi * s, lo * s + seg(e)
 
 
 def residual(K, x, rhs, K_lo=None):

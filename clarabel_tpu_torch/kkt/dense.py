@@ -423,8 +423,10 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
     (N ≤ 4096) refines in mixed precision, as in the JAX package: the
     residual is evaluated in double-float (``kkt/compensated.py``) and the
     corrections are TwoSummed into a double-float solution (x, x_lo), so the
-    refinement floor is not the f32 representation of x; x_lo is None on
-    every other path.  Each problem of a batch sweeps until its own
+    refinement floor is not the f32 representation of x.  So does an f32
+    system whose matvec ``K_true`` carries a compensated product ``.df``
+    (v, v_lo) -> (hi, lo) (the sparse path's, ``kkt/sparse.py``), matrix-free.
+    x_lo is None on every other path.  Each problem of a batch sweeps until its own
     refinement stops; the host reads once per sweep whether any problem
     still sweeps.  A problem's right-hand sides refine together, one norm
     over all of them, as in the JAX package: a dense K's [..., N, R], and on
@@ -482,7 +484,12 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
     # near convergence (cond ~ 1/μ); the compensated one restores mixed
     # precision refinement's forward convergence, so refinement runs to the
     # arithmetic floor and the stall detector bounds the sweeps.
-    compensate = dense and K_true.dtype == torch.float32 and K_true.shape[-1] <= 4096
+    compensate_dense = dense and K_true.dtype == torch.float32 and K_true.shape[-1] <= 4096
+    # the sparse path's matvecs advertise a compensated product as ``.df``:
+    # the same mixed-precision refinement, matrix-free
+    df_mv = None if dense else getattr(K_true, "df", None)
+    compensate_sparse = df_mv is not None and rhs.dtype == torch.float32
+    compensate = compensate_dense or compensate_sparse
     if factors[0] == "schur_lr" or compensate:
         # (schur_lr: the Woodbury condensation leaves a larger one-pass
         # error than a backward-stable pivoted LU, so it refines to the
@@ -505,13 +512,20 @@ def solve_refined(factors, K_true, rhs, settings, want_lo=False):
     tol = abstol + reltol * normb
 
     if compensate:
-        def error_norm(x, x_lo):
-            # the residual against the double-float solution: x_lo's
-            # contribution is eps-scaled, a plain product of it suffices
-            e = compensated.residual(K_true, x, rhs, K_lo=K_lo) - k_matvec(x_lo)
-            if K_lo is not None:
-                e = e - lo_matvec(x_lo)
-            return e, amax(e)
+        if compensate_sparse:
+            def error_norm(x, x_lo):
+                hi, lo = df_mv(x, x_lo)
+                d, derr = compensated._two_sum(rhs, -hi)
+                e = d + (derr - lo)
+                return e, amax(e)
+        else:
+            def error_norm(x, x_lo):
+                # the residual against the double-float solution: x_lo's
+                # contribution is eps-scaled, a plain product of it suffices
+                e = compensated.residual(K_true, x, rhs, K_lo=K_lo) - k_matvec(x_lo)
+                if K_lo is not None:
+                    e = e - lo_matvec(x_lo)
+                return e, amax(e)
 
         def accumulate(x, x_lo, dx):
             # TwoSum the correction into the double-float solution

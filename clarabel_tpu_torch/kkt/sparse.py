@@ -1,7 +1,7 @@
 """Sparse KKT engine: pattern assembly maps + multifrontal factor/solve.
 
-PyTorch port of ``clarabel_tpu/kkt/sparse.py`` at f64 (its compensated f32
-product ``sym_matvec_df`` and the ``.df`` closures wait for the f32 stack),
+PyTorch port of ``clarabel_tpu/kkt/sparse.py``, with its compensated f32
+products (``sym_matvec_df`` and the refinement matvecs' ``.df`` closures),
 the counterpart of the reference's sparse KKT assembly and data maps
 (reference: src/solver/core/kktsolvers/direct/quasidef/kkt_assembly.rs:20-183,
 datamaps.rs): the quasidefinite matrix
@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from ..algebra.coo import dia_metadata, levels_to, segment_apply, segment_levels
 from ..cones import ops as cone_ops
+from . import compensated as _dfc
 from . import mf_symbolic, multifrontal
 from .dense import _amax0, _static_eps
 
@@ -53,8 +54,8 @@ from .dense import _amax0, _static_eps
 #: (reference: socone.rs:46 SOC_NO_EXPANSION_MAX_SIZE = 4)
 SOC_NO_EXPANSION_MAX_SIZE = 4
 
-#: f32 keeps small cones dense (the JAX package's f32 thresholds; the
-#: port's sparse path runs at f64, where the reference's apply)
+#: f32 keeps small cones dense (the JAX package's f32 thresholds; f64
+#: takes the reference's)
 SOC_NO_EXPANSION_MAX_SIZE_F32 = 256
 GENPOW_NO_EXPANSION_MAX_SIZE_F32 = 256
 
@@ -368,21 +369,58 @@ def sym_matvec(ctx: SparseKKT, data, Kvals, v):
     column-sorted strict selection.  Prefer :func:`make_matvec` where one
     Kvals vector serves several products."""
     rows = data["kkt:K_rows"]
-    if v.dim() == 1:
-        gather, per_entry, dim = (lambda idx: v[idx]), (lambda t: t), 0
-    else:
-        gather, per_entry, dim = (lambda idx: v[..., idx, :]), (lambda t: t.unsqueeze(-1)), -2
+    gather, per_entry, dim = _gathers(v)
     Kr = Kvals[..., data["kkt:row_order"]]
     y = segment_apply(data["kkt:levels_low"],
-                      per_entry(Kr) * gather(data["kkt:cols_of_sorted"]), dim=dim)
+                      per_entry(Kr) * gather(v, data["kkt:cols_of_sorted"]), dim=dim)
     ssel = data["kkt:strict_sel"]
     return y + segment_apply(data["kkt:levels_up"],
-                             per_entry(Kvals[..., ssel]) * gather(rows[ssel]), dim=dim)
+                             per_entry(Kvals[..., ssel]) * gather(v, rows[ssel]), dim=dim)
+
+
+def _gathers(v):
+    """(gather, per_entry, dim) of the segment products for ``v``: [N] sums
+    along dimension 0, [N, r] and a batch's [B, N, r] along -2 with the
+    values broadcast over the columns."""
+    if v.dim() == 1:
+        return (lambda u, idx: u[idx]), (lambda t: t), 0
+    return (lambda u, idx: u[..., idx, :]), (lambda t: t.unsqueeze(-1)), -2
+
+
+def sym_matvec_df(ctx: SparseKKT, data, Kvals, v, v_lo=None):
+    """Compensated y = K (v + v_lo) as a double-float (hi, lo) pair, in the
+    shapes :func:`sym_matvec` takes (``v_lo`` of v's shape, or None).
+
+    The expanded cones' extension rows are long cancelling sums of
+    η-scaled entries (datamaps.rs:199-221 semantics): a plain f32 segment
+    sum floors their residual at eps·Σ|K||v| per row, the "Known f32 tier"
+    accuracy wall of the rank-2/3 expansions.  Exact products and the
+    limb-split segment sums (``compensated.seg_sum_df``) remove that wall
+    from the refinement residual.  The JAX package's kkt/sparse.py:404-436,
+    which maps its columns one at a time; here they ride together."""
+    rows = data["kkt:K_rows"]
+    gather, per_entry, dim = _gathers(v)
+
+    def half(Kv, idx, seg_ids, levels):
+        p, e = _dfc._two_prod(Kv, gather(v, idx))
+        if v_lo is not None:
+            e = e + Kv * gather(v_lo, idx)
+        return _dfc.seg_sum_df(p, e, seg_ids, levels, dim=dim)
+
+    h1, l1 = half(per_entry(Kvals[..., data["kkt:row_order"]]), data["kkt:cols_of_sorted"],
+                  data["kkt:rows_sorted"], data["kkt:levels_low"])
+    ssel = data["kkt:strict_sel"]
+    h2, l2 = half(per_entry(Kvals[..., ssel]), rows[ssel], data["kkt:K_cols"][ssel],
+                  data["kkt:levels_up"])
+    hi, err = _dfc._two_sum(h1, h2)
+    return hi, err + l1 + l2
 
 
 def make_matvec(ctx: SparseKKT, data, Kvals):
     """Returns v -> K v for iterative refinement, amortized over the
-    several products per assembled Kvals (the IPM does ~4 per iteration).
+    several products per assembled Kvals (the IPM does ~4 per iteration),
+    with its compensated product v, v_lo -> (hi, lo) as the ``.df``
+    attribute (the refinement's residual on f32 systems).
 
     DIA fast path: one scatter lays K out by diagonal offset; each product
     is then Σ_o K_dia[o] ⊙ shift(v, o) with fixed shifts.  Patterns without
@@ -390,7 +428,11 @@ def make_matvec(ctx: SparseKKT, data, Kvals):
     """
     offs = ctx.dia_offsets
     if not offs:
-        return lambda v: sym_matvec(ctx, data, Kvals, v)
+        def mv_seg(v):
+            return sym_matvec(ctx, data, Kvals, v)
+
+        mv_seg.df = lambda v, v_lo=None: sym_matvec_df(ctx, data, Kvals, v, v_lo)
+        return mv_seg
     O, N = len(offs), ctx.N
     batch = Kvals.shape[:-1]
     Kd = torch.zeros(batch + (O * N,), dtype=Kvals.dtype, device=Kvals.device)
@@ -401,24 +443,49 @@ def make_matvec(ctx: SparseKKT, data, Kvals):
 def _dia_mv(Kd, offs, N):
     """The DIA product closure v -> K v: ``Kd [O, N]`` takes v [N] or
     [N, r], a batch's ``Kd [B, O, N]`` takes v [B, N, r].  The offset loop
-    is a fixed small accumulation chain."""
+    is a fixed small accumulation chain, so TwoProd/TwoSum
+    (``kkt/compensated.py``) carry its rounding exactly: the closure's
+    ``.df`` (v, v_lo) -> (hi, lo) is the compensated product that the
+    refinement of f32 sparse systems evaluates residuals with (the JAX
+    package's kkt/sparse.py:495-517)."""
     lo = max(0, -min(offs))
     hi = max(0, max(offs))
 
-    def mv(v):
+    def columns(v):
         if (v.dim() == 3) != (Kd.dim() == 3):
             raise ValueError(f"the DIA matvec of K {tuple(Kd.shape)} takes v "
                              f"{'[B, N, r]' if Kd.dim() == 3 else '[N] or [N, r]'}, "
                              f"got {tuple(v.shape)}")
+        return v[:, None] if v.dim() == 1 else v
+
+    def shifted(vp, o):
+        return vp[..., lo + o: lo + o + N, :]
+
+    def mv(v):
         single = v.dim() == 1
-        if single:
-            v = v[:, None]
+        v = columns(v)
         vp = F.pad(v, (0, 0, lo, hi))
         acc = torch.zeros_like(v)
         for i, o in enumerate(offs):
-            acc = acc + Kd[..., i, :, None] * vp[..., lo + o: lo + o + N, :]
+            acc = acc + Kd[..., i, :, None] * shifted(vp, o)
         return acc[:, 0] if single else acc
 
+    def mv_df(v, v_lo=None):
+        single = v.dim() == 1
+        v = columns(v)
+        vp = F.pad(v, (0, 0, lo, hi))
+        vlp = None if v_lo is None else F.pad(columns(v_lo), (0, 0, lo, hi))
+        acc_h, acc_l = torch.zeros_like(v), torch.zeros_like(v)
+        for i, o in enumerate(offs):
+            kd = Kd[..., i, :, None]
+            p, e = _dfc._two_prod(kd, shifted(vp, o))
+            if vlp is not None:
+                e = e + kd * shifted(vlp, o)
+            acc_h, e2 = _dfc._two_sum(acc_h, p)
+            acc_l = acc_l + e + e2
+        return (acc_h[:, 0], acc_l[:, 0]) if single else (acc_h, acc_l)
+
+    mv.df = mv_df
     return mv
 
 

@@ -1,14 +1,15 @@
 """The interior-point iteration as a host loop over device tensors.
 
 PyTorch port of ``clarabel_tpu/loop.py`` at f64 and f32 on the dense KKT
-backends, and at f64 on the sparse multifrontal one (``sparse_kkt``): the
+backends and on the sparse multifrontal one (``sparse_kkt``): the
 reference predictor-corrector loop and its strategy-checkpoint state machine
 (reference: src/solver/core/solver.rs:242-465, 525-666), the residual/info
 bookkeeping (implementations/default/residuals.rs, info.rs) and the
 homogeneous-embedding KKT reduction (implementations/default/kktsystem.rs).
-At f32 on a dense KKT matrix the refined solves carry a double-float lo
-stream, and the direction's recovery uses it (``kkt_solve_finish``), as in
-the JAX package; f32 "lu" factors with the double-float LU.
+At f32 on a dense KKT matrix, and on the sparse path through its
+compensated matvecs, the refined solves carry a double-float lo stream, and
+the direction's recovery uses it (``kkt_solve_finish``), as in the JAX
+package; f32 "lu" factors with the double-float LU.
 
 The JAX package runs the loop as one ``lax.while_loop``.  Here the state is a
 ``SolverState`` of tensors on the problem's device, every data-dependent
@@ -356,7 +357,10 @@ def solve_kkt_refined(factors, K_true, rhs, settings, want_lo=False, keep_ext=Fa
     (one right-hand side per lane) or [B, N, r] -- the layout follows the
     factors, not the shape, so a [B, N] with B = r is never misread.
     ``keep_ext`` returns the extension components instead of slicing them
-    off; ``kkt_solve_finish`` reads Δz from the first m entries.  The JAX
+    off; ``kkt_solve_finish`` reads Δz from the first m entries.  The
+    refinement runs against the assembled K, extension rows included (at
+    f32 through its compensated ``.df`` product), and with ``want_lo`` the
+    solution's lo stream comes back shaped as the solution.  The JAX
     package's loop.py:338-370."""
     if factors[0] == "mf":
         ctx, _, mff = factors[1]
@@ -468,19 +472,25 @@ def _dtau_terms_df(P, q, b, m, xi, x1, z1f, x2, z2, sol_lo, x2_lo, z2_lo, rtau, 
 
 
 def kkt_solve_finish(
-    layout, scaling_state, P, q, A, b, x2, z2, sol, ds_const, rhs, variables,
+    layout, scaling_state, P, q, A, b, x2, z2, sol, ds_const, rhs, variables, K_true=None,
 ):
     """Recover the full direction from the reduced solve: Δτ closed form
     with P-quadratic terms, then Δx/Δz/Δs/Δκ (kktsystem.rs:160-207).
 
     ``sol``, ``x2`` and ``z2`` are (hi, lo) pairs; lo is None unless the
-    refinement was compensated (a dense f32 K).  Then, as in the JAX
+    refinement was compensated (an f32 system).  Then, as in the JAX
     package (its loop.py:389-598): on a dense P, Δτ's numerator and
-    denominator are summed in double-float; the recombinations x1 + Δτ·x2
-    and z1 + Δτ·z2, cancellations near convergence, are TwoProd/TwoSum'd
-    with their lo parts; and Δs = -(HₛΔz + c) carries HₛΔz as a double-float
-    pair through the cancellation with c.  Every reduction is over the last
-    dimension, so a problem in a batch computes what it does alone."""
+    denominator are summed in double-float (the sparse path's COO P keeps
+    the plain dots); the recombinations x1 + Δτ·x2 and z1 + Δτ·z2,
+    cancellations near convergence, are TwoProd/TwoSum'd with their lo
+    parts; and Δs = -(HₛΔz + c) carries HₛΔz as a double-float pair through
+    the cancellation with c.  Where ``K_true`` is a matvec with a
+    compensated ``.df`` (the sparse path), HₛΔz is the z-block rows of
+    K [0; Δz] as the refined solve saw them, the sparse-cone expansion's
+    extension columns included (the z-parts of ``sol`` and ``z2`` then
+    carry the extension components, m + p long; Δz is their first m).
+    Every reduction is over the last dimension, so a problem in a batch
+    computes what it does alone."""
     n = q.shape[-1]
     m = b.shape[-1]
     x, s, z, tau, kappa = variables
@@ -532,8 +542,24 @@ def kkt_solve_finish(
             dx_lo = dx_lo + _col(dtau) * x2_lo
         dx = dx + dx_lo
         dz = dzf[..., :m]
-        # Δs through Hₛ, with HₛΔz + c TwoSummed before its one rounding
-        hs_hi, hs_lo = cone_ops.mul_hs_df(layout, scaling_state, dz, dz_lo[..., :m])
+        # Δs through Hₛ, with HₛΔz + c TwoSummed before its one rounding.
+        # The product must agree with the Hₛ the refined solve saw to better
+        # than eps·‖Hₛ‖, else the primal residual absorbs (ΔHₛ)Δz ~ eps/μ
+        df_mv = getattr(K_true, "df", None) if callable(K_true) else None
+        if df_mv is not None:
+            # K-consistent: the z-block rows of K [0; Δz; Δy] are exactly
+            # -(HₛΔz) as the refined solve saw it, extension elimination
+            # included (the JAX package's loop.py:567-580)
+            zn = dzf.new_zeros(dzf.shape[:-1] + (n,))
+            vh, vl = torch.cat([zn, dzf], dim=-1), torch.cat([zn, dz_lo], dim=-1)
+            if vh.dim() == 2:  # a batch's [B, N]: the sparse matvecs take [B, N, r]
+                hi, lo2 = df_mv(vh.unsqueeze(-1), vl.unsqueeze(-1))
+                hi, lo2 = hi.squeeze(-1), lo2.squeeze(-1)
+            else:
+                hi, lo2 = df_mv(vh, vl)
+            hs_hi, hs_lo = -hi[..., n:n + m], -lo2[..., n:n + m]
+        else:
+            hs_hi, hs_lo = cone_ops.mul_hs_df(layout, scaling_state, dz, dz_lo[..., :m])
         sh, se = _dfc._two_sum(hs_hi, ds_const)
         ds = -(sh + (se + hs_lo))
 
@@ -560,7 +586,7 @@ def kkt_solve(
     )
     step = kkt_solve_finish(
         layout, scaling_state, P, q, A, b, x2, z2, sol, ds_const, rhs,
-        variables,
+        variables, K_true=K_true,
     )
     return step, ok
 
@@ -1026,7 +1052,7 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         z2 = (c_hi[..., n:], None if c_lo is None else c_lo[..., n:])
         aff = kkt_solve_finish(
             layout, scaling_state, P, q, A, b, x2, z2, sol_a, dsc_aff,
-            affine_rhs, variables,
+            affine_rhs, variables, K_true=K,
         )
 
         alpha_aff = calc_step_length(

@@ -1,7 +1,8 @@
 """Batched sparse solving: B problems of one sparsity pattern through one
 multifrontal plan.
 
-PyTorch port of ``clarabel_tpu/parallel/sparse_batch.py`` at f64.  MPC,
+PyTorch port of ``clarabel_tpu/parallel/sparse_batch.py``, at f64 and
+f32.  MPC,
 SQP and scenario workloads solve many conic programs with the SAME
 sparsity pattern (the dynamics' structure is fixed; only values change).
 The sparse multifrontal KKT engine is built from the pattern alone
@@ -78,7 +79,8 @@ class SparseBatchSolver:
         single scipy.sparse matrix used for every instance.
     q : [B, n]; b : [B, m].
     cones : shared cone specification.
-    dtype : "float64" (the default); "float32" raises (ROADMAP item 12b).
+    dtype : "float64" (the default) or "float32" (with
+        ``DefaultSettings.for_float32``).
     mesh : sharding the batch over devices raises (ROADMAP item 16).
     device : the solve runs on a CUDA device unless this names another
         (``device="cpu"``); without a CUDA device and without it the
@@ -108,10 +110,6 @@ class SparseBatchSolver:
         if mesh is not None:
             raise _not_ported("sharding a sparse batch over a device mesh (mesh=)", 16)
         self._dtype = check_ported(dtype)
-        if self._dtype != "float64":
-            raise _not_ported(
-                "dtype='float32' on the sparse batch (the compensated f32 refinement of "
-                "the multifrontal path)", "12b")
         if self.settings.time_limit != float("inf"):
             raise ValueError(
                 "SparseBatchSolver has no wall-clock time limit: leave settings.time_limit "

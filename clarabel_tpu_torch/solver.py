@@ -23,8 +23,9 @@ f64 solves stay on the card, which runs f64 natively (the JAX package sends
 them to the host CPU instead).  ``dtype="float32"`` runs on every dense KKT
 method, on every cone: the structured Schur paths, the LDLᵀ kernels and the
 pivoted LU with compensated refinement, and "lu" through the double-float
-LU, PSD cones with their double-float scaling (``cones/psd.py``); never on
-the sparse path.
+LU, PSD cones with their double-float scaling (``cones/psd.py``); and on
+the sparse path, whose refinement evaluates its residuals with the
+compensated sparse products (``kkt/sparse.py``).
 """
 
 from __future__ import annotations
@@ -253,7 +254,7 @@ def _timed(fn, device, reps=3):
 def _measure_cost_model(device: str) -> dict:
     """The cost model's constants measured once per CUDA device (cached by
     its name): the JAX package's probes (clarabel_tpu/solver.py:451-522),
-    at f64, the precision of the port's sparse path.
+    at f64; solves at f32 route with the same constants.
 
     - a 64-op chain of dependent batched [8, 64, 64] products: the per-op
       launch latency (``bucket_s``) and the small-front FLOP rate
@@ -479,8 +480,7 @@ def _not_ported(what: str, item):
 def check_ported(dtype: Optional[str]) -> str:
     """The dtype name a solve runs at ("float64" unless given); raises for
     another dtype.  Every ``direct_solve_method`` the settings accept is
-    ported, and every dense one runs at f32 on every cone (the sparse path
-    raises for f32 in its own setup)."""
+    ported, and each runs at f32 on every cone."""
     dtype = dtype or "float64"
     if dtype not in ("float64", "float32"):
         raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
@@ -494,9 +494,9 @@ class DefaultSolver:
     and PSD triangle cones, large sparse PSD cones decomposed into their
     cliques (chordal decomposition): on the dense path at f64 through every
     ported KKT method (the structured Schur paths fall back to LU on the
-    nonsymmetric and PSD cones, as in the JAX package), at f32 through
-    every dense KKT method on every cone; on the sparse
-    multifrontal path at f64.  Its data can be updated
+    nonsymmetric and PSD cones, as in the JAX package), and on the sparse
+    multifrontal path, each at f64 and f32 on every cone.  Its data can be
+    updated
     between solves (unless presolve or the decomposition changed the
     problem), a solve warm-started and stopped by a callback.  The problem
     saves to and loads from the reference's JSON format, and the report of
@@ -662,10 +662,6 @@ class DefaultSolver:
             # fill/schedule on a medium problem falls back to dense LU
             if auto and _prefer_dense(self._skkt.plan, self._skkt.N, self._cost_model):
                 return False
-            if self._dtype != "float64":
-                raise _not_ported(
-                    "dtype='float32' on the sparse multifrontal path (the compensated "
-                    "f32 refinement)", "12b")
             self._skkt_data = self._skkt.device_data(self._torch_dtype, self._device)
             # DIA metadata where the pattern is banded-compact
             self._P = COOMat.from_coo(P_sym.data, P_sym.row, P_sym.col, (n_int, n_int),

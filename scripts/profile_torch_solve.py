@@ -21,11 +21,13 @@ sparse problems -- the JAX bench's banded QP (n = 20000, KKT N = 60000)
 and banded SDP (PSDTriangleConeT(250), decomposed) -- through
 "multifrontal", and phase 3g's sparse batches through SparseBatchSolver
 (the JAX bench's batched_sparse_qp, n = 1000, KKT N = 3000, at B = 32 and
-B = 512), each under torch.profiler after one untraced warm-up solve, and prints for
+B = 512), the banded QP and the B = 32 batch also at f32 (phase 3k), each
+under torch.profiler after one untraced warm-up solve, and prints for
 each: the wall time, the summed device time of the kernels, the device's
 idle share (1 - device time / wall time; the kernels of one stream do not
 overlap), the kernels and copies it launched, those of the double-float
-products of kkt/compensated.py (each traced as a range), the kernels that
+products (kkt/compensated.py's and the sparse path's compensated matvecs,
+each traced as a range), the kernels that
 take the most device time, and, from a second
 untraced solve, the device reads through ``timers.host_read`` and every
 device wait ``torch.cuda.set_sync_debug_mode`` reports (the reads among
@@ -51,6 +53,7 @@ and launches per factor.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import pathlib
 import subprocess
@@ -66,24 +69,38 @@ import clarabel_tpu_torch as tt  # noqa: E402
 from clarabel_tpu_torch.solver import full_precision  # noqa: E402
 
 
-#: the double-float products of kkt/compensated.py (the PSD scaling's, at
-#: f32), each traced as a range of its own
-DF_PRODUCTS = ("df_matmul", "df_matmul_df")
+#: the double-float products, each traced as a range of its own: those of
+#: kkt/compensated.py (the PSD scaling's, at f32) and the sparse path's
+#: compensated matvecs (kkt/sparse.py: the segment path's sym_matvec_df and
+#: the DIA closures' .df, at f32)
+DF_PRODUCTS = ("df_matmul", "df_matmul_df", "sym_matvec_df", "dia_mv_df")
+
+
+def _ranged(fn, name):
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return ranged
 
 
 def traced_df_products():
-    """Wrap each of DF_PRODUCTS in a profiler range of its name (the PSD
-    scaling calls them through the module, so the wrappers take effect)."""
-    from clarabel_tpu_torch.kkt import compensated
+    """Wrap each of DF_PRODUCTS in a profiler range of its name (their
+    callers reach them through the modules, so the wrappers take effect;
+    the DIA closures' ``.df`` is wrapped where ``kkt.sparse._dia_mv`` makes
+    it)."""
+    from clarabel_tpu_torch.kkt import compensated, sparse
 
-    for name in DF_PRODUCTS:
-        fn = getattr(compensated, name)
+    for name in DF_PRODUCTS[:2]:
+        setattr(compensated, name, _ranged(getattr(compensated, name), name))
+    sparse.sym_matvec_df = _ranged(sparse.sym_matvec_df, "sym_matvec_df")
+    dia_mv = sparse._dia_mv
 
-        def ranged(*args, _fn=fn, _name=name, **kwargs):
-            with torch.profiler.record_function(_name):
-                return _fn(*args, **kwargs)
+    def traced_dia_mv(*args):
+        mv = dia_mv(*args)
+        mv.df = _ranged(mv.df, "dia_mv_df")
+        return mv
 
-        setattr(compensated, name, ranged)
+    sparse._dia_mv = traced_dia_mv
 
 
 def range_kernels(prof, names):
@@ -207,6 +224,9 @@ def host_split(problem, method):
     saved = {k: getattr(mod, name) for k, (mod, name) in parts.items()}
 
     def wrap(key, fn):
+        # functools.wraps carries the wrapped function's attributes (the
+        # counters solve_refined keeps on itself and reaches by its name)
+        @functools.wraps(fn)
         def timed(*args, **kwargs):
             t0 = time.perf_counter()
             try:
@@ -245,8 +265,6 @@ def profile_multifrontal_factor(problem, reps=3, solver_type=tt.DefaultSolver):
     route), run on the card for this count only; each with its wall time
     by CUDA events.  With ``solver_type`` SparseBatchSolver, of all the
     batch's lanes at once (a solve then takes [B, N, 2])."""
-    import functools
-
     from clarabel_tpu_torch import loop
     from clarabel_tpu_torch.cones import ops as cone_ops
     from clarabel_tpu_torch.kkt import multifrontal, sparse
@@ -372,13 +390,16 @@ def main():
         "sdp_batch_B2048": (chip_smoke.sdp_batch(2048, 16, 4, args.seed + 32 + 2048),
                             tt.BatchSolver, f64 + [("auto", "float32")]),
         # chip_smoke.py phase 3f's sparse problems
+        # and chip_smoke.py phase 3k's at f32 (the compensated refinement's
+        # matvecs, K3 at f32)
         "banded_qp_n20000": (chip_smoke.banded_qp(20000, args.seed + 40), tt.DefaultSolver,
-                             [("multifrontal", "float64")]),
+                             [("multifrontal", "float64"), ("multifrontal", "float32")]),
         "banded_sdp_n250": (chip_smoke.banded_sdp(250), tt.DefaultSolver,
                             [("multifrontal", "float64")]),
         # chip_smoke.py phase 3g's sparse batches
         "sparse_batch_B32": (chip_smoke.sparse_qp_batch(32, 1000, args.seed + 50),
-                             tt.SparseBatchSolver, [("multifrontal", "float64")]),
+                             tt.SparseBatchSolver, [("multifrontal", "float64"),
+                                                    ("multifrontal", "float32")]),
         "sparse_batch_B512": (chip_smoke.sparse_qp_batch(512, 1000, args.seed + 51),
                               tt.SparseBatchSolver, [("multifrontal", "float64")]),
     }

@@ -646,3 +646,22 @@ def assert_batch_matches_reference(name, method):
         for lane in (r, g):
             assert np.all(np.isnan(lane.history[lane.iterations + 1:])), i
             assert not np.any(np.all(np.isnan(lane.history[:lane.iterations + 1]), axis=1)), i
+
+
+def assert_f32_matches(got, ref, f64, iterations=2):
+    """The f32 contract of a solve of the port (``got``, a :class:`Lane`)
+    against the JAX package's f32 solve of the same problem (``ref``) and an
+    f64 solve of it (``f64``): the same status (by name); on a Solved
+    problem the objectives within 1e-4 relative of each other and each
+    within 1e-4 relative of the f64 one, x within 1e-3·(1 + ‖x‖∞) of the
+    JAX package's; the iteration counts within ``iterations``."""
+    assert got.status.name == ref.status.name, (got.status.name, ref.status.name)
+    assert abs(got.iterations - ref.iterations) <= iterations, (got.iterations, ref.iterations)
+    if ref.status.name != "Solved":
+        return
+    rel = lambda a, b: abs(a - b) / max(1.0, abs(b))
+    assert rel(got.obj_val, ref.obj_val) <= 1e-4, (got.obj_val, ref.obj_val)
+    for lane in (got, ref):
+        assert rel(lane.obj_val, f64.obj_val) <= 1e-4, (lane.obj_val, f64.obj_val)
+    scale = 1.0 + float(np.max(np.abs(ref.x), initial=0.0))
+    assert np.max(np.abs(np.asarray(got.x) - np.asarray(ref.x)), initial=0.0) <= 1e-3 * scale

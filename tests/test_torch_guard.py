@@ -146,11 +146,7 @@ def _psd2():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    # the sparse multifrontal path runs at f64 only
-    (_f32("multifrontal"), "item 12b"),
     (dict(batch=True, mesh=object()), "item 16"),
-    # so does an f32 PSD problem routed there
-    (dict(psd=True, **_f32("multifrontal")), "item 12b"),
 ])
 def test_unported_options_raise(kwargs, item):
     kwargs = dict(kwargs)
@@ -172,6 +168,14 @@ def test_unported_options_raise(kwargs, item):
 ])
 def test_f32_psd_options_solve(kwargs):
     _solved_like_f64(kwargs, _psd2)
+
+
+@pytest.mark.parametrize("psd", [False, True], ids=["qp", "psd"])
+def test_f32_multifrontal_options_solve(psd):
+    """f32 on the sparse multifrontal path, the tiny QP and the PSD(2)
+    problem (these raised until the compensated sparse refinement was
+    ported)."""
+    _solved_like_f64(_f32("multifrontal"), _psd2 if psd else None)
 
 
 def _solved_like_f64(kwargs, make=None):
@@ -212,23 +216,34 @@ def test_f32_dense_options_solve(kwargs):
 
 
 @pytest.mark.parametrize("entry, item", [
-    # the sparse batch runs at f64 on one device
-    ("SparseBatchSolver float32", "item 12b"),
+    # the sparse batch and BatchSolver run on one device
     ("SparseBatchSolver mesh", "item 16"),
-    # BatchSolver on one device
     ("BatchSolver mesh", "item 16"),
 ])
 def test_unported_entry_points_raise(entry, item, tmp_path):
     P, q, A, b, cones = _tiny_qp()
     if entry.startswith("SparseBatchSolver"):
-        kwargs = dict(dtype="float32") if entry.endswith("float32") else dict(mesh=object())
         with pytest.raises(NotImplementedError, match=item):
             tt.SparseBatchSolver(sp.csc_matrix(P), np.stack([q, q]), sp.csc_matrix(A),
-                                 np.stack([b, b]), cones, device="cpu", **kwargs)
+                                 np.stack([b, b]), cones, device="cpu", mesh=object())
         return
     with pytest.raises(NotImplementedError, match=item):
         tt.BatchSolver(*(np.stack([v, v]) for v in (P, q, A, b)), cones,
                        tt.DefaultSettings(verbose=False), device="cpu", mesh=object())
+
+
+def test_f32_sparse_batch_solves():
+    """SparseBatchSolver(dtype="float32") (it raised until the compensated
+    sparse refinement was ported): two copies of the tiny QP, each lane
+    Solved within 1e-3 relative of the f64 batch's."""
+    P, q, A, b, cones = _tiny_qp()
+    args = (sp.csc_matrix(P), np.stack([q, q]), sp.csc_matrix(A), np.stack([b, b]), cones)
+    got = tt.SparseBatchSolver(*args, tt.DefaultSettings.for_float32(verbose=False),
+                               dtype="float32", device="cpu").solve()
+    ref = tt.SparseBatchSolver(*args, tt.DefaultSettings(verbose=False), device="cpu").solve()
+    assert got.statuses() == ref.statuses() == [tt.SolverStatus.Solved] * 2
+    assert got.x.dtype == np.float32
+    assert np.all(np.abs(got.obj_val - ref.obj_val) <= 1e-3 * np.maximum(1.0, np.abs(ref.obj_val)))
 
 
 def test_load_from_file_float32_lu_solves(tmp_path):
@@ -306,22 +321,21 @@ def test_f32_nonsymmetric_cones_solve(cone, kwargs):
                      lambda: (np.eye(2), -np.ones(2), A, b, [cone]))
 
 
-def test_sparse_auto_route_raises():
-    """A problem past the sparse route's size gate: at f64 "auto" sends it
-    to the multifrontal engine, which solves it; at f32 that route raises,
-    naming ROADMAP item 12b."""
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_sparse_auto_route_solves(dtype):
+    """A problem past the sparse route's size gate: "auto" sends it to the
+    multifrontal engine, which solves it, at f64 and (since the compensated
+    sparse refinement was ported; it raised before) at f32."""
     n = 3000
     eye = sp.eye(n, format="csc")
     cones = [tt.NonnegativeConeT(n)]
-    s = tt.DefaultSolver(eye, np.ones(n), eye, np.ones(n), cones,
-                         tt.DefaultSettings(verbose=False), device="cpu")
+    make = tt.DefaultSettings.for_float32 if dtype == "float32" else tt.DefaultSettings
+    s = tt.DefaultSolver(eye, np.ones(n), eye, np.ones(n), cones, make(verbose=False),
+                         dtype=dtype, device="cpu")
     assert s.info.linear_solver.name == "multifrontal" and s.info.linear_solver.dim == 2 * n
     assert s.solve().status == tt.SolverStatus.Solved
-    assert np.allclose(s.solution.x, -1.0, atol=1e-7)  # min ½|x|² + Σx, x <= 1
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tt.DefaultSolver(eye, np.ones(n), eye, np.ones(n), cones,
-                         tt.DefaultSettings.for_float32(verbose=False), dtype="float32",
-                         device="cpu")
+    # min ½|x|² + Σx, x <= 1
+    assert np.allclose(s.solution.x, -1.0, atol=1e-7 if dtype == "float64" else 1e-4)
 
 
 def test_convert_round_trips_settings_and_cones():

@@ -13,6 +13,7 @@ blocked variant also uses 32-column panels where the TPU kernel uses 128).
 
 import ctypes
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -69,16 +70,29 @@ def _with_irregular_pivots(K, pivots):
     return K
 
 
-def _reference(K, n, m, settings, variant):
-    """The JAX kernel on each matrix of the batch: packed [B, N, N], ok [B]."""
-    factor = jl.make_ldl_factor(n, m, settings, jnp.dtype(K.dtype),
-                                interpret=True, variant=variant)
+@functools.cache
+def _reference_factor(n, m, dynamic_regularization_enable, dtype, variant):
+    """The JAX kernel mapped over a batch, jitted once per shape, dtype,
+    variant and regularization switch: the cases of this module that share
+    them share its compile."""
+    settings = JaxSettings(dynamic_regularization_enable=dynamic_regularization_enable)
+    factor = jl.make_ldl_factor(n, m, settings, jnp.dtype(dtype), interpret=True,
+                                variant=variant)
 
     def one(Kb):
         (_, (packed, _)), ok = factor(Kb)
         return packed, ok
 
-    packed, ok = jax.jit(jax.vmap(one))(jnp.asarray(K))
+    return jax.jit(jax.vmap(one))
+
+
+def _reference(K, n, m, settings, variant):
+    """The JAX kernel on each matrix of the batch: packed [B, N, N], ok [B]."""
+    assert settings == JaxSettings(
+        dynamic_regularization_enable=settings.dynamic_regularization_enable)
+    factor = _reference_factor(n, m, settings.dynamic_regularization_enable,
+                               np.dtype(K.dtype).name, variant)
+    packed, ok = factor(jnp.asarray(K))
     N = n + m
     return np.asarray(packed)[:, :N, :N], np.asarray(ok)
 

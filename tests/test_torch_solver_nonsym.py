@@ -1,11 +1,12 @@
 """Whole-solve parity of clarabel_tpu_torch with the JAX package on the
-exponential, power and generalized power cones: the problems of
-tests/test_basic_expcone.py and tests/test_basic_powcone.py (each feasible,
+exponential cone: the problems of tests/test_basic_expcone.py (feasible,
 primal infeasible and dual infeasible), the reference's mixed_conic.rs
 problem (zero, NN, SOC, power and exponential cones; test_mixed_conic.py),
 also with the scaling switch forced, and a small entropy maximization
 (n = 8), through ``direct_solve_method`` "auto" (pivoted LU at f64) and
-"pallas" (the quasidefinite LDLᵀ), both packages at f64 on the CPU.
+"pallas" (the quasidefinite LDLᵀ), both packages at f64 on the CPU.  The
+power and generalized power cones' problems are in
+``test_torch_solver_pow.py`` (the same contract).
 
 Tolerances: the parity contract of tests/_torch_parity.py.  On
 exp_feasible and entropy (``PINNED_BY_TOLERANCE``) the default tolerances
@@ -15,9 +16,7 @@ z differ by 1.5e-5 on exp_feasible (scale 4), beyond the contract's 1e-7
 reference's as the reference's lies from its own solve at 100x tighter
 tolerances; their objectives keep 1e-9.
 
-The generalized power cones allow no primal-dual scaling, so their solves
-run the dual-scaling barrier backtracking on every step; the forced switch
-runs the retries of the strategy checkpoints.
+The forced switch runs the retries of the strategy checkpoints.
 
 Each problem also solves as a BatchSolver of two copies of itself, each
 lane held to the JAX package's DefaultSolver under the same contract.
@@ -42,9 +41,7 @@ ONE = [
     # the LDLᵀ end game of this certificate is checked below
     ("exp_primal_infeasible", "auto"),
 ]
-BOTH = ["exp_feasible", "exp_dual_infeasible", "pow_feasible", "pow_primal_infeasible",
-        "pow_dual_infeasible", "genpow_feasible", "genpow_primal_infeasible",
-        "genpow_dual_infeasible", "entropy"]
+BOTH = ["exp_feasible", "exp_dual_infeasible", "entropy"]
 
 
 @pytest.fixture(autouse=True)
