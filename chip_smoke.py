@@ -210,8 +210,30 @@ Phases:
      kernel's launches per factor; phase 1 holds the kernel at f32 with the
      f32 preset's regularization bit for bit against its twin at the fronts'
      shapes (287, 35, 2752 and 44032 x 32²);
-  4. the launch counts of phases 2-3, 3b, 3d, 3e, 3f, 3g, 3h, 3i, 3j and
-     3k and one JSON line per kernel and shape.
+  3l. multi-device (torch.distributed process groups and DeviceMeshes).
+     (a) In this process, a world of one over NCCL: ShardedRowSolver at
+     f32 on the JAX package's tall sparse problem (n = 48, ~3 nonzeros a
+     row) at m = 1e5 and 1e6 (A as row-sharded ELL blocks) and on a dense
+     tall problem at n = 256, m = 1e5, each Solved or AlmostSolved within
+     the JAX test's host residual bounds (5e-4), x within 1e-4 of
+     DefaultSolver's f32 "schur_diag" solve, no collective carrying A's
+     rows, collective calls and bytes per iteration printed; phase 3e's
+     SDP batch (B = 2048, "pallas", K2) through BatchSolver(mesh=) and
+     phase 3g's sparse QP batch (B = 32, K3 on the fronts) through
+     SparseBatchSolver(mesh=), each bit for bit its unsharded solve.
+     (b) Ranks sharing the one card (gloo, carrying CUDA tensors: NCCL
+     refuses two ranks on one GPU; not a scaling figure): this script
+     started as a world of 2 -- the m = 1e6 problem within 1e-4 of (a)'s,
+     every rank the same bits, ms per iteration beside world 1's; the SDP
+     batch split 1024 + 1024 and the sparse batch 16 + 16, every lane
+     Solved within 1e-7 of (a)'s objectives -- and as a world of 4 on a
+     2 x 2 (batch x rows) mesh, phase 3b's f32 box-QP batch (B = 2048,
+     N = 96) through "auto" with A's rows split over each row group, every
+     lane Solved within 1e-4 of phase 3c's unsharded f32 solve, a row
+     group's ranks the same bits.  Any rank's failure fails the phase.
+     NCCL across several cards is not exercised (one card);
+  4. the launch counts of phases 2-3, 3b, 3d, 3e, 3f, 3g, 3h, 3i, 3j, 3k
+     and 3l and one JSON line per kernel and shape.
 
 With --deterministic the run also sets torch.use_deterministic_algorithms
 (warn only) and lists each operation PyTorch reports as having no
@@ -1150,6 +1172,7 @@ def check_batch(label, problem, variant, iterations_apart=1, count_syncs=False):
                f"({syncs['count'] / max(int(its.max()), 1):.1f}/iteration)"))
         assert all(s == tt.SolverStatus.Solved for s in statuses), f"{label} {method}: {statuses}"
     lu, ldl = runs["auto"]["sol"], runs["pallas"]["sol"]
+    KEPT[label] = ldl
     rel = np.abs(ldl.obj_val - lu.obj_val) / np.maximum(1.0, np.abs(lu.obj_val))
     assert rel.max() <= 1e-7, f"{label}: objectives differ by {rel.max():.3e} relative"
     spread = np.bincount(np.abs(ldl.iterations - lu.iterations)).tolist()
@@ -1297,6 +1320,7 @@ def schur_batch(label, problem, method, f64_obj, f64_run):
     settings = tt.DefaultSettings.for_float32(verbose=False)
     _, sol, secs, chol, ldl = counted_solve(lambda: tt.BatchSolver(
         P, q, A, b, cones, settings, dtype="float32", device="cuda"))
+    KEPT[f"{label} f32"] = sol
     its = sol.iterations
     solved = sum(s == tt.SolverStatus.Solved for s in sol.statuses())
     rel = np.abs(sol.obj_val - f64_obj) / np.maximum(1.0, np.abs(f64_obj))
@@ -2056,6 +2080,7 @@ def sparse_batch_phase(seed):
         row.update(lanes_alone(label, problem, sol, lanes))
         out[label] = row
         solutions[label] = (solver, sol)
+        KEPT[label] = sol
     # the NN + SOC batch with the cone active (r = 2): the expanded cone's
     # end game loses primal feasibility on a few lanes in the JAX package
     # too (scripts/sparse_batch_soc_statuses.py), which then end
@@ -3030,18 +3055,404 @@ def f32_sparse_phase(seed, report):
     return out
 
 
+# -----------------------------------------------------------------
+# phase 3l: multi-device (process groups and device meshes)
+# -----------------------------------------------------------------
+
+#: solutions of earlier phases that phase 3l holds its mesh solves to:
+#: check_batch's "pallas" runs by label, phase 3c's f32 batches
+#: ("<label> f32"), phase 3g's cold sparse batches
+KEPT = {}
+
+#: ranks phase 3l starts on the one card (gloo; NCCL refuses two ranks on
+#: one GPU), and the seconds each group may take
+MESH_WORLDS = (2, 4)
+MESH_RANK_TIMEOUT = 300
+
+
+def tall_sparse_problem(m, seed, n=48):
+    """The JAX package's tall sparse box-constrained QP
+    (tests/test_sharded.py:88-103) at ``m`` rows: P diagonal, ~3 nonzeros a
+    row of A at random columns, b = |A x0| + 1."""
+    import scipy.sparse as sp
+    from clarabel_tpu_torch import NonnegativeConeT
+
+    rng = np.random.default_rng(seed)
+    P = sp.diags(1.0 + rng.uniform(0, 1, n), format="csc")
+    q = rng.normal(size=n)
+    rows = np.repeat(np.arange(m), 3)
+    A = sp.csr_matrix((rng.normal(size=3 * m), (rows, rng.integers(0, n, 3 * m))),
+                      shape=(m, n))
+    A.sum_duplicates()
+    b = np.abs(A @ rng.normal(size=n)) + 1.0
+    return P, q, A, b, [NonnegativeConeT(m)]
+
+
+def tall_dense_problem(n, m, seed):
+    """The tall sparse problem's class with a dense A: P diagonal, A's
+    entries N(0, 1/n), b = |A x0| + 1.  (The JAX test's dense tall_problem,
+    tests/test_sharded.py:11-18, at n = 256 ends AlmostSolved with a NaN x
+    at f32 through "schur_diag" in both packages; ROADMAP Queue 3.)"""
+    from clarabel_tpu_torch import NonnegativeConeT
+
+    rng = np.random.default_rng(seed)
+    P = np.diag(1.0 + rng.uniform(0, 1, n))
+    q = rng.normal(size=n)
+    A = rng.normal(size=(m, n)) / np.sqrt(n)
+    b = np.abs(A @ rng.normal(size=n)) + 1.0
+    return P, q, A, b, [NonnegativeConeT(m)]
+
+
+def tall_residuals(problem, sol):
+    """The JAX test's host KKT check (tests/test_sharded.py:125-134): the
+    primal and dual residuals over their limits 5e-4·max(1, |b|∞) and
+    5e-4·max(1, |q|∞), and the most negative entry of s and z."""
+    P, q, A, b, _ = problem
+    r_prim = np.linalg.norm(A @ sol.x + sol.s - b, np.inf)
+    r_dual = np.linalg.norm(P @ sol.x + q + A.T @ sol.z, np.inf)
+    return dict(prim=r_prim / (5e-4 * max(1.0, np.abs(b).max())),
+                dual=r_dual / (5e-4 * max(1.0, np.abs(q).max())),
+                min_sz=float(min(sol.s.min(), sol.z.min())))
+
+
+def sharded_solve(label, problem, mesh):
+    """One f32 ShardedRowSolver solve on ``mesh`` with the f32 preset; gates
+    the status (Solved or AlmostSolved, the JAX package's own status on its
+    m = 1e5 problem), the JAX test's host residuals, and that it took the
+    explicit collectives; (solution, report row) with the collectives per
+    iteration."""
+    import clarabel_tpu_torch as tt
+
+    P, q, A, b, cones = problem
+    t0 = time.perf_counter()
+    solver = tt.ShardedRowSolver(P, q, A, b, cones, tt.DefaultSettings.for_float32(verbose=False),
+                                 mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sol = solver.solve()
+    secs = time.perf_counter() - t0
+    its = max(sol.iterations, 1)
+    res = tall_residuals(problem, sol)
+    calls = solver.collectives
+    row = dict(m=A.shape[0], n=A.shape[1], sparse_A=solver._sparse_A, status=sol.status.name,
+               iterations=sol.iterations, obj=sol.obj_val, setup_s=setup_s, ms=secs * 1e3,
+               ms_per_iteration=secs * 1e3 / its, residuals_over_limit=res,
+               collectives=calls,
+               collectives_per_iteration={k: {f: v / its for f, v in c.items()}
+                                          for k, c in calls.items()})
+    assert solver._explicit_collectives, f"{label}: not on the explicit-collective path"
+    assert sol.status in (tt.SolverStatus.Solved, tt.SolverStatus.AlmostSolved), \
+        f"{label}: {sol.status.name}"
+    assert res["prim"] <= 1 and res["dual"] <= 1 and res["min_sz"] >= -1e-5, f"{label}: {res}"
+    return sol, row
+
+
+def mesh_rank_main(args) -> int:
+    """One rank of phase 3l's gloo groups on the card (``--mesh-rank MODE
+    PORT RANK WORLD OUT``): solves MODE's problems on ``cuda:0`` through
+    the mesh solvers and writes what it computed to OUT/rank<RANK>.npz."""
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+    from clarabel_tpu_torch.parallel import comm, distributed
+
+    mode, port, rank, world, out_dir = args.mesh_rank
+    rank, world = int(rank), int(world)
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    out = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if mode == "batches":
+            rows_mesh = distributed.global_mesh(("rows",))
+            problem = tall_sparse_problem(1_000_000, args.seed + 71)
+            sol, row = sharded_solve(f"tall sparse m=1e6 world {world}", problem, rows_mesh)
+            out.update(tall_x=sol.x, tall_obj=sol.obj_val, tall_row=json.dumps(row))
+            batch_mesh = distributed.global_mesh(("batch",))
+            P, q, A, b, cones = sdp_batch(2048, 16, 4, args.seed + 32 + 2048)
+            settings = tt.DefaultSettings(verbose=False, direct_solve_method="pallas")
+            solver = tt.BatchSolver(P, q, A, b, cones, settings, mesh=batch_mesh)
+            torch.cuda.synchronize()
+            pl.ldl_factor.launches["unrolled"] = 0
+            t0 = time.perf_counter()
+            sol = solver.solve()
+            out.update(sdp_lanes=sol.lanes, sdp_obj=sol.obj_val, sdp_status=sol.status,
+                       sdp_iterations=sol.iterations, sdp_ms=(time.perf_counter() - t0) * 1e3,
+                       sdp_launches=pl.ldl_factor.launches["unrolled"])
+            P, q, A, b, cones = sparse_qp_batch(32, 1000, args.seed + 50)
+            solver = tt.SparseBatchSolver(P, q, A, b, cones, sparse_settings(
+                "float64", direct_solve_method="multifrontal"), mesh=batch_mesh)
+            torch.cuda.synchronize()
+            pl.ldl_unblocked.launches = 0
+            t0 = time.perf_counter()
+            sol = solver.solve()
+            out.update(sparse_lanes=sol.lanes, sparse_obj=sol.obj_val, sparse_status=sol.status,
+                       sparse_iterations=sol.iterations,
+                       sparse_ms=(time.perf_counter() - t0) * 1e3,
+                       sparse_launches=pl.ldl_unblocked.launches)
+        else:
+            mesh2 = distributed.global_mesh(("batch", "rows"), shape=(2, world // 2))
+            P, q, A, b, cones = box_qp_batch(2048, 32, args.seed + 1)
+            comm.reset()
+            solver = tt.BatchSolver(P, q, A, b, cones,
+                                    tt.DefaultSettings.for_float32(verbose=False),
+                                    dtype="float32", mesh=mesh2)
+            t0 = time.perf_counter()
+            sol = solver.solve()
+            out.update(box_lanes=sol.lanes, box_obj=sol.obj_val, box_status=sol.status,
+                       box_iterations=sol.iterations, box_x=sol.x,
+                       box_ms=(time.perf_counter() - t0) * 1e3,
+                       box_row_sharded=type(solver._A).__name__ == "DenseRowMat",
+                       box_coords=[mesh2.get_local_rank(0), mesh2.get_local_rank(1)],
+                       box_collectives=json.dumps(comm.snapshot()))
+    out["nondeterministic"] = json.dumps(sorted({str(w.message).splitlines()[0] for w in caught
+                                                 if "deterministic" in str(w.message)}))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+    print(f"RANK{rank} OK", flush=True)
+    return 0
+
+
+def spawn_mesh_ranks(mode, world, args, out_dir):
+    """Start ``world`` ranks of this script on the card in ``mode``, wait
+    for them (each group within MESH_RANK_TIMEOUT seconds) and return each
+    rank's results; raises, with the rank's output, if any rank failed.
+    Every process started here has ended when this returns."""
+    port = free_port()
+    os.makedirs(out_dir, exist_ok=True)
+    command = [sys.executable, os.path.abspath(__file__), "--seed", str(args.seed),
+               "--mesh-rank", mode, str(port), None, str(world), out_dir]
+    procs = []
+    for rank in range(world):
+        command[-3] = str(rank)
+        procs.append(subprocess.Popen(list(command), stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outputs)):
+        assert p.returncode == 0 and f"RANK{rank} OK" in text, \
+            f"phase 3l {mode} world {world} rank {rank} failed ({p.returncode}):\n{text[-6000:]}"
+    results = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(world)]
+    for r in results:
+        # a rank's operations without a deterministic implementation, where
+        # --deterministic's listing sees them
+        for message in json.loads(str(r["nondeterministic"])):
+            warnings.warn(message)
+    return results
+
+
+def mesh_phase(args, f64_objectives):
+    """Phase 3l; returns (its report, the launches of K2 and K3 under the
+    world-1 mesh)."""
+    import clarabel_tpu_torch as tt
+    from clarabel_tpu_torch.kkt import pallas_ldl as pl
+    from clarabel_tpu_torch.parallel import comm, distributed
+
+    seed = args.seed
+    out = {}
+    # (a) world 1 over NCCL, in this process
+    log("  (a) world 1 over NCCL in this process")
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        rows_mesh = distributed.global_mesh(("rows",))
+        batch_mesh = distributed.global_mesh(("batch",))
+        tall = {}
+        for label, problem in (
+                ("tall sparse m=1e5", tall_sparse_problem(100_000, seed + 70)),
+                ("tall sparse m=1e6", tall_sparse_problem(1_000_000, seed + 71)),
+                ("tall dense n=256 m=1e5", tall_dense_problem(256, 100_000, seed + 72))):
+            comm.reset()
+            sol, row = sharded_solve(label, problem, rows_mesh)
+            assert not [s for k, s in comm.shapes if len(s) >= 2 and row["m"] in s[:-1]], \
+                f"{label}: a collective carried A's rows: {sorted(comm.shapes)}"
+            P, q, A, b, cones = problem
+            t0 = time.perf_counter()
+            ref = tt.DefaultSolver(P, q, A, b, cones, tt.DefaultSettings.for_float32(
+                verbose=False, direct_solve_method="schur_diag"), dtype="float32",
+                device="cuda").solve()
+            ref_ms = (time.perf_counter() - t0) * 1e3
+            err = float(np.abs(sol.x - ref.x).max() / max(1.0, np.abs(ref.x).max()))
+            row.update(default_solver=dict(status=ref.status.name, iterations=ref.iterations,
+                                           ms=ref_ms, obj=ref.obj_val), x_rel_vs_default=err,
+                       shapes=[[k, list(s)] for k, s in sorted(comm.shapes)])
+            per = row["collectives_per_iteration"]
+            log(f"    {label}: {sol.status.name}, {sol.iterations} iterations, setup "
+                f"{row['setup_s']:.2f} s, solve {row['ms']:.1f} ms "
+                f"({row['ms_per_iteration']:.2f} ms/iteration); per iteration "
+                f"{per['all_reduce']['calls']:.1f} all-reduces ({per['all_reduce']['bytes']:.0f} B), "
+                f"{per['all_gather']['calls']:.1f} all-gathers ({per['all_gather']['bytes']:.0f} B); "
+                f"residuals/limit {row['residuals_over_limit']}; DefaultSolver schur_diag f32 "
+                f"{ref.status.name} {ref.iterations} it {ref_ms:.1f} ms, x within {err:.2e}")
+            assert ref.status in (tt.SolverStatus.Solved, tt.SolverStatus.AlmostSolved)
+            assert err <= 1e-4, f"{label}: x {err:.3e} from DefaultSolver's"
+            tall[label] = (sol, row)
+        out["world1"] = {k: row for k, (_, row) in tall.items()}
+
+        # the batch solvers over the world-1 mesh: the same bits as their
+        # solves without one, K2 and K3 launched under the mesh
+        launches = {}
+        problem = sdp_batch(2048, 16, 4, seed + 32 + 2048)
+        P, q, A, b, cones = problem
+        solver = tt.BatchSolver(P, q, A, b, cones, tt.DefaultSettings(
+            verbose=False, direct_solve_method="pallas"), mesh=batch_mesh)
+        torch.cuda.synchronize()
+        for v in pl.ldl_factor.launches:
+            pl.ldl_factor.launches[v] = 0
+        t0 = time.perf_counter()
+        sdp = solver.solve()
+        sdp_ms = (time.perf_counter() - t0) * 1e3
+        launches["unrolled"] = pl.ldl_factor.launches["unrolled"]
+        base = KEPT["SDP B=2048"]
+        same = all(np.array_equal(getattr(sdp, k), getattr(base, k))
+                   for k in ("x", "z", "s", "obj_val", "iterations", "status"))
+        log(f"    SDP batch B=2048 N=58 pallas on the mesh: {sdp_ms:.1f} ms, "
+            f"{launches['unrolled']} K2 launches, lanes {sdp.lanes}; bitwise phase 3e's: {same}")
+        assert same and sdp.lanes is None and launches["unrolled"] > 0
+        problem = sparse_qp_batch(32, 1000, seed + 50)
+        P, q, A, b, cones = problem
+        solver = tt.SparseBatchSolver(P, q, A, b, cones, sparse_settings(
+            "float64", direct_solve_method="multifrontal"), mesh=batch_mesh)
+        torch.cuda.synchronize()
+        pl.ldl_unblocked.launches = 0
+        t0 = time.perf_counter()
+        sparse = solver.solve()
+        sparse_ms = (time.perf_counter() - t0) * 1e3
+        launches["fori"] = pl.ldl_unblocked.launches
+        base = KEPT["sparse QP B=32"]
+        same_sparse = all(np.array_equal(getattr(sparse, k), getattr(base, k))
+                          for k in ("x", "z", "s", "obj_val", "iterations", "status"))
+        log(f"    sparse QP batch B=32 N=3000 on the mesh: {sparse_ms:.1f} ms, "
+            f"{launches['fori']} K3 launches; bitwise phase 3g's: {same_sparse}")
+        assert same_sparse and launches["fori"] > 0
+        out["world1"]["SDP B=2048"] = dict(ms=sdp_ms, launches=launches["unrolled"],
+                                          bitwise_equal_unsharded=same)
+        out["world1"]["sparse QP B=32"] = dict(ms=sparse_ms, launches=launches["fori"],
+                                              bitwise_equal_unsharded=same_sparse)
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # (b) several ranks on the one card
+    log("  (b) ranks sharing the one card: gloo, carrying CUDA tensors (NCCL refuses two "
+        "ranks on one GPU); not a scaling figure")
+    tall_x, tall_obj = tall["tall sparse m=1e6"][0].x, tall["tall sparse m=1e6"][0].obj_val
+    sdp_obj, sparse_obj = KEPT["SDP B=2048"].obj_val, KEPT["sparse QP B=32"].obj_val
+    box_f32 = KEPT["box QP B=2048 f32"]
+    for world in MESH_WORLDS:
+        mode = "batches" if world == 2 else "mesh2"
+        t0 = time.perf_counter()
+        res = spawn_mesh_ranks(mode, world, args, os.path.join("build", "chip_smoke_mesh",
+                                                               f"world{world}"))
+        wall = time.perf_counter() - t0
+        log(f"    world {world}: the group took {wall:.1f} s, process start included")
+        entry = dict(wall_s=wall)
+        if mode == "batches":
+            row = json.loads(str(res[0]["tall_row"]))
+            for r in res[1:]:
+                assert np.array_equal(r["tall_x"], res[0]["tall_x"]), \
+                    f"world {world}: the ranks' x differ"
+            err = float(np.abs(res[0]["tall_x"] - tall_x).max() / max(1.0, np.abs(tall_x).max()))
+            obj_err = abs(float(res[0]["tall_obj"]) - tall_obj) / max(1.0, abs(tall_obj))
+            per = row["collectives_per_iteration"]
+            log(f"    world {world} tall sparse m=1e6: {row['status']}, {row['iterations']} "
+                f"iterations, {row['ms_per_iteration']:.2f} ms/iteration (world 1: "
+                f"{tall['tall sparse m=1e6'][1]['ms_per_iteration']:.2f}; ranks sharing one "
+                f"card: not a scaling figure); per iteration {per['all_reduce']['calls']:.1f} "
+                f"all-reduces ({per['all_reduce']['bytes']:.0f} B), "
+                f"{per['all_gather']['calls']:.1f} all-gathers ({per['all_gather']['bytes']:.0f} "
+                f"B); x within {err:.2e}, objective within {obj_err:.2e} of world 1; every "
+                f"rank's x the same bits")
+            assert err <= 1e-4 and obj_err <= 1e-4, \
+                f"world {world}: tall sparse {err:.3e}, {obj_err:.3e}"
+            entry.update(tall=row, tall_x_rel_vs_world1=err, tall_obj_rel_vs_world1=obj_err)
+            for key, ref_obj, per_rank in (("sdp", sdp_obj, 1024), ("sparse", sparse_obj, 16)):
+                worst = 0.0
+                for rank, r in enumerate(res):
+                    lanes = np.arange(rank * per_rank, (rank + 1) * per_rank)
+                    assert np.array_equal(r[f"{key}_lanes"], lanes), f"{key} rank {rank} lanes"
+                    assert (r[f"{key}_status"] == int(tt.SolverStatus.Solved)).all(), \
+                        f"{key} rank {rank}: {r[f'{key}_status']}"
+                    rel = np.abs(r[f"{key}_obj"] - ref_obj[lanes]) / np.maximum(
+                        1.0, np.abs(ref_obj[lanes]))
+                    worst = max(worst, float(rel.max()))
+                    assert int(r[f"{key}_launches"]) > 0
+                log(f"    world 2 {key} batch split {per_rank} + {per_rank}: every lane Solved, "
+                    f"objectives within {worst:.2e} of world 1's; per rank "
+                    f"{[float(r[f'{key}_ms']) for r in res]} ms, kernel launches "
+                    f"{[int(r[f'{key}_launches']) for r in res]}")
+                assert worst <= 1e-7, f"world 2 {key}: objectives {worst:.3e} apart"
+                entry[key] = dict(max_rel_obj=worst, ms=[float(r[f"{key}_ms"]) for r in res],
+                                  launches=[int(r[f"{key}_launches"]) for r in res])
+        else:
+            f64_obj = f64_objectives["box QP B=2048"]
+            worst = worst64 = 0.0
+            groups = {}
+            for r in res:
+                g = int(r["box_coords"][0])
+                groups.setdefault(g, []).append(r["box_x"])
+                lanes = np.arange(g * 1024, (g + 1) * 1024)
+                assert bool(r["box_row_sharded"]) and np.array_equal(r["box_lanes"], lanes)
+                assert (r["box_status"] == int(tt.SolverStatus.Solved)).all()
+                rel = np.abs(r["box_obj"] - box_f32.obj_val[lanes]) / np.maximum(
+                    1.0, np.abs(box_f32.obj_val[lanes]))
+                rel64 = np.abs(r["box_obj"] - f64_obj[lanes]) / np.maximum(
+                    1.0, np.abs(f64_obj[lanes]))
+                worst, worst64 = max(worst, float(rel.max())), max(worst64, float(rel64.max()))
+            for xs in groups.values():
+                assert all(np.array_equal(x, xs[0]) for x in xs), "a row group's x differ"
+            collectives = json.loads(str(res[0]["box_collectives"]))
+            its = int(max(r["box_iterations"].max() for r in res))
+            log(f"    world 4 as a 2 x 2 (batch x rows) mesh, f32 box QP B=2048 N=96 auto "
+                f"(schur_diag, A's rows split in two): every lane Solved, objectives within "
+                f"{worst:.2e} of phase 3c's unsharded f32 solve and {worst64:.2e} of f64; "
+                f"a row group's x the same bits; per rank {[float(r['box_ms']) for r in res]} ms, "
+                f"collectives {collectives} over {its} iterations")
+            assert worst <= 1e-4 and worst64 <= 1e-3, f"2-D mesh: {worst:.3e}, {worst64:.3e}"
+            entry["box_2d"] = dict(max_rel_obj_vs_f32=worst, max_rel_obj_vs_f64=worst64,
+                                   ms=[float(r["box_ms"]) for r in res],
+                                   collectives=collectives, iterations=its)
+        out[f"world{world}"] = entry
+    return out, launches
+
+
+def free_port():
+    """A TCP port on this host that was free a moment ago."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", help="also write every measurement to this JSON file")
     parser.add_argument("--deterministic", action="store_true",
                         help="list the operations without a deterministic implementation")
+    parser.add_argument("--mesh-rank", nargs=5, metavar=("MODE", "PORT", "RANK", "WORLD", "OUT"),
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.mesh_rank:
+        # one rank of phase 3l's groups; its parent lists what
+        # --deterministic finds in it
+        if os.environ.get("CT_CHIP_SMOKE_DETERMINISTIC"):
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        return mesh_rank_main(args)
     if args.deterministic:
+        os.environ["CT_CHIP_SMOKE_DETERMINISTIC"] = "1"
         # cuBLAS repeats its results only with a fixed workspace
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -3267,6 +3678,15 @@ def run(args) -> int:
         report["f32_sparse"] = f32_sparse_phase(args.seed, report)
         report["f32_sparse_seconds"] = time.perf_counter() - t0
         log(f"  phase 3k took {report['f32_sparse_seconds']:.1f} s")
+
+        # ---- phase 3l: multi-device; K2 and K3 counted from zero for the
+        # world-1 mesh's batch solves
+        log("phase 3l: multi-device (ShardedRowSolver, BatchSolver and SparseBatchSolver "
+            "over device meshes; NCCL across several cards is unverified: one card here)")
+        t0 = time.perf_counter()
+        report["mesh"], launches_3l = mesh_phase(args, f64_objectives)
+        report["mesh_seconds"] = time.perf_counter() - t0
+        log(f"  phase 3l took {report['mesh_seconds']:.1f} s")
 
     # ---- phase 4: launch counts and the kernels line
     log(f"phase 4: launches on the main path {launches}")
@@ -3515,12 +3935,42 @@ def run(args) -> int:
             path=f"f32 sparse, phase 3k {label}, multifrontal diagonal blocks",
             yardstick_lu_factor_ms=row["lu_factor_ms"],
         ))
+    # phase 3l's path: K2 on the SDP batch and K3 on the sparse batch's
+    # fronts, each launched by the batch solver over the world-1 mesh
+    assert launches_3l["unrolled"] > 0 and launches_3l["fori"] > 0
+    B, n, m = psd_shapes["SDP B=2048"][1:]
+    row = next(r for r in rows if r["variant"] == "unrolled" and r["B"] == B
+               and r["N"] == n + m and r["dtype"] == "float64")
+    kernels.append(dict(
+        name=KERNELS["unrolled"]["name"], route="cuda", source=SOURCE,
+        replaces=KERNELS["unrolled"]["replaces"], launches=launches_3l["unrolled"],
+        max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+        shape=[B, n + m, n + m], dtype="float64",
+        path="phase 3l BatchSolver(mesh=) SDP B=2048, world 1 over NCCL",
+        yardstick_ldl_factor_ms=row["ldl_factor_ms"],
+        yardstick_lu_factor_ms=row["lu_factor_ms"],
+    ))
+    run_ = report["sparse_batch"]["sparse QP B=32"]
+    B, N = run_["widest_block_batch"], run_["widest_block_cols"]
+    row = next(r for r in fronts if r["B"] == B and r["N"] == N and r["dtype"] == "float64")
+    kernels.append(dict(
+        name=KERNELS["fori"]["name"], route="cuda", source=SOURCE,
+        replaces=KERNELS["fori"]["replaces"], launches=launches_3l["fori"],
+        max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+        shape=[B, N, N], dtype="float64", signs="per-matrix",
+        path="phase 3l SparseBatchSolver(mesh=) sparse QP B=32, world 1 over NCCL, "
+             "multifrontal diagonal blocks of every lane",
+        yardstick_lu_factor_ms=row["lu_factor_ms"],
+    ))
     report["seconds"] = time.perf_counter() - started
     log(f"chip_smoke took {report['seconds']:.1f} s")
     report["launches"] = launches
     report["launches_3d"] = launches_3d
     report["launches_3h"] = launches_3h
     report["launches_capi"] = launches_capi
+    report["launches_3l"] = launches_3l
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

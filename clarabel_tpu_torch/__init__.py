@@ -18,7 +18,11 @@ path (``"multifrontal"``, or ``"auto"`` past its size and density gate),
 which never densifies the KKT system and factors its fronts' diagonal
 blocks with the same hand-written LDLᵀ kernel; and the batched solve of
 many sparse problems of one sparsity pattern through one multifrontal plan
-(:class:`SparseBatchSolver`).
+(:class:`SparseBatchSolver`).  Both batch solvers split their lanes over the
+ranks of a ``torch.distributed`` device mesh (``mesh=``), and
+:class:`ShardedRowSolver` shards one tall problem's constraint rows over
+one, A never gathered (``parallel/distributed.py`` starts the process group
+and builds the mesh).
 
 Around the solvers sits the JAX package's host surface: problems saved to
 and loaded from the reference's JSON format (``DefaultSolver.save_to_file``,
@@ -46,7 +50,7 @@ from .cones.api import (
 )
 from .buildinfo import buildinfo, print_buildinfo
 from .infbound import default_infinity, get_infinity, set_infinity
-from .parallel import BatchSolution, BatchSolver, SparseBatchSolver
+from .parallel import BatchSolution, BatchSolver, ShardedRowSolver, SparseBatchSolver, distributed
 from .settings import DefaultSettings, SettingsError
 from .solver import DefaultInfo, DefaultSolution, DefaultSolver
 from .statuses import SolverStatus
@@ -58,6 +62,8 @@ __all__ = [
     "BatchSolver",
     "BatchSolution",
     "SparseBatchSolver",
+    "ShardedRowSolver",
+    "distributed",
     "DefaultSettings",
     "DefaultSolution",
     "DefaultInfo",

@@ -1,7 +1,7 @@
 """Ruiz equilibration of dense and of sparse (COO) problem data.
 
-PyTorch port of ``clarabel_tpu/equilibration.py:equilibrate`` and
-``equilibrate_sparse`` (reference:
+PyTorch port of ``clarabel_tpu/equilibration.py:equilibrate``,
+``equilibrate_sparse`` and ``equilibrate_ell`` (reference:
 src/solver/implementations/default/problemdata.rs:229-312).  The loop runs a
 fixed ``equilibrate_max_iter`` passes, as the reference does; the cost scale
 ``c`` stays a tensor, so nothing here waits for the device.  The data may
@@ -34,6 +34,27 @@ def equilibrate(layout: ConeLayout, settings, P, q, A, b, triu_mask):
     normalization term (the reference computes column norms of the
     triu-stored P there; problemdata.rs:280-295).
     """
+    return _ruiz(layout, settings, P, q, A, b, triu_mask,
+                 col_abs_max=lambda A: _absmax(A, -2), row_abs_max=lambda A: _absmax(A, -1),
+                 scale=lambda A, e, d: A * e[..., :, None] * d[..., None, :])
+
+
+def equilibrate_ell(layout: ConeLayout, settings, P, q, A, b, triu_mask):
+    """Ruiz equilibration with A row-sharded over a row group
+    (``algebra/ell.py``: an ``ELLRowMat``, or a ``DenseRowMat`` with
+    optional batch dimensions; P dense and whole on every rank).  The same
+    math as :func:`equilibrate`, rounded the same way; A's norms and
+    scalings run on each rank's rows plus one collective each inside the
+    matrix's methods, so A is never gathered (the JAX package's
+    ``equilibrate_ell``)."""
+    return _ruiz(layout, settings, P, q, A, b, triu_mask,
+                 col_abs_max=lambda A: A.col_abs_max(), row_abs_max=lambda A: A.row_abs_max(),
+                 scale=lambda A, e, d: A.scale(e, d))
+
+
+def _ruiz(layout, settings, P, q, A, b, triu_mask, col_abs_max, row_abs_max, scale):
+    """The Ruiz passes of :func:`equilibrate` with A's column and row
+    inf-norms and its scaling diag(e) A diag(d) given as functions."""
     n, m = q.shape[-1], b.shape[-1]
     batch = q.shape[:-1]
     kw = dict(dtype=q.dtype, device=q.device)
@@ -52,8 +73,8 @@ def equilibrate(layout: ConeLayout, settings, P, q, A, b, triu_mask):
         # inf-norms of the KKT columns (problemdata.rs:319-328):
         # LHS cols: symmetric P column norms joined with A column norms;
         # RHS rows: A row norms
-        dwork = torch.maximum(_absmax(P, -2), _absmax(A, -2))
-        ework = _absmax(A, -1)
+        dwork = torch.maximum(_absmax(P, -2), col_abs_max(A))
+        ework = row_abs_max(A)
 
         # zero rows / columns are left unscaled
         dwork = torch.where(dwork == 0, 1.0, dwork)
@@ -68,7 +89,7 @@ def equilibrate(layout: ConeLayout, settings, P, q, A, b, triu_mask):
 
         # scale data
         P = P * dwork[..., :, None] * dwork[..., None, :]
-        A = A * ework[..., :, None] * dwork[..., None, :]
+        A = scale(A, ework, dwork)
         q = q * dwork
         b = b * ework
         d = d * dwork
@@ -96,10 +117,11 @@ def equilibrate(layout: ConeLayout, settings, P, q, A, b, triu_mask):
         c = c * ctmp
 
     # per-cone rectification: cones that only admit a scalar scaling get
-    # their rows replaced by the cone mean (problemdata.rs:299-307)
+    # their rows replaced by the cone mean (problemdata.rs:299-307); the
+    # column factor 1 is exact
     delta, changed = cone_ops.rectify_equilibration(layout, e)
     if changed:
-        A = A * delta[..., :, None]
+        A = scale(A, delta, torch.ones_like(d))
         b = b * delta
         e = e * delta
 

@@ -259,12 +259,7 @@ def prepare_schur_diag(P, A, hs_diag, settings, eq_mask=None):
     """
     n = P.shape[-1]
     # (diag Hs ≥ 0, so its largest entry is its largest magnitude)
-    maxdiag = torch.maximum(_amax0(torch.diagonal(P, dim1=-2, dim2=-1)), _amax0(hs_diag))
-    eps = _static_eps(settings, maxdiag, 0.0)
-
-    h = hs_diag + eps.unsqueeze(-1)
-    if eq_mask is not None:
-        h = h + eq_mask * (1e-3 * maxdiag).unsqueeze(-1)
+    h, eps = _schur_diag_h(P, hs_diag, settings, eq_mask)
     hinv = 1.0 / h
     S = P + eps[..., None, None] * _eye(n, P) + A.mT @ (hinv.unsqueeze(-1) * A)
     LS = cholesky(S)
@@ -353,6 +348,77 @@ def prepare_schur_lowrank(P, A, h, U, settings, n_eq=0):
     return ("schur_lr", (hinv_apply, LS, LE, A_e, A_i, n, p)), matvec, ok
 
 
+def _schur_diag_h(P, hs_diag, settings, eq_mask):
+    """The regularized H diagonal of :func:`prepare_schur_diag` and its ε:
+    (h, ε) per problem."""
+    maxdiag = torch.maximum(_amax0(torch.diagonal(P, dim1=-2, dim2=-1)), _amax0(hs_diag))
+    eps = _static_eps(settings, maxdiag, 0.0)
+    h = hs_diag + eps.unsqueeze(-1)
+    if eq_mask is not None:
+        h = h + eq_mask * (1e-3 * maxdiag).unsqueeze(-1)
+    return h, eps
+
+
+def _prepare_rowsharded(P, A, hs_diag, settings, eq_mask):
+    """:func:`prepare_schur_diag` over a row-sharded A (``algebra/ell.py``):
+    each rank forms its rows' weighted Gram tile A_kᵀ H_k⁻¹ A_k from its
+    dense row block, one all-reduce sums S = P̃ + Σ_k A_kᵀ H_k⁻¹ A_k on
+    every rank, and the [n, n] Cholesky factor is computed whole on each.
+    Aᵀv and A·v go through A's own collectives."""
+    from ..parallel import comm
+
+    n = P.shape[-1]
+    h, eps = _schur_diag_h(P, hs_diag, settings, eq_mask)
+    hinv = 1.0 / h
+    Ab = A.densify_sharded()
+    gram = comm.all_reduce(Ab.mT @ (A.row_block(hinv).unsqueeze(-1) * Ab), A.group)
+    S = P + eps[..., None, None] * _eye(n, P) + gram
+    LS = cholesky(S)
+    ok = _finite(LS) & torch.all(h > 0, dim=-1)
+    at_v = lambda v: A.T @ v
+    a_v = lambda v: A @ v
+
+    def matvec(v):
+        v1, v2 = v[..., :n], v[..., n:]
+        return torch.cat([_mv(P, v1) + at_v(v2), a_v(v1) - hs_diag * v2], dim=-1)
+
+    return ("schur_diag_sh", (hinv, LS, at_v, a_v, n)), matvec, ok
+
+
+def prepare_schur_diag_rowsharded(P, A, hs_diag, settings, eq_mask, mesh, axis):
+    """Row-sharded :func:`prepare_schur_diag` with the communication fixed
+    by construction (the JAX package's, there through ``shard_map``):
+
+      - S = P̃ + Σ_k A_kᵀ H_k⁻¹ A_k assembles as one weighted Gram product
+        of each rank's rows plus one all-reduce of [..., n, n] over the
+        row axis ``axis`` of ``mesh`` (SURVEY §5.8: the Schur-complement
+        reduction across KKT blocks);
+      - Aᵀv all-reduces each rank's partial [..., n]; A·v all-gathers the
+        ranks' [..., m_loc] into [..., m];
+      - A is NEVER gathered: each rank holds only its row block.
+
+    ``A`` is this rank's block ``[..., m_loc, n]`` of rows (leading batch
+    dimensions are independent problems); P, ``hs_diag`` [..., m] and
+    ``eq_mask`` [m] are whole on every rank.  The [n, n] factorization runs
+    whole on every rank, in the same bits."""
+    from ..algebra.ell import DenseRowMat
+
+    A = DenseRowMat.from_mesh(A, hs_diag.shape[-1], mesh, axis)
+    return _prepare_rowsharded(P, A, hs_diag, settings, eq_mask)
+
+
+def prepare_schur_diag_rowsharded_ell(P, A, hs_diag, settings, eq_mask):
+    """Sparse (ELL) variant of :func:`prepare_schur_diag_rowsharded`: A
+    arrives as an ``algebra.ell.ELLRowMat`` (tall problems without a dense
+    host A).  The Gram reduction needs a dense operand, so each rank
+    scatters its ELL rows into a dense [m_loc, n] block on its device, once
+    per matrix (``densify_sharded``, the JAX package's loop-invariant that
+    XLA hoists), and the reduction stays one product of each rank's rows
+    plus one all-reduce.  The refinement's products keep the sparse
+    gather/segment-sum form; A, in either form, is never gathered."""
+    return _prepare_rowsharded(P, A, hs_diag, settings, eq_mask)
+
+
 def _lu_solve(lu, piv, rhs):
     vec = rhs.dim() == lu.dim() - 1
     b = rhs.unsqueeze(-1) if vec else rhs
@@ -387,6 +453,12 @@ def _raw_solve(factors, rhs):
         b1, b2 = rhs[..., :n], rhs[..., n:]
         x1 = _cho_solve(LS, b1 + _mv(A.mT, hinv * b2))
         x2 = hinv * (_mv(A, x1) - b2)
+        return torch.cat([x1, x2], dim=-1)
+    if kind == "schur_diag_sh":
+        hinv, LS, at_v, a_v, n = data
+        b1, b2 = rhs[..., :n], rhs[..., n:]
+        x1 = _cho_solve(LS, b1 + at_v(hinv * b2))
+        x2 = hinv * (a_v(x1) - b2)
         return torch.cat([x1, x2], dim=-1)
     if kind == "schur_lr":
         hinv_apply, LS, LE, A_e, A_i, n, p = data

@@ -638,7 +638,7 @@ def _demoted_kkt_method(layout, method):
 
 
 def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state,
-                 sparse_kkt=None):
+                 sparse_kkt=None, row_shard=None):
     """Build KKT factors for the current scaling state.
 
     Returns (factors, K_true, ok) with K_true the unregularized KKT matrix
@@ -649,6 +649,11 @@ def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state,
     scatter into the KKT's lower-triangle nonzero vector and the
     multifrontal engine refactors it (reference: qdldl.rs:468-700,
     kkt_assembly.rs:20-183); the JAX package's loop.py:679-712.
+
+    With ``row_shard = (mesh, axis)`` A is row-sharded over that mesh axis
+    (``algebra/ell.py``) and the route must resolve to "schur_diag": the
+    row-sharded Schur prepares build the factors, A is never gathered (the
+    JAX package's loop.py:736-750).
     """
     if sparse_kkt is not None:
         from .kkt import sparse as kkt_sparse
@@ -682,7 +687,16 @@ def _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, scaling_state,
         # lead the row order
         hs_d = cone_ops.hs_diag(layout, scaling_state, dtype, P.device, batch)
         eq_mask = layout.zero_row_mask(dtype, P.device) if layout.n_zero else None
-        return kkt_dense.prepare_schur_diag(P, A, hs_d, settings, eq_mask)
+        if row_shard is None:
+            return kkt_dense.prepare_schur_diag(P, A, hs_d, settings, eq_mask)
+        from .algebra.ell import ELLRowMat
+
+        if isinstance(A, ELLRowMat):
+            return kkt_dense.prepare_schur_diag_rowsharded_ell(P, A, hs_d, settings, eq_mask)
+        return kkt_dense.prepare_schur_diag_rowsharded(P, A.local, hs_d, settings, eq_mask,
+                                                       *row_shard)
+    if row_shard is not None:
+        raise ValueError(f"a row-sharded A takes the \"schur_diag\" route, not {method!r}")
     if method == "schur_lr":
         h, U = cone_ops.hs_diag_lowrank(layout, scaling_state, dtype, P.device, batch)
         return kkt_dense.prepare_schur_lowrank(P, A, h, U, settings, n_eq=layout.n_zero)
@@ -729,7 +743,7 @@ def _make_factor_fn(layout, settings, dtype, n, use_pallas=False, method=None):
 
 
 def default_start(layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas=False,
-                  sparse_kkt=None):
+                  sparse_kkt=None, row_shard=None):
     """Initial iterate.  reference: solver.rs:525-541, kktsystem.rs:211-259,
     variables.rs:164-178, 231-256."""
     n, m = q.shape[-1], b.shape[-1]
@@ -744,7 +758,7 @@ def default_start(layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas=Fal
     # symmetric: solve the KKT system with identity scalings
     state0 = cone_ops.set_identity_scaling(layout, dtype, q.device, batch)
     factors, K, _ = _kkt_prepare(layout, settings, dtype, n, use_pallas, P, A, state0,
-                                 sparse_kkt=sparse_kkt)
+                                 sparse_kkt=sparse_kkt, row_shard=row_shard)
 
     if p_is_zero:
         # LP initialization (kktsystem.rs:219-245)
@@ -863,8 +877,23 @@ CALLBACK_KEYS = ("iterations", "cost_primal", "cost_dual", "gap_abs", "gap_rel",
                  "res_primal", "res_dual", "ktratio", "mu", "step_length")
 
 
+def _over_time(time_start, limit, row_shard, device):
+    """Whether the solve has run past ``limit`` seconds: this process's
+    clock, or on a row-sharded solve any rank's (one all-reduce of the
+    flag, read once by every rank)."""
+    over = (time.monotonic() - time_start) > limit
+    if row_shard is None:
+        return over
+    from .parallel import comm
+
+    mesh, axis = row_shard
+    flag = torch.tensor([float(over)], device=device)
+    return bool(host_read(comm.all_reduce(flag, mesh.get_group(axis), op="max"))[0])
+
+
 def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
-            use_pallas=False, warm_start=None, callback=None, sparse_kkt=None):
+            use_pallas=False, warm_start=None, callback=None, sparse_kkt=None,
+            row_shard=None):
     """The main loop.  Returns the final SolverState.
 
     ``warm_start``, when given, is an (x0, s0, z0) triple in the internal
@@ -884,6 +913,14 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
     data)`` pair of the problem's sparsity pattern, whose P and A are
     COOMat (one problem, or a batch with values [B, nnz]): every KKT solve
     runs through the multifrontal engine.
+
+    ``row_shard``, when given, is the ``(DeviceMesh, axis)`` A's rows are
+    sharded over (A an ``algebra.ell`` row-sharded matrix): every rank of
+    the axis runs this loop in lockstep on the same replicated vectors.
+    The only host decision that could differ between ranks, the wall-clock
+    time limit, is then taken once for the group (an all-reduce of the
+    "over time" flag), so no rank leaves the loop alone and hangs the
+    others in their next collective.
 
     reference: solver.rs:242-465
     """
@@ -906,7 +943,7 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
     else:
         x, s, z, tau, kappa = default_start(
             layout, settings, P, q, A, b, p_is_zero, dtype, use_pallas,
-            sparse_kkt=sparse_kkt,
+            sparse_kkt=sparse_kkt, row_shard=row_shard,
         )
 
     f = lambda v: torch.full(batch, v, dtype=dtype, device=device)
@@ -960,8 +997,9 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         status, ip_pending = check_termination(st, settings, dtype)
         st = st._replace(ip_pending=ip_pending)
 
-        # wall-clock time limit (info.rs:224-226), read on the host
-        if timed and (time.monotonic() - time_start) > settings.time_limit:
+        # wall-clock time limit (info.rs:224-226), read on the host; on a
+        # row-sharded solve the group's slowest clock decides for every rank
+        if timed and _over_time(time_start, settings.time_limit, row_shard, device):
             status = _status(status == _UNSOLVED, int(SolverStatus.MaxTime), status)
 
         # user termination callback, checked before the internal statuses
@@ -1016,7 +1054,7 @@ def run_ipm(layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
         # --- KKT update + constant-term solve (kktsystem.rs:108-125)
         factors, K, ok_f = _kkt_prepare(
             layout, settings, dtype, n, use_pallas, P, A, scaling_state,
-            sparse_kkt=sparse_kkt,
+            sparse_kkt=sparse_kkt, row_shard=row_shard,
         )
         variables = (st.x, st.s, st.z, st.tau, st.kappa)
 

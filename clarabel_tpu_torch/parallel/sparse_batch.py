@@ -18,9 +18,12 @@ single-threaded library; SURVEY.md §2.9): this composes its sparse KKT
 
 Semantics contract as :class:`~clarabel_tpu_torch.BatchSolver`'s (no
 presolve, chordal decomposition, callback or time limit; per-lane
-freezing), with the sparse path's own rules: the structure is immutable,
-the values vary per lane, and the KKT runs the multifrontal engine whatever
-``direct_solve_method`` says.
+freezing; on a 1-D ``DeviceMesh`` the lanes split contiguously over the
+ranks, each rank solving and returning its own block), with the sparse
+path's own rules: the structure is immutable, the values vary per lane,
+and the KKT runs the multifrontal engine whatever ``direct_solve_method``
+says.  The symbolic plan depends on the pattern alone, so every rank of a
+mesh builds the same plan.
 """
 
 from __future__ import annotations
@@ -38,14 +41,9 @@ from ..cones.layout import ConeLayout
 from ..infbound import get_infinity
 from ..kkt import sparse as kkt_sparse
 from ..settings import DefaultSettings
-from ..solver import (
-    _not_ported,
-    build_solve_core,
-    check_ported,
-    full_precision,
-    resolve_device,
-)
-from .batch import BatchSolution
+from ..solver import build_solve_core, check_ported, full_precision, resolve_device
+from .batch import BatchSolution, _LaneSplit
+from .distributed import check_mesh, mesh_device
 
 
 def _stack_same_structure(mats, name):
@@ -81,10 +79,13 @@ class SparseBatchSolver:
     cones : shared cone specification.
     dtype : "float64" (the default) or "float32" (with
         ``DefaultSettings.for_float32``).
-    mesh : sharding the batch over devices raises (ROADMAP item 16).
-    device : the solve runs on a CUDA device unless this names another
-        (``device="cpu"``); without a CUDA device and without it the
-        constructor raises.
+    mesh : optional 1-D ``DeviceMesh``: every rank constructs and solves
+        the batch with the same data, on the mesh's device, and gets its
+        own block of lanes back (``BatchSolution.lanes``); B must divide the
+        mesh.
+    device : without a mesh the solve runs on a CUDA device unless this
+        names another (``device="cpu"``); without a CUDA device and without
+        it the constructor raises.
 
     One symbolic multifrontal analysis (ordering, supernodes, level
     schedule, scatter maps) is shared; the numeric factor and solves run
@@ -107,15 +108,17 @@ class SparseBatchSolver:
         self.settings = settings if settings is not None else DefaultSettings()
         self.settings.validate()
 
-        if mesh is not None:
-            raise _not_ported("sharding a sparse batch over a device mesh (mesh=)", 16)
         self._dtype = check_ported(dtype)
         if self.settings.time_limit != float("inf"):
             raise ValueError(
                 "SparseBatchSolver has no wall-clock time limit: leave settings.time_limit "
                 "at inf and bound the batch with max_iter"
             )
-        self._device = resolve_device(device)
+        if mesh is not None:
+            check_mesh(mesh, (1,), "SparseBatchSolver")
+            self._device = mesh_device(mesh)
+        else:
+            self._device = resolve_device(device)
 
         q = np.atleast_2d(np.asarray(q, np.float64))
         b = np.atleast_2d(np.asarray(b, np.float64))
@@ -179,6 +182,9 @@ class SparseBatchSolver:
             ordering=self.settings.multifrontal_ordering, dtype=self._dtype,
         )
         self.B, self.n, self.m = B, n, m
+        self._split = _LaneSplit(B, mesh)
+        P_sym_data, A_perm_data, q, b = (self._split.take(v)
+                                         for v in (P_sym_data, A_perm_data, q, b))
         dtype = getattr(torch, self._dtype)
         self._put = lambda v: torch.tensor(np.asarray(v, np.float64), dtype=dtype,
                                            device=self._device)
@@ -232,21 +238,14 @@ class SparseBatchSolver:
             r_prim=out["r_prim"],
             r_dual=out["r_dual"],
             solve_time=solve_time,
+            lanes=self._split.lanes,
         )
 
     def _warm_iterates(self, warm_start):
-        """The warm start's [B, ·] (x, s, z) as tensors on the device, s and
-        z in the layout's row order (the JAX package's ``_solve_warm``)."""
-        if isinstance(warm_start, BatchSolution):
-            x0, s0, z0 = warm_start.x, warm_start.s, warm_start.z
-        else:
-            x0, s0, z0 = warm_start
-        x0 = np.asarray(x0, np.float64)
-        s0 = np.asarray(s0, np.float64)
-        z0 = np.asarray(z0, np.float64)
-        if x0.shape != (self.B, self.n) or s0.shape != (self.B, self.m) \
-                or z0.shape != (self.B, self.m):
-            raise ValueError("warm start has wrong batch dimensions")
+        """The warm start's (x, s, z) of this rank's lanes as tensors on the
+        device, s and z in the layout's row order (the JAX package's
+        ``_solve_warm``)."""
+        x0, s0, z0 = self._split.warm(warm_start, self.n, self.m)
         perm = self._layout.perm
         return self._put(x0), self._put(s0[:, perm]), self._put(z0[:, perm])
 
@@ -256,25 +255,27 @@ class SparseBatchSolver:
         update_data nzval forms, data_updating.rs:98-160).  ``P_data`` /
         ``A_data`` are [B, nnz] in the canonical sorted-CSC data order of
         the setup matrices (full P; the triu-symmetrize map is re-applied
-        here).  The plan is never rebuilt."""
+        here).  On a mesh each argument may also cover only this rank's
+        lanes.  The plan is never rebuilt."""
+        take = self._split.take
         if P_data is not None:
-            P_data = np.asarray(P_data, np.float64)
-            if P_data.shape != (self.B, self._P_nnz):
+            P_data = take(np.asarray(P_data, np.float64), "P_data")
+            if P_data.shape[1:] != (self._P_nnz,):
                 raise ValueError("P_data must be [B, nnz(P)] in CSC order")
             self._P = self._P.with_data(self._put(P_data[:, self._sym_src]))
         if A_data is not None:
-            A_data = np.asarray(A_data, np.float64)
-            if A_data.shape != (self.B, self._a_src.shape[0]):
+            A_data = take(np.asarray(A_data, np.float64), "A_data")
+            if A_data.shape[1:] != (self._a_src.shape[0],):
                 raise ValueError("A_data must be [B, nnz(A)] in CSC order")
             self._A = self._A.with_data(self._put(A_data[:, self._a_src]))
         if q is not None:
-            q = np.asarray(q, np.float64)
-            if q.shape != (self.B, self.n):
+            q = take(np.asarray(q, np.float64), "q")
+            if q.shape[1:] != (self.n,):
                 raise ValueError("q must be [B, n]")
             self._q = self._put(q)
         if b is not None:
-            b = np.asarray(b, np.float64)
-            if b.shape != (self.B, self.m):
+            b = take(np.asarray(b, np.float64), "b")
+            if b.shape[1:] != (self.m,):
                 raise ValueError("b must be [B, m]")
             self._b = self._put(np.minimum(b, get_infinity())[:, self._layout.perm])
 

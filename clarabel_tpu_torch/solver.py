@@ -372,7 +372,8 @@ def full_precision():
 
 def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
                      n: int, p_is_zero: bool, dtype: torch.dtype,
-                     use_pallas: bool = False, callback=None, sparse_ctx=None):
+                     use_pallas: bool = False, callback=None, sparse_ctx=None,
+                     row_shard=None):
     """The solve function (P, q, A, b, warm_start=None) -> outputs, with the
     same output dictionary as the JAX package's
     (clarabel_tpu/solver.py:246-272).  The tensors stay on their device.  It
@@ -387,7 +388,14 @@ def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
     of one problem, or of a batch of one sparsity pattern (values
     ``[B, nnz]`` with q [B, n] and b [B, m]; ``parallel.sparse_batch``),
     and the KKT path runs the sparse multifrontal engine: nothing is
-    densified."""
+    densified.
+
+    With ``row_shard = (DeviceMesh, axis)`` the function takes ``A`` as the
+    rank's rows of a row-sharded matrix (``algebra.ell.ELLRowMat`` or
+    ``DenseRowMat``) and P, q, b whole: the equilibration runs through
+    ``equilibrate_ell`` and the KKT through the row-sharded Schur prepares,
+    every rank in lockstep (``parallel/sharded.py``; the JAX package's
+    solver.py:199-202).  Every output is the same on every rank."""
 
     def solve_core(P, q, A, b, warm_start=None):
         # unscaled inf-norms of the linear terms, cached before
@@ -402,6 +410,11 @@ def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
             # values are final for the whole IPM: materialize the DIA
             # matvec layout once (no-op for non-compact patterns)
             P, A = P.predia(), A.predia()
+        elif row_shard is not None:
+            triu_mask = torch.triu(torch.ones((n, n), dtype=dtype, device=P.device))
+            P, q, A, b, d, e, c_scale = equilibration.equilibrate_ell(
+                layout, settings, P, q, A, b, triu_mask
+            )
         else:
             triu_mask = torch.triu(torch.ones((n, n), dtype=dtype, device=P.device))
             P, q, A, b, d, e, c_scale = equilibration.equilibrate(
@@ -419,7 +432,7 @@ def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
         st = run_ipm(
             layout, settings, P, q, A, b, equil, normq, normb, p_is_zero, dtype,
             use_pallas=use_pallas, warm_start=warm_start, callback=callback,
-            sparse_kkt=sparse_ctx,
+            sparse_kkt=sparse_ctx, row_shard=row_shard,
         )
 
         # ---- solution post-processing (solution.rs:68-111,
@@ -469,12 +482,6 @@ def build_solve_core(layout: ConeLayout, settings: DefaultSettings,
         }
 
     return solve_core
-
-
-def _not_ported(what: str, item):
-    return NotImplementedError(
-        f"{what} is not ported to clarabel_tpu_torch yet (ROADMAP.md Queue 1 item {item})"
-    )
 
 
 def check_ported(dtype: Optional[str]) -> str:

@@ -26,7 +26,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "clarabel_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_solve.py",
     ROOT / "scripts" / "ab_unblocked_kernel.py", ROOT / "scripts" / "f32_df_parity.py",
-    ROOT / "scripts" / "df_lu_phases.py"]
+    ROOT / "scripts" / "df_lu_phases.py", ROOT / "tests" / "_torch_distributed_worker.py"]
 
 
 def _tiny_qp():
@@ -145,20 +145,39 @@ def _psd2():
     return np.zeros((2, 2)), np.ones(2), A, b, [tt.PSDTriangleConeT(2)]
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(batch=True, mesh=object()), "item 16"),
+@pytest.fixture
+def meshes():
+    """A 1-D and a 2-D mesh of this process alone (a gloo group of one on a
+    HashStore), torn down after the test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield {"1-D": tt.distributed.global_mesh(("batch",), device_type="cpu"),
+               "2-D": tt.distributed.global_mesh(("batch", "rows"), shape=(1, 1),
+                                                 device_type="cpu")}
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("entry, mesh, error, match", [
+    # mesh= takes a torch DeviceMesh (it raised "item 16" until the
+    # multi-device slice was ported); ShardedRowSolver a 1-D one only
+    ("BatchSolver", "object", TypeError, "DeviceMesh"),
+    ("ShardedRowSolver", "object", TypeError, "DeviceMesh"),
+    ("ShardedRowSolver", "2-D", ValueError, "requires a 1-D mesh"),
+    ("ShardedRowSolver", None, ValueError, "requires a 1-D mesh"),
 ])
-def test_unported_options_raise(kwargs, item):
-    kwargs = dict(kwargs)
-    P, q, A, b, cones = _psd2() if kwargs.pop("psd", False) else _tiny_qp()
-    kwargs.setdefault("settings", tt.DefaultSettings(verbose=False))
-    cones = kwargs.pop("cones", cones)
-    with pytest.raises(NotImplementedError, match=item):
-        if kwargs.pop("batch", False):
+def test_unported_options_raise(entry, mesh, error, match, meshes):
+    P, q, A, b, cones = _tiny_qp()
+    mesh = object() if mesh == "object" else meshes.get(mesh)
+    settings = tt.DefaultSettings(verbose=False)
+    with pytest.raises(error, match=match):
+        if entry == "BatchSolver":
             P, q, A, b = (np.stack([v, v]) for v in (P, q, A, b))
-            tt.BatchSolver(P, q, A, b, cones, device="cpu", **kwargs).solve()
+            tt.BatchSolver(P, q, A, b, cones, settings, mesh=mesh)
         else:
-            tt.DefaultSolver(P, q, A, b, cones, device="cpu", **kwargs)
+            tt.ShardedRowSolver(P, q, A, b, cones, settings, mesh=mesh)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -215,21 +234,28 @@ def test_f32_dense_options_solve(kwargs):
     _solved_like_f64(kwargs)
 
 
-@pytest.mark.parametrize("entry, item", [
-    # the sparse batch and BatchSolver run on one device
-    ("SparseBatchSolver mesh", "item 16"),
-    ("BatchSolver mesh", "item 16"),
-])
-def test_unported_entry_points_raise(entry, item, tmp_path):
+@pytest.mark.parametrize("entry", ["SparseBatchSolver mesh", "BatchSolver mesh"])
+def test_unported_entry_points_raise(entry, meshes):
+    """The batch solvers over a mesh (they raised until the multi-device
+    slice was ported): on a 1-D mesh of one rank each solves the whole
+    batch, bit for bit as without a mesh, and reports no ``lanes``; a mesh
+    that is not a DeviceMesh raises."""
     P, q, A, b, cones = _tiny_qp()
+    settings = tt.DefaultSettings(verbose=False)
     if entry.startswith("SparseBatchSolver"):
-        with pytest.raises(NotImplementedError, match=item):
-            tt.SparseBatchSolver(sp.csc_matrix(P), np.stack([q, q]), sp.csc_matrix(A),
-                                 np.stack([b, b]), cones, device="cpu", mesh=object())
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        tt.BatchSolver(*(np.stack([v, v]) for v in (P, q, A, b)), cones,
-                       tt.DefaultSettings(verbose=False), device="cpu", mesh=object())
+        args = (sp.csc_matrix(P), np.stack([q, q]), sp.csc_matrix(A), np.stack([b, b]), cones,
+                settings)
+        make = tt.SparseBatchSolver
+    else:
+        args = (*(np.stack([v, v]) for v in (P, q, A, b)), cones, settings)
+        make = tt.BatchSolver
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        make(*args, mesh=object())
+    got = make(*args, mesh=meshes["1-D"]).solve()
+    ref = make(*args, device="cpu").solve()
+    assert got.lanes is None and got.statuses() == [tt.SolverStatus.Solved] * 2
+    np.testing.assert_array_equal(got.x, ref.x)
+    np.testing.assert_array_equal(got.z, ref.z)
 
 
 def test_f32_sparse_batch_solves():
