@@ -48,6 +48,12 @@ _SIGNATURES = {"ldl.cu": {
     # Ah, Al, perm, s, rhs, out, B, N, R, rc, shared-memory bytes, stream
     "df_lu_solve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "df_lu_smem_capacity": (),
+    # the kernels the factor entry points have launched so far
+    "df_lu_factor_kernels": (),
+    # the grid forms (N > 512): as above, with the scratch and its floats
+    # per matrix after ok (factor) and out (solve), and no launch shape
+    "df_lu_factor_grid": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    "df_lu_solve_grid": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }}
 #: the entry points only a build with -DDF_LU_PROFILE has, never the one
 #: :func:`library` loads (the factor's cycle counters: scripts/df_lu_phases.py)

@@ -34,6 +34,12 @@
 // and then recompute the matrix along the twin's own masked schedule (the
 // "exact" branches below), so the outputs equal the twin's everywhere.
 //
+// Two forms of each kernel: up to N = 512 the one-block forms below (one
+// CTA per matrix); above, the grid forms (sections "Factor, grid form" and
+// "Solve, grid form"), which run the same schedules with the trailing
+// update spread over the card and the solve's warps looping over their row
+// blocks.  The wrapper (df_ldl.factor_launch, solve_launch) picks by N.
+//
 // Factor: panel-blocked right-looking LU, one CTA per matrix.  For each
 // panel of NB = 8 columns (an A/B of 8, 16 and 32 on the H100 chose 8;
 // PERF.md):
@@ -207,10 +213,13 @@ __host__ __device__ constexpr size_t factor_smem_bytes(int N) {
   return ((size_t)2 * N * (NB + 1) + (size_t)2 * NB * (N > NB ? N - NB : 1) + 2 * N) * 4;
 }
 
-struct Shared {
-  unsigned red_k[MAX_WARPS];
-  unsigned red_i[MAX_WARPS];
+// the warps' pivot candidates for block_best, for blocks of up to W warps
+template <int W>
+struct SharedT {
+  unsigned red_k[W];
+  unsigned red_i[W];
 };
+using Shared = SharedT<MAX_WARPS>;
 
 // A build with -DDF_LU_PROFILE (scripts/df_lu_phases.py, never the
 // wrapper's) adds the factor's first block's clock cycles per part to
@@ -236,7 +245,8 @@ __device__ __forceinline__ unsigned rank_key(float v) {
 }
 
 // block-wide argmax of (bv, bi) in `better`'s order; every thread returns it
-__device__ __forceinline__ int block_best(Shared& sh, float bv, int bi) {
+template <class Sh>
+__device__ __forceinline__ int block_best(Sh& sh, float bv, int bi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   unsigned key = rank_key(bv);
   unsigned top = __reduce_max_sync(0xffffffffu, key);
@@ -256,7 +266,10 @@ __device__ __forceinline__ int block_best(Shared& sh, float bv, int bi) {
 // The twin's schedule itself for one matrix, in global memory: every step
 // updates every entry with 0/1 masks.  Taken only when the panel-blocked
 // schedule saw a non-finite or huge value (ok false); O(N^3) device traffic.
-__device__ void factor_exact(Shared& sh, float* smem, const float* kh, const float* kl,
+// `smem` is 4N floats of scratch: shared memory in the one-block form,
+// device memory in the grid form.
+template <class Sh>
+__device__ void factor_exact(Sh& sh, float* smem, const float* kh, const float* kl,
                              const float* s, float* ah, float* al, int* pm, int N, float delta,
                              uint8_t* ok) {
   const int tid = threadIdx.x, T = blockDim.x;
@@ -639,12 +652,420 @@ __global__ void __launch_bounds__(MAX_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// Factor, grid form (N > 512): one matrix spread over the card
+// ---------------------------------------------------------------------------
+//
+// The one-block form runs the whole factor on one SM: 28·N³/3 operations at
+// 128 lanes, 39.6 ms at N = 1024 and 604 ms at N = 2540, where the card's
+// floor is 0.30 and 4.57 ms.  The grid form runs the same panel-blocked
+// schedule (the same NB = 8 panels, the same operations in the same order
+// for every entry, the same tests for the exact branch) as a sequence of
+// launches per panel, the trailing block spread over the card:
+//   panel     one block per matrix: the panel's columns, all N rows, staged
+//             column-major in device memory (L2-resident: 2540 x 8 pairs is
+//             163 KB) and factored column by column as in the one-block form;
+//   swaps     a thread per column outside the panel: the panel's swaps
+//             applied late, and over the trailing columns the panel's U
+//             rows finished in the panel's step order;
+//   trailing  a 2-D grid of 32 x 64 tiles: every entry takes the panel's NB
+//             updates in registers, in step order, between one read and one
+//             write.
+// NB = 8 is the one-block form's panel width, and the grid form's too: per
+// entry and panel the trailing launch moves 16 bytes for 8 x 28 operations,
+// 14 operations a byte, above the card's non-FMA 33.5 T operations/s over
+// 3.35 TB/s (10 a byte), so the trailing update stays bound by arithmetic;
+// a wider panel adds to the serial panel launch (N·NB²/2 pair updates per
+// panel on one SM, 2.9 ms per factor at N = 2540 for NB = 8) more than it
+// saves in launches (3 per panel).  With a scale launch before the panels,
+// a finish launch after them (the permutation and `ok`, or the exact branch
+// on one block per matrix) and no trailing launch after the last panel,
+// that makes 1 + 3·⌈N/8⌉ launches per factor, issued by df_lu_factor_grid
+// on the caller's stream.
+//
+// Per-matrix scratch in device memory (grid_scratch_words floats): the
+// panel Ph/Pl [NB][N] (column-major), the U rows Uh/Ul [NB][N] as the
+// trailing update reads them (row 0 before its renormalization), pm [N]
+// and piv [NB] (int), and two flags (int): every entry finite as it is
+// last written, and no masked multiplier non-finite.  The exact branch
+// reuses the panel's space.
+
+constexpr int GRID_THREADS = 1024;  // the panel and finish launches' blocks
+constexpr int GRID_WARPS = GRID_THREADS / 32;
+constexpr int SWAP_THREADS = 128;
+constexpr int TILE_ROWS = 32;       // trailing tile: 8 warps x TM rows ...
+constexpr int TILE_COLS = 32 * TN;  // ... by a warp's 32·TN columns
+constexpr int TILE_THREADS = 32 * (TILE_ROWS / TM);
+
+__host__ __device__ constexpr size_t grid_scratch_words(int N) {
+  return (size_t)4 * NB * N + N + NB + 2;
+}
+
+struct GridScratch {
+  float *ph, *pl, *uh, *ul;
+  int *pm, *piv, *flags;
+  __device__ GridScratch(float* scratch, int N) {
+    float* base = scratch + (size_t)blockIdx.z * grid_scratch_words(N);
+    ph = base;
+    pl = ph + (size_t)NB * N;
+    uh = pl + (size_t)NB * N;
+    ul = uh + (size_t)NB * N;
+    pm = reinterpret_cast<int*>(ul + (size_t)NB * N);
+    piv = pm + N;
+    flags = piv + NB;
+  }
+};
+
+// (K * s_i) * s_k, as the one-block form scales; the identity permutation
+// and both flags set.  Grid (any, 1, B).
+__global__ void df_lu_grid_scale_kernel(const float* __restrict__ Kh,
+                                        const float* __restrict__ Kl,
+                                        const float* __restrict__ S, float* __restrict__ Ah,
+                                        float* __restrict__ Al, float* scratch, int N) {
+  GridScratch g(scratch, N);
+  const size_t off = (size_t)blockIdx.z * N * N;
+  const float* s = S + (size_t)blockIdx.z * N;
+  const size_t NN = (size_t)N * N;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < NN;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int i = (int)(e / N), k = (int)(e % N);
+    Ah[off + e] = mul(mul(Kh[off + e], s[i]), s[k]);
+    Al[off + e] = Kl ? mul(mul(Kl[off + e], s[i]), s[k]) : 0.0f;
+  }
+  if (blockIdx.x == 0) {
+    for (int i = threadIdx.x; i < N; i += blockDim.x) g.pm[i] = i;
+    if (threadIdx.x < 2) g.flags[threadIdx.x] = 1;
+  }
+}
+
+// The panel j0 .. j0 + w - 1 of every matrix, one block each (grid (1, 1,
+// B)): the one-block form's step 1 on the column-major panel in device
+// memory, then the panel's rows >= j0 written back.
+__global__ void __launch_bounds__(GRID_THREADS)
+    df_lu_grid_panel_kernel(float* __restrict__ Ah, float* __restrict__ Al, float* scratch,
+                            int N, int j0, float delta) {
+  __shared__ SharedT<GRID_WARPS> sh;
+  GridScratch g(scratch, N);
+  float* ph = g.ph;
+  float* pl = g.pl;
+  const size_t off = (size_t)blockIdx.z * N * N;
+  float* ah = Ah + off;
+  float* al = Al + off;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int w = min(NB, N - j0);
+
+  for (int e = tid; e < N * w; e += T) {
+    const int i = e / w, c = e % w;
+    ph[(size_t)c * N + i] = ah[(size_t)i * N + j0 + c];
+    pl[(size_t)c * N + i] = al[(size_t)i * N + j0 + c];
+  }
+  bool fin = true, tamed = true;
+  __syncthreads();
+
+  for (int c = 0; c < w; ++c) {
+    const int j = j0 + c;
+    float* colh = ph + (size_t)c * N;
+    float* coll = pl + (size_t)c * N;
+    float bv = -1.0f;
+    int bi = N;
+    // each thread reads the rows whose column c it updated at the step
+    // before, as in the one-block form
+    for (int i = j + tid; i < N; i += T) {
+      const float v = fabsf(add(colh[i], coll[i]));
+      if (better(v, i, bv, bi)) {
+        bv = v;
+        bi = i;
+      }
+    }
+    const int p = block_best(sh, bv, bi);
+    if (p != j && tid < w) {
+      const size_t cj = (size_t)tid * N + j, cp = (size_t)tid * N + p;
+      const float th = ph[cj], tl = pl[cj];
+      ph[cj] = ph[cp];
+      pl[cj] = pl[cp];
+      ph[cp] = th;
+      pl[cp] = tl;
+    }
+    if (tid == 32) {
+      g.piv[c] = p;
+      const int t = g.pm[j];
+      g.pm[j] = g.pm[p];
+      g.pm[p] = t;
+    }
+    // row 0's pairs of the first panel: renormalized by the twin's step 0
+    // right of the pivot and at step 1 on it
+    if (j == 1 && tid >= 64 && tid < 64 + w) {
+      float h, l;
+      two_sum(ph[(size_t)(tid - 64) * N], pl[(size_t)(tid - 64) * N], h, l);
+      ph[(size_t)(tid - 64) * N] = h;
+      pl[(size_t)(tid - 64) * N] = l;
+    }
+    __syncthreads();
+
+    float dh = colh[j], dl = coll[j];
+    if (dh == 0.0f) {
+      dh = delta;
+      dl = 0.0f;
+    }
+    for (int i = tid; i < N; i += T) {
+      float lh, ll;
+      df_div(colh[i], coll[i], dh, dl, lh, ll);
+      if (i > j) {
+        colh[i] = lh;
+        coll[i] = ll;
+      } else {
+        tamed = tamed && finite(lh) && finite(ll);
+      }
+    }
+    __syncthreads();
+    const int rows = N - 1 - j, pairs = rows * (w - 1 - c);
+    if (pairs > 0) {
+      int ri = tid % rows, ci = tid / rows;
+      const int dri = T % rows, dci = T / rows;
+      for (int q = tid; q < pairs; q += T) {
+        const int i = j + 1 + ri;
+        const size_t cc = (size_t)(c + 1 + ci) * N;
+        const float lh = colh[i], ll = coll[i];
+        const float rh = ph[cc + j], rl = pl[cc + j];
+        float lhh, lhl, rhh, rhl;
+        split(lh, lhh, lhl);
+        split(rh, rhh, rhl);
+        df_update(ph[cc + i], pl[cc + i], lh, ll, lhh, lhl, rh, rl, rhh, rhl);
+        ri += dri;
+        ci += dci;
+        if (ri >= rows) {
+          ri -= rows;
+          ++ci;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int e = tid; e < (N - j0) * w; e += T) {
+    const int i = j0 + e / w, c = e % w;
+    const float h = ph[(size_t)c * N + i], l = pl[(size_t)c * N + i];
+    ah[(size_t)i * N + j0 + c] = h;
+    al[(size_t)i * N + j0 + c] = l;
+    fin = fin && finite(h) && finite(l);
+  }
+  const bool all_fin = __syncthreads_and(fin);
+  const bool all_tamed = __syncthreads_and(tamed);
+  if (tid == 0) {
+    if (!all_fin) g.flags[0] = 0;
+    if (!all_tamed) g.flags[1] = 0;
+  }
+}
+
+// The panel j0's swaps on every column outside it, a thread per column
+// (grid (⌈(N - w) / SWAP_THREADS⌉, 1, B)): the moved rows' entries read at
+// once, then written where the swaps take them; over the trailing columns
+// the panel's own rows are its U rows, which the thread finishes in the
+// panel's step order and writes to the factor (row 0 renormalized, as the
+// twin's step 0 leaves it) and, as the trailing launch reads them, to Uh/Ul.
+__global__ void __launch_bounds__(SWAP_THREADS)
+    df_lu_grid_swap_kernel(float* __restrict__ Ah, float* __restrict__ Al, float* scratch, int N,
+                           int j0) {
+  __shared__ int moved[2 * NB], to[2 * NB], nmoved;
+  __shared__ float Lh[NB][NB], Ll[NB][NB];
+  __shared__ float Sh[NB][SWAP_THREADS], Sl[NB][SWAP_THREADS];
+  GridScratch g(scratch, N);
+  const size_t off = (size_t)blockIdx.z * N * N;
+  float* ah = Ah + off;
+  float* al = Al + off;
+  const int tid = threadIdx.x;
+  const int w = min(NB, N - j0), c0 = j0 + w;
+
+  if (tid == 0) {
+    // the panel's rows, then the rows it swapped in from below, each once,
+    // in pivot order; src[d] is the index in moved[] of the row whose
+    // entries end in moved[d]
+    int n = w, src[2 * NB];
+    for (int c = 0; c < w; ++c) moved[c] = j0 + c;
+    for (int c = 0; c < w; ++c) {
+      const int p = g.piv[c];
+      bool seen = p < c0;
+      for (int q = w; q < n; ++q) seen = seen || moved[q] == p;
+      if (!seen) moved[n++] = p;
+    }
+    for (int d = 0; d < n; ++d) src[d] = d;
+    for (int c = 0; c < w; ++c) {
+      const int p = g.piv[c];
+      int f = p - j0;
+      if (p >= c0)
+        for (int q = w; q < n; ++q)
+          if (moved[q] == p) f = q;
+      const int t = src[c];
+      src[c] = src[f];
+      src[f] = t;
+    }
+    // moved[m]'s entries go to row moved[to[m]]
+    for (int d = 0; d < n; ++d) to[src[d]] = d;
+    nmoved = n;
+  }
+  if (tid < w * w) {
+    const int r = tid / w, t = tid % w;
+    Lh[r][t] = g.ph[(size_t)t * N + j0 + r];
+    Ll[r][t] = g.pl[(size_t)t * N + j0 + r];
+  }
+  __syncthreads();
+
+  const int kk = blockIdx.x * SWAP_THREADS + tid;
+  const bool active = kk < N - w;
+  const int k = kk < j0 ? kk : kk + w;
+  const bool upper = active && k >= c0;
+  const int nm = nmoved;
+  if (active) {
+    float oh[2 * NB], ol[2 * NB];
+#pragma unroll
+    for (int m = 0; m < 2 * NB; ++m) {
+      if (m < nm) {
+        oh[m] = ah[(size_t)moved[m] * N + k];
+        ol[m] = al[(size_t)moved[m] * N + k];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2 * NB; ++m) {
+      if (m < nm) {
+        const int d = to[m];
+        if (upper && d < w) {
+          Sh[d][tid] = oh[m];
+          Sl[d][tid] = ol[m];
+        } else {
+          ah[(size_t)moved[d] * N + k] = oh[m];
+          al[(size_t)moved[d] * N + k] = ol[m];
+        }
+      }
+    }
+  }
+  bool fin = true;
+  if (upper) {
+    for (int t = 0; t + 1 < w; ++t) {
+      const float rh = Sh[t][tid], rl = Sl[t][tid];
+      float rhh, rhl;
+      split(rh, rhh, rhl);
+      for (int r = t + 1; r < w; ++r) {
+        const float lh = Lh[r][t], ll = Ll[r][t];
+        float lhh, lhl;
+        split(lh, lhh, lhl);
+        df_update(Sh[r][tid], Sl[r][tid], lh, ll, lhh, lhl, rh, rl, rhh, rhl);
+      }
+    }
+    for (int r = 0; r < w; ++r) {
+      float h = Sh[r][tid], l = Sl[r][tid];
+      g.uh[(size_t)r * N + k] = h;
+      g.ul[(size_t)r * N + k] = l;
+      if (j0 + r == 0) two_sum(Sh[r][tid], Sl[r][tid], h, l);
+      ah[(size_t)(j0 + r) * N + k] = h;
+      al[(size_t)(j0 + r) * N + k] = l;
+      fin = fin && finite(h) && finite(l);
+    }
+  }
+  if (!__syncthreads_and(fin) && tid == 0) g.flags[0] = 0;
+}
+
+// The trailing block of the panel j0, a TILE_ROWS x TILE_COLS tile per
+// block (grid (⌈M / TILE_COLS⌉, ⌈M / TILE_ROWS⌉, B), M = N - j0 - w): the
+// tile's multipliers and U entries staged in shared memory, then each
+// thread's TM x TN pairs take the panel's w updates in step order, as the
+// one-block form's step 3 gives them.
+__global__ void __launch_bounds__(TILE_THREADS)
+    df_lu_grid_trailing_kernel(float* __restrict__ Ah, float* __restrict__ Al, float* scratch,
+                               int N, int j0) {
+  __shared__ float Lh[NB][TILE_ROWS], Ll[NB][TILE_ROWS];
+  __shared__ float Rh[NB][TILE_COLS], Rl[NB][TILE_COLS];
+  GridScratch g(scratch, N);
+  const size_t off = (size_t)blockIdx.z * N * N;
+  float* ah = Ah + off;
+  float* al = Al + off;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int w = min(NB, N - j0), c0 = j0 + w;
+  const int r0 = c0 + blockIdx.y * TILE_ROWS;  // the tile's first row
+  const int k0 = c0 + blockIdx.x * TILE_COLS;  // and first column
+
+  for (int e = tid; e < w * TILE_ROWS; e += TILE_THREADS) {
+    const int t = e / TILE_ROWS, r = e % TILE_ROWS;
+    const int i = min(r0 + r, N - 1);
+    Lh[t][r] = g.ph[(size_t)t * N + i];
+    Ll[t][r] = g.pl[(size_t)t * N + i];
+  }
+  for (int e = tid; e < w * TILE_COLS; e += TILE_THREADS) {
+    const int t = e / TILE_COLS, c = e % TILE_COLS;
+    const int k = k0 + c;
+    Rh[t][c] = k < N ? g.uh[(size_t)t * N + k] : 0.0f;
+    Rl[t][c] = k < N ? g.ul[(size_t)t * N + k] : 0.0f;
+  }
+  __syncthreads();
+
+  const int m0 = warp * TM;  // the thread's rows in the tile ...
+  float th[TM][TN], tl[TM][TN];
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int n = 0; n < TN; ++n) {  // ... and its columns, 32 apart
+      const int i = r0 + m0 + m, k = k0 + lane + 32 * n;
+      const bool in = i < N && k < N;
+      th[m][n] = in ? ah[(size_t)i * N + k] : 0.0f;
+      tl[m][n] = in ? al[(size_t)i * N + k] : 0.0f;
+    }
+  for (int t = 0; t < w; ++t) {
+    float rh[TN], rl[TN], rhh[TN], rhl[TN];
+#pragma unroll
+    for (int n = 0; n < TN; ++n) {
+      rh[n] = Rh[t][lane + 32 * n];
+      rl[n] = Rl[t][lane + 32 * n];
+      split(rh[n], rhh[n], rhl[n]);
+    }
+#pragma unroll
+    for (int m = 0; m < TM; ++m) {
+      const float lh = Lh[t][m0 + m], ll = Ll[t][m0 + m];
+      float lhh, lhl;
+      split(lh, lhh, lhl);
+#pragma unroll
+      for (int n = 0; n < TN; ++n)
+        df_update(th[m][n], tl[m][n], lh, ll, lhh, lhl, rh[n], rl[n], rhh[n], rhl[n]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int n = 0; n < TN; ++n) {
+      const int i = r0 + m0 + m, k = k0 + lane + 32 * n;
+      if (i < N && k < N) {
+        ah[(size_t)i * N + k] = th[m][n];
+        al[(size_t)i * N + k] = tl[m][n];
+      }
+    }
+}
+
+// After the last panel (grid (1, 1, B)): the permutation and `ok` of a
+// matrix whose flags held; otherwise the exact branch recomputes it along
+// the twin's masked schedule, on this one block.
+__global__ void __launch_bounds__(GRID_THREADS)
+    df_lu_grid_finish_kernel(const float* __restrict__ Kh, const float* __restrict__ Kl,
+                             const float* __restrict__ S, float* __restrict__ Ah,
+                             float* __restrict__ Al, long long* __restrict__ perm,
+                             uint8_t* __restrict__ ok, float* scratch, int N, float delta) {
+  __shared__ SharedT<GRID_WARPS> sh;
+  GridScratch g(scratch, N);
+  const int b = blockIdx.z;
+  if (!(g.flags[0] && g.flags[1])) {
+    const size_t off = (size_t)b * N * N;
+    factor_exact(sh, g.ph, Kh + off, Kl ? Kl + off : nullptr, S + (size_t)b * N, Ah + off,
+                 Al + off, g.pm, N, delta, ok + b);
+    __syncthreads();
+  } else if (threadIdx.x == 0) {
+    ok[b] = 1;
+  }
+  for (int i = threadIdx.x; i < N; i += blockDim.x) perm[(size_t)b * N + i] = g.pm[i];
+}
+
+// ---------------------------------------------------------------------------
 // Solve
 // ---------------------------------------------------------------------------
 
 constexpr int TP = 33;   // diagonal tile row stride (odd: conflict-free columns)
 constexpr int HP = 17;   // half tile row stride
-constexpr int MAX_BLOCKS = MAX_THREADS / 32;  // row blocks of 32: N <= 512
+constexpr int MAX_BLOCKS = MAX_THREADS / 32;  // the one-block form's row blocks: N <= 512
 
 // Shared memory of the solve: a 32 x 16 (hi, lo) half tile per warp and two
 // more for the next diagonal block's warp (used in turn), a 32 x 32 tile
@@ -953,6 +1374,211 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Solve, grid form (N > 512)
+// ---------------------------------------------------------------------------
+//
+// The one-block solve gives each 32-row block a warp, 16 warps at most.
+// The grid form keeps one block per matrix, of 32·min(⌈N/32⌉, 32) threads,
+// and lets warp w own the row blocks w, w + W, w + 2W, ... (W warps): the
+// iterate of every row (hi, lo and the hi part's split) lives in a [4][N][RC]
+// scratch in device memory (L2-resident), and the warp that applies a tile
+// loads its rows' iterate, applies the tile's 32 columns in the twin's order
+// and stores it back.  The L and U entries are read from the factor directly
+// (each lane its row's 32 consecutive entries, from L1 after the first).
+// The schedule is the one-block form's: block J's diagonal is solved once
+// every tile left of it is applied (forward; right of it backward), by the
+// warp that owns it, right after it applies its own last tile; a block
+// barrier per row block.  The same tests pick the exact branch.
+
+constexpr int GRID_SOLVE_THREADS = 1024;
+
+__host__ __device__ constexpr size_t grid_solve_scratch_words(int N, int RC) {
+  return (size_t)4 * N * RC;
+}
+
+// y_i -= L_ij·y_j (forward) or x_i -= U_ij·x_j (backward) for the rows of
+// block I and the columns j0 .. j0 + cols - 1, in the twin's order, as
+// apply_half applies a staged half tile.
+template <int RC, bool FORWARD>
+__device__ __forceinline__ void grid_apply_tile(const float* ah, const float* al, float* yh,
+                                                float* yl, const float* yhh, const float* yhl,
+                                                int N, int I, int j0, int cols, bool& fin) {
+  const int lane = threadIdx.x & 31;
+  const int i = 32 * I + lane;
+  const bool in = i < N;
+  float xh[RC], xl[RC];
+#pragma unroll
+  for (int c = 0; c < RC; ++c) {
+    xh[c] = in ? yh[i * RC + c] : 0.0f;
+    xl[c] = in ? yl[i * RC + c] : 0.0f;
+  }
+  for (int q = 0; q < cols; ++q) {
+    const int j = j0 + (FORWARD ? q : cols - 1 - q);
+    const float uh = in ? ah[(size_t)i * N + j] : 0.0f;
+    const float ul = in ? al[(size_t)i * N + j] : 0.0f;
+    fin = fin && finite(uh) && finite(ul);
+    float uhh, uhl;
+    split(uh, uhh, uhl);
+#pragma unroll
+    for (int c = 0; c < RC; ++c) {
+      const float bh = yh[j * RC + c], bl = yl[j * RC + c];
+      float ph, pe, h, l;
+      two_prod_split(uh, uhh, uhl, bh, yhh[j * RC + c], yhl[j * RC + c], ph, pe);
+      two_sum(ph, add(add(pe, mul(uh, bl)), mul(ul, bh)), h, l);
+      df_sub(xh[c], xl[c], h, l, xh[c], xl[c]);
+    }
+  }
+  if (in) {
+#pragma unroll
+    for (int c = 0; c < RC; ++c) {
+      yh[i * RC + c] = xh[c];
+      yl[i * RC + c] = xl[c];
+    }
+  }
+}
+
+// Block I's diagonal, by the warp that owns it, as the one-block form
+// solves it: forward the unit lower triangle, backward the upper one with
+// its divisions and the outputs.  Its rows' values go to the iterate.
+template <int RC, bool FORWARD>
+__device__ __forceinline__ void grid_diagonal(const float* ah, const float* al, const float* s,
+                                              float* yh, float* yl, float* yhh, float* yhl,
+                                              float* o, int N, int R, int c0, int rc, int I,
+                                              bool& fin) {
+  const int lane = threadIdx.x & 31;
+  const int i = 32 * I + lane;
+  const bool in = i < N;
+  const int rows = min(32, N - 32 * I);
+  float xh[RC], xl[RC];
+#pragma unroll
+  for (int c = 0; c < RC; ++c) {
+    xh[c] = in ? yh[i * RC + c] : 0.0f;
+    xl[c] = in ? yl[i * RC + c] : 0.0f;
+  }
+  for (int q = 0; q < rows; ++q) {
+    const int jj = FORWARD ? q : rows - 1 - q;
+    const int j = 32 * I + jj;
+    const float uh = in ? ah[(size_t)i * N + j] : 0.0f;
+    const float ul = in ? al[(size_t)i * N + j] : 0.0f;
+    fin = fin && finite(uh) && finite(ul);
+    if (FORWARD) {
+#pragma unroll
+      for (int c = 0; c < RC; ++c) {
+        const float jh = __shfl_sync(0xffffffffu, xh[c], jj);
+        const float jl = __shfl_sync(0xffffffffu, xl[c], jj);
+        if (lane > jj) {
+          float ph, pl;
+          df_mul(uh, ul, jh, jl, ph, pl);
+          df_sub(xh[c], xl[c], ph, pl, xh[c], xl[c]);
+        }
+      }
+    } else {
+      const float dh = ah[(size_t)j * N + j], dl = al[(size_t)j * N + j];
+#pragma unroll
+      for (int c = 0; c < RC; ++c) {
+        if (lane == jj) df_div(xh[c], xl[c], dh, dl, xh[c], xl[c]);
+        const float jh = __shfl_sync(0xffffffffu, xh[c], jj);
+        const float jl = __shfl_sync(0xffffffffu, xl[c], jj);
+        if (lane < jj) {
+          float ph, pl;
+          df_mul(uh, ul, jh, jl, ph, pl);
+          df_sub(xh[c], xl[c], ph, pl, xh[c], xl[c]);
+        }
+      }
+    }
+  }
+  if (in) {
+#pragma unroll
+    for (int c = 0; c < RC; ++c) {
+      yh[i * RC + c] = xh[c];
+      yl[i * RC + c] = xl[c];
+      split(xh[c], yhh[i * RC + c], yhl[i * RC + c]);
+      if (c < rc) {
+        fin = fin && tame(xh[c], xl[c]);
+        if (!FORWARD) {
+          const float v = mul(add(xh[c], xl[c]), s[i]);
+          o[i * R + c0 + c] = v;
+          fin = fin && finite(v);
+        }
+      }
+    }
+  }
+}
+
+template <int RC>
+__global__ void __launch_bounds__(GRID_SOLVE_THREADS)
+    df_lu_solve_grid_kernel(const float* __restrict__ Ah, const float* __restrict__ Al,
+                            const long long* __restrict__ perm, const float* __restrict__ S,
+                            const float* __restrict__ rhs, float* __restrict__ out,
+                            float* scratch, int N, int R) {
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int w = tid >> 5, W = T >> 5;
+  const int nblk = (N + 31) / 32;
+  const int b = blockIdx.x;
+  const size_t off = (size_t)b * N * N;
+  const float* ah = Ah + off;
+  const float* al = Al + off;
+  const float* s = S + (size_t)b * N;
+  const long long* pm = perm + (size_t)b * N;
+  const float* r = rhs + (size_t)b * N * R;
+  float* o = out + (size_t)b * N * R;
+  float* yh = scratch + (size_t)b * grid_solve_scratch_words(N, RC);
+  float* yl = yh + (size_t)N * RC;
+  float* yhh = yl + (size_t)N * RC;
+  float* yhl = yhh + (size_t)N * RC;
+
+  for (int c0 = 0; c0 < R; c0 += RC) {
+    const int rc = min(RC, R - c0);
+    bool fin = true;  // every factor entry, iterate and output finite and tame
+    for (int i = tid; i < N; i += T) {
+      const long long pi = pm[i];
+#pragma unroll
+      for (int c = 0; c < RC; ++c) {
+        yh[i * RC + c] = c < rc ? mul(r[pi * R + c0 + c], s[pi]) : 0.0f;
+        yl[i * RC + c] = 0.0f;
+      }
+    }
+    __syncthreads();
+
+    // forward: L y = b_perm.  Step J applies column block J to the blocks
+    // below it; the owner of block J + 1 applies that tile first and then
+    // solves block J + 1's diagonal
+    for (int J = -1; J < nblk - 1; ++J) {
+      if (J < 0) {
+        if (w == 0) grid_diagonal<RC, true>(ah, al, s, yh, yl, yhh, yhl, o, N, R, c0, rc, 0, fin);
+      } else {
+        for (int I = J + 1 + ((w - (J + 1)) % W + W) % W; I < nblk; I += W) {
+          grid_apply_tile<RC, true>(ah, al, yh, yl, yhh, yhl, N, I, 32 * J, 32, fin);
+          if (I == J + 1)
+            grid_diagonal<RC, true>(ah, al, s, yh, yl, yhh, yhl, o, N, R, c0, rc, I, fin);
+        }
+      }
+      __syncthreads();
+    }
+
+    // backward: U x = y, the same from the last block, the tiles' columns
+    // in descending order
+    for (int J = nblk; J > 0; --J) {
+      if (J == nblk) {
+        if (w == (nblk - 1) % W)
+          grid_diagonal<RC, false>(ah, al, s, yh, yl, yhh, yhl, o, N, R, c0, rc, nblk - 1, fin);
+      } else {
+        const int cols = min(32, N - 32 * J);
+        for (int I = J - 1 - ((J - 1 - w) % W + W) % W; I >= 0; I -= W) {
+          grid_apply_tile<RC, false>(ah, al, yh, yl, yhh, yhl, N, I, 32 * J, cols, fin);
+          if (I == J - 1)
+            grid_diagonal<RC, false>(ah, al, s, yh, yl, yhh, yhl, o, N, R, c0, rc, I, fin);
+        }
+      }
+      __syncthreads();
+    }
+    if (__syncthreads_or(!fin) && w == 0)
+      solve_exact<RC>(yh, yl, ah, al, pm, s, r, o, N, R, c0, rc);
+    __syncthreads();
+  }
+}
+
 int smem_capacity() {
   int device, capacity;
   cudaError_t err = cudaGetDevice(&device);
@@ -973,9 +1599,25 @@ int launch_solve(const float* Ah, const float* Al, const long long* perm, const 
   return (int)cudaGetLastError();
 }
 
+template <int RC>
+int launch_solve_grid(const float* Ah, const float* Al, const long long* perm, const float* s,
+                      const float* rhs, float* out, float* scratch, int B, int N, int R,
+                      cudaStream_t stream) {
+  const int nblk = (N + 31) / 32;
+  const int threads = 32 * (nblk < GRID_SOLVE_THREADS / 32 ? nblk : GRID_SOLVE_THREADS / 32);
+  df_lu_solve_grid_kernel<RC><<<B, threads, 0, stream>>>(Ah, Al, perm, s, rhs, out, scratch, N,
+                                                         R);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// The kernels the factor entry points have launched since the library was
+// loaded (one per launch issued): a caller reads it before and after a
+// factor to count that factor's kernels (df_lu_factor_kernels).
+static int factor_kernels = 0;
 
 // K_lo may be null (a zero lo part).  threads (a multiple of 32 from 128
 // to 512) and smem_bytes (at least factor_smem_bytes(N)) are chosen by the
@@ -991,12 +1633,14 @@ int df_lu_factor(const float* K_hi, const float* K_lo, const float* s, float* Ah
   if (err != cudaSuccess) return (int)err;
   df_lu_factor_kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(K_hi, K_lo, s, Ah, Al,
                                                                         perm, ok, N, delta);
+  ++factor_kernels;
   return (int)cudaGetLastError();
 }
 
 // rc (1 or 2) right-hand sides per pass and smem_bytes (at least
 // solve_smem_bytes(N, rc)) are chosen by the wrapper (df_ldl.solve_launch);
-// one block of 32·⌈N/32⌉ threads per matrix, N <= 512.
+// one block of 32·⌈N/32⌉ threads per matrix, so N <= 512 (the one-block
+// form; df_lu_solve_grid takes larger N).
 int df_lu_solve(const float* Ah, const float* Al, const long long* perm, const float* s,
                 const float* rhs, float* out, int B, int N, int R, int rc, int smem_bytes,
                 void* stream) {
@@ -1008,9 +1652,66 @@ int df_lu_solve(const float* Ah, const float* Al, const long long* perm, const f
   return (int)cudaErrorInvalidValue;
 }
 
+// The grid form of df_lu_factor, for any N (the wrapper takes it above 512):
+// 1 + 3·⌈N/8⌉ launches on `stream`, B <= 65535 matrices; scratch holds
+// `words` >= grid_scratch_words(N) floats per matrix.
+int df_lu_factor_grid(const float* K_hi, const float* K_lo, const float* s, float* Ah, float* Al,
+                      long long* perm, uint8_t* ok, float* scratch, int words, int B, int N,
+                      float delta, void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || (size_t)words != grid_scratch_words(N))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t NN = (size_t)N * N;
+  const int scale_blocks = NN < (size_t)256 * 1024 ? (int)((NN + 255) / 256) : 1024;
+  df_lu_grid_scale_kernel<<<dim3(scale_blocks, 1, B), 256, 0, st>>>(K_hi, K_lo, s, Ah, Al,
+                                                                     scratch, N);
+  ++factor_kernels;
+  cudaError_t err = cudaGetLastError();
+  for (int j0 = 0; j0 < N && err == cudaSuccess; j0 += NB) {
+    const int w = N - j0 < NB ? N - j0 : NB, M = N - j0 - w;
+    df_lu_grid_panel_kernel<<<dim3(1, 1, B), GRID_THREADS, 0, st>>>(Ah, Al, scratch, N, j0,
+                                                                   delta);
+    ++factor_kernels;
+    if (N > w) {
+      df_lu_grid_swap_kernel<<<dim3((N - w + SWAP_THREADS - 1) / SWAP_THREADS, 1, B),
+                               SWAP_THREADS, 0, st>>>(Ah, Al, scratch, N, j0);
+      ++factor_kernels;
+    }
+    if (M > 0) {
+      df_lu_grid_trailing_kernel<<<dim3((M + TILE_COLS - 1) / TILE_COLS,
+                                        (M + TILE_ROWS - 1) / TILE_ROWS, B),
+                                   TILE_THREADS, 0, st>>>(Ah, Al, scratch, N, j0);
+      ++factor_kernels;
+    }
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return (int)err;
+  df_lu_grid_finish_kernel<<<dim3(1, 1, B), GRID_THREADS, 0, st>>>(K_hi, K_lo, s, Ah, Al, perm,
+                                                                  ok, scratch, N, delta);
+  ++factor_kernels;
+  return (int)cudaGetLastError();
+}
+
+// The grid form of df_lu_solve, for any N: one block per matrix; scratch
+// holds `words` = grid_solve_scratch_words(N, rc) floats per matrix.
+int df_lu_solve_grid(const float* Ah, const float* Al, const long long* perm, const float* s,
+                     const float* rhs, float* out, float* scratch, int words, int B, int N,
+                     int R, int rc, void* stream) {
+  if (B < 1 || N < 1 || (rc != 1 && rc != 2) ||
+      (size_t)words != grid_solve_scratch_words(N, rc))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rc == 1) return launch_solve_grid<1>(Ah, Al, perm, s, rhs, out, scratch, B, N, R, st);
+  if (rc == 2) return launch_solve_grid<2>(Ah, Al, perm, s, rhs, out, scratch, B, N, R, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The bytes of shared memory one block may use on the library's card
 // (cudaDevAttrMaxSharedMemoryPerBlockOptin), or minus the CUDA error.
 int df_lu_smem_capacity(void) { return smem_capacity(); }
+
+// The kernels df_lu_factor and df_lu_factor_grid have launched so far.
+int df_lu_factor_kernels(void) { return factor_kernels; }
 
 #ifdef DF_LU_PROFILE
 // The factor's cycle counts per part since the last read, then reset.

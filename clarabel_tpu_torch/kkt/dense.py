@@ -141,18 +141,14 @@ def factor(K_reg):
 
 
 def _df_lu_max_dim():
-    n = int(os.environ.get("CT_DF_LU_MAX_DIM", "512"))
-    if n > df_ldl.MAX_DIM:
-        raise ValueError(f"CT_DF_LU_MAX_DIM={n} exceeds {df_ldl.MAX_DIM}, the largest order "
-                         "the double-float LU kernels take")
-    return n
+    return int(os.environ.get("CT_DF_LU_MAX_DIM", "512"))
 
 
 #: the largest N the f32 "lu" route factors with the double-float LU
 #: (``kkt/df_ldl.py``); larger dense systems take :func:`factor_jacobi`, as
-#: in the JAX package.  Env-overridable (CT_DF_LU_MAX_DIM=0 disables it) up
-#: to the kernels' ceiling ``df_ldl.MAX_DIM`` = 512, which the JAX package
-#: does not have: a larger value raises on import.
+#: in the JAX package.  Env-overridable as the JAX package reads it
+#: (CT_DF_LU_MAX_DIM, any integer; 0 disables the double-float LU): the
+#: kernels take every order.
 DF_LU_MAX_DIM = _df_lu_max_dim()
 
 

@@ -24,20 +24,23 @@ an FMA; they are the CPU path and the twins the kernels are held to.  On a
 CUDA tensor :func:`factor` and :func:`solve` launch the hand-written kernels
 of ``csrc/df_lu.cu`` (``factor.launches`` and ``solve.launches`` count
 them) or raise; nothing falls back.  The factor kernel is a panel-blocked
-right-looking LU, one block per matrix: each panel of ``nb`` columns is
-factored in shared memory, its swaps are applied late, and every trailing
-entry takes the panel's ``nb`` updates in registers between one read and
-one write.  The solve kernel gives each matrix a block, a warp per 32 rows,
-and runs the row-oriented substitution blocked by 32.  Both are bitwise
-equal to the twins: each entry sees the twin's operations in the twin's
-order, and where the twin's masked updates would spread a non-finite value
-the kernels recompute the matrix along the twin's own schedule.  Their
-floor on the H100 is the non-FMA issue rate (33.5 T operations/s;
-error-free arithmetic cannot fuse), 1.29 ms for the factor at 512 x 208².
-:func:`factor_launch` and :func:`solve_launch` choose the launch
-parameters; both kernels take N up to :data:`MAX_DIM` = 512, the ceiling of
-``kkt.dense.DF_LU_MAX_DIM``.  The JAX package computes this outside Pallas, so it replaces
-no TPU kernel.
+right-looking LU: each panel of ``nb`` columns is factored on its own, its
+swaps are applied late, and every trailing entry takes the panel's ``nb``
+updates in registers between one read and one write.  Up to
+:data:`BLOCK_MAX_DIM` = 512 it runs as one block per matrix, the panel in
+shared memory (the one-block form); above, as three launches per panel,
+the trailing block spread over the card's SMs (the grid form).  The solve
+kernel gives each matrix a block and runs the row-oriented substitution
+blocked by 32, a warp per 32 rows up to 512 and each warp looping over
+several row blocks above.  Both are bitwise equal to the twins at every N:
+each entry sees the twin's operations in the twin's order, and where the
+twin's masked updates would spread a non-finite value the kernels
+recompute the matrix along the twin's own schedule.  Their floor on the
+H100 is the non-FMA issue rate (33.5 T operations/s; error-free
+arithmetic cannot fuse), 1.29 ms for the factor at 512 x 208².
+:func:`factor_launch` and :func:`solve_launch` choose the form and its
+launch parameters.  The JAX package computes this outside Pallas, so it
+replaces no TPU kernel.
 """
 
 from __future__ import annotations
@@ -88,14 +91,15 @@ def _pow2_jacobi(K_hi):
 
 
 def _swap_rows(M, j, p):
-    """Rows j and p[...] of M [..., N, C] swapped (p per problem)."""
-    N = M.shape[-2]
-    rows = torch.arange(N, device=M.device).expand(p.shape + (N,))
-    at_j = rows == j
-    at_p = rows == p.unsqueeze(-1)
+    """Rows j and p[...] of M [..., N, C] swapped (p per problem): two rows
+    moved, the rest copied."""
+    at_p = p[..., None, None].expand(*p.shape, 1, M.shape[-1])
+    row_j, row_p = M[..., j:j + 1, :].clone(), torch.gather(M, -2, at_p)
+    out = M.clone()
     # the JAX package writes row j into p, then row p into j
-    src = torch.where(at_j, p.unsqueeze(-1), torch.where(at_p, j, rows))
-    return torch.take_along_dim(M, src.unsqueeze(-1), dim=-2)
+    out.scatter_(-2, at_p, row_j)
+    out[..., j:j + 1, :] = row_p
+    return out
 
 
 # -----------------------------------------------------------------
@@ -229,56 +233,79 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-#: the largest N the kernels take: the solve's block has a warp per 32 rows
-#: and at most 16 warps (``kkt.dense.DF_LU_MAX_DIM`` may not exceed it)
-MAX_DIM = 512
+#: the largest N of the one-block forms: the solve's block has a warp per
+#: 32 rows and at most 16 warps; larger N take the grid forms
+BLOCK_MAX_DIM = 512
 #: the factor kernel's panel width (``NB`` in ``csrc/df_lu.cu``)
 FACTOR_NB = 8
+#: the most matrices one grid-form factor launches over (a grid's z extent)
+GRID_MAX_BATCH = 65535
 
 
 def factor_smem_bytes(N):
-    """Dynamic shared memory of the factor kernel (``factor_smem_bytes`` in
-    ``csrc/df_lu.cu``): the panel's N x FACTOR_NB pairs at an odd row
+    """Dynamic shared memory of the one-block factor (``factor_smem_bytes``
+    in ``csrc/df_lu.cu``): the panel's N x FACTOR_NB pairs at an odd row
     stride, its U rows over the trailing columns, the permutation and the
     panel's row sources."""
     nb = FACTOR_NB
     return (2 * N * (nb + 1) + 2 * nb * max(N - nb, 1) + 2 * N) * 4
 
 
+def grid_scratch_words(N):
+    """Device-memory scratch of the grid-form factor, in floats per matrix
+    (``grid_scratch_words`` in ``csrc/df_lu.cu``): the panel and its U rows
+    as (hi, lo) pairs [FACTOR_NB][N], the permutation, the panel's pivots
+    and two flags."""
+    return 4 * FACTOR_NB * N + N + FACTOR_NB + 2
+
+
+def grid_solve_scratch_words(N, rc):
+    """Device-memory scratch of the grid-form solve, in floats per matrix
+    (``grid_solve_scratch_words``): the iterate's hi and lo parts and the hi
+    part's split, [N][rc] each."""
+    return 4 * N * rc
+
+
 def factor_launch(B, N, smem_capacity, sm_count):
-    """(threads per block, shared-memory bytes) of ``df_lu_factor`` for B
-    matrices of order N: 512 threads while each SM holds at most one matrix,
+    """(form, threads per block, shared-memory bytes) of ``df_lu_factor``
+    for B matrices of order N.  Up to :data:`BLOCK_MAX_DIM`, the one-block
+    form ("block"): 512 threads while each SM holds at most one matrix,
     fewer as more matrices share an SM, so that a batch of up to four per SM
-    runs in one wave.  Raises rather than degrading for N above
-    :data:`MAX_DIM` (the ceiling of ``DF_LU_MAX_DIM``) or a panel that does
-    not fit the card."""
-    if N > MAX_DIM:
-        raise ValueError(f"df_lu_factor takes N <= {MAX_DIM} (the ceiling of DF_LU_MAX_DIM), "
-                         f"got {N}")
+    runs in one wave; it raises for a panel that does not fit the card's
+    shared memory.  Above, the grid form ("grid": a panel block of 1024
+    threads, static shared memory only); it raises for more matrices than
+    a grid spans (:data:`GRID_MAX_BATCH`)."""
+    if N > BLOCK_MAX_DIM:
+        if B > GRID_MAX_BATCH:
+            raise ValueError(f"df_lu_factor's grid form takes at most {GRID_MAX_BATCH} "
+                             f"matrices per launch, got {B}")
+        return "grid", 1024, 0
     per_sm = -(-B // sm_count)
     threads = 512 if per_sm <= 1 else 256 if per_sm <= 2 else 128
     nbytes = factor_smem_bytes(N)
     if nbytes > smem_capacity:
         raise ValueError(f"df_lu_factor at N={N} needs {nbytes} bytes of shared memory, the "
                          f"card has {smem_capacity}")
-    return threads, nbytes
+    return "block", threads, nbytes
 
 
 def solve_launch(N, R, smem_capacity):
-    """(right-hand sides per pass, shared-memory bytes) of ``df_lu_solve``:
-    one block per matrix with a warp per 32-row block (N <= MAX_DIM), a
-    32 x 16 half tile per warp and two more, a 32 x 32 tile for the diagonal
-    block, and the [N, rc] iterate with its split hi parts
-    (``solve_smem_bytes`` in ``csrc/df_lu.cu``).  Raises for N > MAX_DIM or
-    a block that does not fit."""
-    if N > MAX_DIM:
-        raise ValueError(f"df_lu_solve takes N <= {MAX_DIM} (a warp per 32 rows), got {N}")
+    """(form, right-hand sides per pass, shared-memory bytes) of
+    ``df_lu_solve``.  Up to :data:`BLOCK_MAX_DIM`, the one-block form
+    ("block"): a warp per 32-row block, a 32 x 16 half tile per warp and two
+    more, a 32 x 32 tile for the diagonal block, and the [N, rc] iterate with
+    its split hi parts (``solve_smem_bytes`` in ``csrc/df_lu.cu``); it raises
+    for a block that does not fit.  Above, the grid form ("grid"): up to 32
+    warps each looping over its row blocks, the iterate in device memory
+    (:func:`grid_solve_scratch_words`), no dynamic shared memory."""
     rc = 1 if R == 1 else 2
+    if N > BLOCK_MAX_DIM:
+        return "grid", rc, 0
     nbytes = ((-(-N // 32) + 2) * 2 * 32 * 17 + 2 * 32 * 33 + 4 * N * rc) * 4
     if nbytes > smem_capacity:
         raise ValueError(f"df_lu_solve at N={N} needs {nbytes} bytes of shared memory, the "
                          f"card has {smem_capacity}")
-    return rc, nbytes
+    return "block", rc, nbytes
 
 
 def _check(name, t, dims):
@@ -289,23 +316,29 @@ def _check(name, t, dims):
 
 
 def _launch_factor(lib, K_hi, K_lo, delta):
-    """``df_lu_factor`` of ``lib`` (the built ``csrc/df_lu.cu``) with
-    factor_launch's parameters."""
+    """``df_lu_factor`` (or ``df_lu_factor_grid``) of ``lib`` (the built
+    ``csrc/df_lu.cu``) with factor_launch's parameters."""
     batch, N = K_hi.shape[:-2], K_hi.shape[-1]
     Kh = K_hi.reshape(-1, N, N).contiguous()
     B = Kh.shape[0]
-    threads, nbytes = factor_launch(B, N, _smem_capacity(), _sm_count(Kh.device))
+    form, threads, nbytes = factor_launch(B, N, _smem_capacity(), _sm_count(Kh.device))
     Kl = None if K_lo is None else K_lo.reshape(-1, N, N).contiguous()
     s = _pow2_jacobi(Kh).contiguous()
     Ah, Al = torch.empty_like(Kh), torch.empty_like(Kh)
     perm = torch.empty((B, N), dtype=torch.int64, device=Kh.device)
     ok = torch.empty(B, dtype=torch.uint8, device=Kh.device)
     if B:
+        args = (Kh.data_ptr(), None if Kl is None else Kl.data_ptr(), s.data_ptr(),
+                Ah.data_ptr(), Al.data_ptr(), perm.data_ptr(), ok.data_ptr())
         with torch.cuda.device(Kh.device):
-            err = lib.df_lu_factor(
-                Kh.data_ptr(), None if Kl is None else Kl.data_ptr(), s.data_ptr(),
-                Ah.data_ptr(), Al.data_ptr(), perm.data_ptr(), ok.data_ptr(), B, N,
-                float(delta), threads, nbytes, torch.cuda.current_stream().cuda_stream)
+            stream = torch.cuda.current_stream().cuda_stream
+            if form == "grid":
+                words = grid_scratch_words(N)
+                scratch = torch.empty((B, words), dtype=torch.float32, device=Kh.device)
+                err = lib.df_lu_factor_grid(*args, scratch.data_ptr(), words, B, N,
+                                            float(delta), stream)
+            else:
+                err = lib.df_lu_factor(*args, B, N, float(delta), threads, nbytes, stream)
         if err != 0:
             raise RuntimeError(f"df_lu_factor launch failed: CUDA error {err}")
         factor.launches += 1
@@ -317,7 +350,9 @@ def factor(K_hi, K_lo=None, delta=1e-6):
     """Double-float LU with partial pivoting of K = K_hi + K_lo
     ([..., N, N], float32).  Returns ((Ah, Al, perm, s), ok) as
     :func:`factor_plain` does.  A CPU tensor takes the plain version; a CUDA
-    tensor launches ``df_lu_factor`` and raises if it cannot."""
+    tensor launches ``df_lu_factor`` or, above :data:`BLOCK_MAX_DIM`,
+    ``df_lu_factor_grid`` (1 + 3·⌈N/8⌉ kernels, counted as one launch) and
+    raises if it cannot."""
     _check("K_hi", K_hi, 2)
     if K_lo is not None and (K_lo.shape != K_hi.shape or K_lo.dtype != K_hi.dtype):
         raise ValueError("K_lo must match K_hi in shape and dtype")
@@ -336,8 +371,9 @@ factor.launches = 0
 def solve(factors, rhs):
     """Solve K x = rhs through :func:`factor`'s output; ``rhs`` [..., N] or
     [..., N, R].  A CPU tensor takes the plain version; a CUDA tensor
-    launches ``df_lu_solve`` (one block per matrix, all R columns) and
-    raises if it cannot."""
+    launches ``df_lu_solve`` or, above :data:`BLOCK_MAX_DIM`,
+    ``df_lu_solve_grid`` (one block per matrix, all R columns) and raises if
+    it cannot."""
     Ah, Al, perm, s = factors
     _check("rhs", rhs, 1)
     if Ah.device.type == "cpu":
@@ -356,16 +392,21 @@ def solve(factors, rhs):
                          f"{tuple(Ah.shape)}")
     b = b.expand(*shape, N, R).reshape(-1, N, R).contiguous()
     B = b.shape[0]
-    rc, nbytes = solve_launch(N, R, _smem_capacity())
+    form, rc, nbytes = solve_launch(N, R, _smem_capacity())
     lib = build.library("df_lu.cu")
     out = torch.empty_like(b)
     if B:
-        with torch.cuda.device(Ah.device):
-            err = lib.df_lu_solve(
-                Ah.contiguous().data_ptr(), Al.contiguous().data_ptr(),
+        args = (Ah.contiguous().data_ptr(), Al.contiguous().data_ptr(),
                 perm.contiguous().data_ptr(), s.contiguous().data_ptr(), b.data_ptr(),
-                out.data_ptr(), B, N, R, rc, nbytes,
-                torch.cuda.current_stream().cuda_stream)
+                out.data_ptr())
+        with torch.cuda.device(Ah.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if form == "grid":
+                words = grid_solve_scratch_words(N, rc)
+                scratch = torch.empty((B, words), dtype=torch.float32, device=b.device)
+                err = lib.df_lu_solve_grid(*args, scratch.data_ptr(), words, B, N, R, rc, stream)
+            else:
+                err = lib.df_lu_solve(*args, B, N, R, rc, nbytes, stream)
         if err != 0:
             raise RuntimeError(f"df_lu_solve launch failed: CUDA error {err}")
         solve.launches += 1

@@ -9,7 +9,7 @@ no counters), which makes the factor's first block add its clock cycles per
 part to a counter read by the build's ``df_lu_profile_read``:
 the scaling, the panels (staging and the column-by-column factorization),
 the deferred swaps with the U rows, and the trailing updates.  Factors
-``chip_smoke.df_matrices`` at the phase 3i shapes and the DF_LU_MAX_DIM edge
+``chip_smoke.df_matrices`` at the phase 3i shapes and the one-block forms' edge
 (1 x 176², 512 x 208², 1 x 512²) and prints each part's share of the
 block's cycles beside the kernel's time from CUDA events (that build, its
 counters included).

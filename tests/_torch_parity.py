@@ -12,13 +12,17 @@ in interpret mode, as the JAX package's own CPU runs do.
 import dataclasses
 import functools
 
+import jax
 import numpy as np
+import pytest
 import torch
 
 import clarabel_tpu as ct
 import clarabel_tpu.kkt.pallas_ldl as jax_pallas_ldl
 import clarabel_tpu_torch as tt
-from clarabel_tpu_torch import convert
+from clarabel_tpu import json_io as jax_json_io
+from clarabel_tpu_torch import convert, json_io
+from clarabel_tpu_torch.kkt import dense as tdense
 
 import test_basic_lp
 import test_basic_qp
@@ -665,3 +669,136 @@ def assert_f32_matches(got, ref, f64, iterations=2):
         assert rel(lane.obj_val, f64.obj_val) <= 1e-4, (lane.obj_val, f64.obj_val)
     scale = 1.0 + float(np.max(np.abs(ref.x), initial=0.0))
     assert np.max(np.abs(np.asarray(got.x) - np.asarray(ref.x)), initial=0.0) <= 1e-3 * scale
+
+
+#: one problem of each cone kind (of PROBLEMS), for the JSON file tests
+FILE_KINDS = {
+    "zero": "eq_feasible",
+    "nonnegative": "qp_feasible",
+    "second_order": "socp_feasible",
+    "exponential": "exp_feasible",
+    "power": "pow_feasible",
+    "genpower": "genpow_feasible",
+    "psd": "sdp_feasible",
+}
+
+
+def check_jax_file_loads(kind, tmp_path, monkeypatch):
+    """A file the JAX package writes (dense path) loads in the port with
+    the same data, and the port's solve of it matches the JAX package's
+    solve of the same file within the parity contract; the backend spread
+    is each package's "auto" against "pallas" on the same problem (the
+    file holds the original data: no presolve reduction here).  Each kind
+    is tested (``test_jax_files_load_in_the_port``) in the solver parity
+    file of its problem (test_torch_solver.py, _qp.py, _socp.py,
+    _nonsym.py, _pow.py, _sdp.py), where those JAX reference solves are
+    made anyway."""
+    interpret_pallas(monkeypatch)
+    name = FILE_KINDS[kind]
+    P, q, A, b, cones = PROBLEMS[name]()
+    ref = ct.DefaultSolver(P, q, A, b, cones,
+                           ct.DefaultSettings(verbose=False, direct_solve_method="auto"))
+    path = tmp_path / "jax.json"
+    ref.save_to_file(path)
+
+    P, q, A, b, cones, settings = json_io.load_problem(path)
+    P_r, q_r, A_r, b_r, cones_r, settings_r = jax_json_io.load_problem(path)
+    assert (P != P_r).nnz == 0 and (A != A_r).nnz == 0
+    assert np.array_equal(q, q_r) and np.array_equal(b, b_r)
+    assert tuple(cones) == port_cones(cones_r)
+    assert settings == port_settings(settings_r)
+
+    jax_solver = ct.DefaultSolver.load_from_file(path)
+    jax_solver.solve()
+    port_solver = tt.DefaultSolver.load_from_file(path, device="cpu")
+    port_solver.solve()
+    assert jax_solver._presolver is None
+    pair = ("auto", "pallas")
+    assert_lane_matches(lane_of(jax_solver), lane_of(port_solver),
+                           [lane_of(reference(name, m)) for m in pair],
+                           [lane_of(port(name, m)) for m in pair],
+                           optimum=reference_optimum(name),
+                           pin_objective=name in OBJECTIVE_PINNED_BY_TOLERANCE)
+
+
+# ---------------------------------------------------------------------------
+# f32 "auto" routes around the sparse path (test_torch_f32_sparse_routes.py,
+# test_torch_f32_sparse.py)
+
+
+def _route_banded_sdp():
+    import chip_smoke
+
+    P, q, A, b, _ = chip_smoke.banded_sdp(77)
+    return P, q, A, b, [ct.PSDTriangleConeT(77)]
+
+
+def _route_maxcut_dual():
+    import chip_smoke
+
+    P, q, A, b = chip_smoke.maxcut_dual(78, 2, 1)[:4]
+    return P, q, A, b, [ct.PSDTriangleConeT(78)]
+
+
+#: name -> (the problem, sparse after the cost model)
+F32_ROUTES = {"chordal_sdp": (_route_banded_sdp, True), "veto_dense": (_route_maxcut_dual, False)}
+
+
+@functools.cache
+def f32_route_reference(name):
+    P, q, A, b, cones = F32_ROUTES[name][0]()
+    solver = ct.DefaultSolver(P, q, A, b, cones, ct.DefaultSettings.for_float32(verbose=False),
+                              dtype="float32", device=jax.devices("cpu")[0])
+    solver.solve()
+    return solver
+
+
+def f32_route_port(name, dtype):
+    P, q, A, b, cones = F32_ROUTES[name][0]()
+    make = tt.DefaultSettings.for_float32 if dtype == "float32" else tt.DefaultSettings
+    solver = tt.DefaultSolver(P, q, A, b, port_cones(cones), make(verbose=False),
+                              dtype=dtype, device="cpu")
+    solver.solve()
+    return solver
+
+
+def check_f32_route(name):
+    """The port's f32 "auto" solve of route ``name`` (of F32_ROUTES)
+    against the JAX package's: the routes' fields (``_sparse``, the linear
+    solver's name, dimension and nnz(L), the cost model's decision) and the
+    f32 contract (:func:`assert_f32_matches`)."""
+    ref = f32_route_reference(name)
+    got = f32_route_port(name, "float32")
+    sparse = F32_ROUTES[name][1]
+    assert got._sparse == ref._sparse == sparse
+    assert got._chordal is not None and ref._chordal is not None
+    for field in ("name", "dim", "nnzL"):
+        assert getattr(got.info.linear_solver, field) == getattr(ref.info.linear_solver, field)
+    assert got.info.linear_solver.cost_model["decision"] == \
+        ref.info.linear_solver.cost_model["decision"] == ("multifrontal" if sparse else "dense")
+    if not sparse:  # the dense f32 "lu" above the double-float LU's sizes
+        assert got.info.linear_solver.dim > tdense.DF_LU_MAX_DIM
+    f64 = f32_route_port(name, "float64")
+    assert_f32_matches(lane_of(got), lane_of(ref), lane_of(f64))
+
+
+# ---------------------------------------------------------------------------
+# the double-float LU past the one-block kernels' order
+# (test_torch_df_lu_large.py, test_torch_df_lu_large_solve.py)
+
+#: past 512, not a multiple of 32 or of the grid factor's panel width 8
+DF_LARGE_N = 545
+
+
+def df_split(K):
+    """An f64 matrix as its f32 (hi, lo) pair."""
+    hi = K.astype(np.float32)
+    return hi, (K - hi.astype(np.float64)).astype(np.float32)
+
+
+def df_large_matrix():
+    """tests/test_df_lu.py's split-scale quasidefinite K (cond ~ 1e8) at
+    DF_LARGE_N (n = 136, m = 409), f64."""
+    import test_df_lu
+
+    return test_df_lu._quasidef(DF_LARGE_N // 4, DF_LARGE_N - DF_LARGE_N // 4, 5.0, seed=11)

@@ -1,0 +1,20 @@
+"""The port's BatchSolver against the JAX package's, lane by lane, on B = 3
+allocations over k = 3 generalized power cones (every step under dual
+scaling, each lane's own α), as test_torch_batch_nonsym.py states it. A file
+of two tests (one problem's JAX compiles), which pytest-xdist's loadfile
+scheduling runs beside tests/test_df_lu.py."""
+
+import pytest
+
+import _torch_parity as tp
+
+
+@pytest.fixture(autouse=True)
+def _interpret(monkeypatch):
+    tp.interpret_pallas(monkeypatch)
+
+
+@pytest.mark.parametrize("method", ["auto", "pallas"])
+@pytest.mark.parametrize("name", ["genpow"])
+def test_batch_matches_reference(name, method):
+    tp.assert_batch_matches_reference(name, method)

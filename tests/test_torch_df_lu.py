@@ -21,6 +21,9 @@ A batch of matrices factors and solves as each matrix alone, bit for bit.
 """
 
 import functools
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -458,42 +461,58 @@ def test_solve_schedule_model_matches_twin(nb, N, kind, lo):
 
 
 def test_launch_parameters():
-    """factor_launch and solve_launch choose the kernels' shapes from (B, N,
-    R) and the card's shared memory, and raise rather than degrade; nothing
-    is launched.  (H100: 232,448 bytes per block, 132 SMs.)"""
+    """factor_launch and solve_launch choose the kernels' form and shapes
+    from (B, N, R) and the card's shared memory, and raise only for what
+    cannot launch; nothing is launched.  (H100: 232,448 bytes per block,
+    132 SMs.)  Up to N = 512 the one-block forms; above, the grid forms,
+    whose shared memory is static and small, at every N."""
     cap, sms = 232448, 132
-    assert tdf.factor_launch(1, 176, cap, sms) == (512, tdf.factor_smem_bytes(176))
+    assert tdf.factor_launch(1, 176, cap, sms) == ("block", 512, tdf.factor_smem_bytes(176))
     assert tdf.factor_smem_bytes(176) == (2 * 176 * 9 + 2 * 8 * 168 + 2 * 176) * 4
-    assert tdf.factor_launch(264, 208, cap, sms)[0] == 256
-    threads, nbytes = tdf.factor_launch(512, 208, cap, sms)
+    assert tdf.factor_launch(264, 208, cap, sms)[1] == 256
+    form, threads, nbytes = tdf.factor_launch(512, 208, cap, sms)
     # four blocks of the entropy batch share an SM (228 KB, 1 KB reserved each)
-    assert threads == 128 and 4 * (nbytes + 1024 + 512) <= 233472
-    assert tdense.DF_LU_MAX_DIM <= tdf.MAX_DIM == 512
-    assert tdf.factor_launch(1, tdense.DF_LU_MAX_DIM, cap, sms)[1] <= cap
-    with pytest.raises(ValueError, match="DF_LU_MAX_DIM"):
-        tdf.factor_launch(1, tdense.DF_LU_MAX_DIM + 1, cap, sms)
+    assert form == "block" and threads == 128 and 4 * (nbytes + 1024 + 512) <= 233472
+    assert tdf.BLOCK_MAX_DIM == tdense.DF_LU_MAX_DIM == 512
+    assert tdf.factor_launch(1, 512, cap, sms)[::2] == ("block", tdf.factor_smem_bytes(512))
+    assert tdf.factor_smem_bytes(512) <= cap
+    for B, N in ((1, 513), (8, 1024), (1, 2540), (1, 20000)):
+        assert tdf.factor_launch(B, N, cap, sms) == ("grid", 1024, 0)
+    assert tdf.grid_scratch_words(2540) == 4 * 8 * 2540 + 2540 + 8 + 2
+    with pytest.raises(ValueError, match="65535 matrices"):
+        tdf.factor_launch(65536, 513, cap, sms)
     with pytest.raises(ValueError, match="shared memory"):
         tdf.factor_launch(1, 512, 50_000, sms)
-    assert tdf.solve_launch(176, 1, cap) == (1, (8 * 2 * 32 * 17 + 2 * 32 * 33 + 4 * 176) * 4)
-    rc, nbytes = tdf.solve_launch(208, 2, cap)
+    assert tdf.solve_launch(176, 1, cap) == ("block", 1, (8 * 2 * 32 * 17 + 2 * 32 * 33 + 4 * 176) * 4)
+    form, rc, nbytes = tdf.solve_launch(208, 2, cap)
     # four blocks of the entropy batch's solve share an SM: one wave of 512
-    assert rc == 2 and 4 * (nbytes + 1024) <= 233472
-    assert tdf.solve_launch(512, 3, cap)[0] == 2
-    with pytest.raises(ValueError, match="N <= 512"):
-        tdf.solve_launch(513, 1, cap)
+    assert form == "block" and rc == 2 and 4 * (nbytes + 1024) <= 233472
+    assert tdf.solve_launch(512, 3, cap)[:2] == ("block", 2)
+    assert tdf.solve_launch(513, 1, cap) == ("grid", 1, 0)
+    assert tdf.solve_launch(2540, 2, cap) == ("grid", 2, 0)
+    assert tdf.grid_solve_scratch_words(2540, 2) == 4 * 2540 * 2
     with pytest.raises(ValueError, match="shared memory"):
         tdf.solve_launch(512, 2, 50_000)
 
 
-@pytest.mark.parametrize("value, accepted", [("256", True), ("1024", False)])
-def test_df_lu_max_dim_ceiling(value, accepted, monkeypatch):
-    """CT_DF_LU_MAX_DIM may lower the double-float LU's order, not raise it
-    past the kernels' ceiling (df_ldl.MAX_DIM): the value kkt/dense.py reads
-    on import (DF_LU_MAX_DIM = _df_lu_max_dim()) raises for a larger one,
-    before any solve, rather than partway through one."""
+@pytest.mark.parametrize("value", ["0", "256", "1024"])
+def test_df_lu_max_dim_ceiling(value, monkeypatch):
+    """CT_DF_LU_MAX_DIM is read as the JAX package reads it
+    (clarabel_tpu/kkt/dense.py): any integer, lower or higher than the
+    default 512 (0 turns the double-float LU off) -- the kernels take every
+    order, so there is no ceiling.  kkt/dense.py reads it on import
+    (DF_LU_MAX_DIM = _df_lu_max_dim())."""
     monkeypatch.setenv("CT_DF_LU_MAX_DIM", value)
-    if accepted:
-        assert tdense._df_lu_max_dim() == int(value)
-    else:
-        with pytest.raises(ValueError, match="CT_DF_LU_MAX_DIM=1024 exceeds 512"):
-            tdense._df_lu_max_dim()
+    assert tdense._df_lu_max_dim() == int(value)
+    monkeypatch.delenv("CT_DF_LU_MAX_DIM")
+    assert tdense._df_lu_max_dim() == 512
+
+
+def test_df_lu_max_dim_on_import():
+    """A process that imports the port with CT_DF_LU_MAX_DIM=4096 sees it
+    in kkt.dense, where an import used to raise past 512."""
+    code = "import clarabel_tpu_torch.kkt.dense as d; print(d.DF_LU_MAX_DIM)"
+    env = dict(os.environ, CT_DF_LU_MAX_DIM="4096")
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         check=True, timeout=120)
+    assert out.stdout.split() == ["4096"]

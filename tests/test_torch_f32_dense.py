@@ -21,8 +21,10 @@ dual is pinned only by the 1e-4 tolerances: the JAX package's "auto" and
 z* = (-1, x* - 1, e^-x*, ...), so there the port's z is held to within
 twice the JAX package's own distance from z* (or 1e-3).  A lane of the
 port's batch equals the same lane solved as a batch of one, bit for bit.
-Two JAX compiles here (two more in test_torch_df_lu.py), each solve
-computed once: the batch's three lanes share the exponential-cone problem's
+One JAX compile here (the portfolio QP's in test_torch_f32_dense_qp.py, a
+file of one test that pytest-xdist's loadfile scheduling runs beside
+tests/test_df_lu.py; two more in test_torch_df_lu.py), each solve computed
+once: the batch's three lanes share the exponential-cone problem's
 compiled solve, which the JAX package caches on the layout, the settings
 and the shapes.
 """
@@ -139,7 +141,7 @@ def assert_solve_matches_reference(key):
     assert got.info.linear_solver.name == ref.info.linear_solver.name
 
 
-@pytest.mark.parametrize("key", [("expcone", "auto"), ("portfolio_qp", "pallas")])
+@pytest.mark.parametrize("key", [("expcone", "auto")])
 def test_f32_dense_matches_reference(key):
     assert_solve_matches_reference(key)
 

@@ -27,7 +27,12 @@ the JAX package's, on the CPU, on inputs made from a numpy seed:
   nnz(L), the cost model and the SOC expansions equal the JAX package's.
 
 Whole f32 solves on the sparse path are in ``test_torch_f32_sparse_solve.py``
-and ``test_torch_f32_sparse_routes.py``.
+and ``test_torch_f32_sparse_routes.py``; that file's dual max-cut route
+("auto" decomposes it, the cost model's veto sends it back to the dense
+path, f32 "lu" takes the Jacobi LU above ``DF_LU_MAX_DIM``) is held here,
+through ``_torch_parity.check_f32_route``: the JAX package's f32 compile of
+it takes over a minute, more than a file of one or two tests may take
+beside tests/test_df_lu.py under pytest-xdist's loadfile scheduling.
 """
 
 import math
@@ -277,3 +282,8 @@ def test_f32_sparse_route_fields_match_reference(name):
         {k: v for k, v in gcm.items() if k != "provenance"}
     assert got._skkt.soc_expanded == ref._skkt.soc_expanded
     assert got._skkt.soc_expanded == ((True,) if name == "expanded_soc_d300" else ())
+
+
+@pytest.mark.parametrize("name", ["veto_dense"])
+def test_f32_auto_route_matches_reference(name):
+    tp.check_f32_route(name)

@@ -101,7 +101,6 @@ PROBLEMS = {
 }
 
 
-@pytest.fixture
 def expand_small_socs(monkeypatch):
     """SOCs above 4 rows take the rank-2 expansion at f32 too, in both
     packages (the reference's threshold; f32 keeps them dense up to 256)."""
@@ -132,7 +131,6 @@ def port_solve(name, dtype):
     return solver
 
 
-@pytest.fixture
 def counters(monkeypatch):
     """Counts of the compensated sparse products (by matvec path), of
     ``mul_hs_df`` and of the lo-complete Δτ in what runs next."""
@@ -157,8 +155,22 @@ def counters(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("name", PROBLEMS)
-def test_f32_multifrontal_matches_reference(name, counters, expand_small_socs):
+@pytest.mark.parametrize("name", ["soc_expanded"])
+def test_f32_multifrontal_matches_reference(name, monkeypatch):
+    check_f32_multifrontal(name, monkeypatch)
+
+
+def check_f32_multifrontal(name, monkeypatch):
+    """The f32 multifrontal solve of problem ``name`` against the JAX
+    package's, with SOCs above 4 rows expanded in both packages
+    (:func:`expand_small_socs`) and :func:`counters` on its compensated
+    products;
+    the banded QP, the entropy problem and the generalized power cone are
+    held in test_torch_f32_sparse_solve_qp.py and _nonsym.py, files of one
+    and two tests that pytest-xdist's loadfile scheduling runs beside
+    tests/test_df_lu.py."""
+    expand_small_socs(monkeypatch)
+    calls = counters(monkeypatch)
     ref, jax_expanded = jax_f32(name)
     got = port_solve(name, "float32")
     assert got._sparse and got.info.linear_solver.name == MF
@@ -171,11 +183,11 @@ def test_f32_multifrontal_matches_reference(name, counters, expand_small_socs):
     assert bool(got._skkt.dia_recipe) == (name == "banded_qp")
     # the refinement and the Δs recovery through the compensated product of
     # the problem's matvec path; no mul_hs_df, no lo-complete Δτ
-    assert counters[path] > 0 and counters["dia" if path == "segment" else "segment"] == 0
-    assert counters["mul_hs_df"] == 0 and counters["dtau_df"] == 0, counters
-    counters.clear()
+    assert calls[path] > 0 and calls["dia" if path == "segment" else "segment"] == 0
+    assert calls["mul_hs_df"] == 0 and calls["dtau_df"] == 0, calls
+    calls.clear()
     f64 = port_solve(name, "float64")
-    assert not counters, counters  # f64 refines plainly
+    assert not calls, calls  # f64 refines plainly
     tp.assert_f32_matches(tp.lane_of(got), ref, tp.lane_of(f64))
     assert got.solution.status == tt.SolverStatus.Solved
 

@@ -27,15 +27,7 @@ from clarabel_tpu import json_io as jax_json_io
 from clarabel_tpu_torch import json_io
 
 #: one problem of each cone kind (of _torch_parity.PROBLEMS)
-KINDS = {
-    "zero": "eq_feasible",
-    "nonnegative": "qp_feasible",
-    "second_order": "socp_feasible",
-    "exponential": "exp_feasible",
-    "power": "pow_feasible",
-    "genpower": "genpow_feasible",
-    "psd": "sdp_feasible",
-}
+KINDS = tp.FILE_KINDS
 
 
 def tiny_qp():
@@ -210,39 +202,6 @@ def test_port_writes_the_files_the_jax_package_writes(kind, sparse, tmp_path):
     assert second.status == first.status and second.iterations == first.iterations
     for v in ("x", "z", "s"):
         assert np.array_equal(getattr(second, v), getattr(first, v)), v
-
-
-@pytest.mark.parametrize("kind", KINDS)
-def test_jax_files_load_in_the_port(kind, tmp_path, monkeypatch):
-    """A file the JAX package writes (dense path) loads in the port with
-    the same data, and the port's solve of it matches the JAX package's
-    solve of the same file within the parity contract; the backend spread
-    is each package's "auto" against "pallas" on the same problem (the
-    file holds the original data: no presolve reduction here)."""
-    tp.interpret_pallas(monkeypatch)
-    name = KINDS[kind]
-    ref, _ = both(tp.PROBLEMS[name](), "auto", False)
-    path = tmp_path / "jax.json"
-    ref.save_to_file(path)
-
-    P, q, A, b, cones, settings = json_io.load_problem(path)
-    P_r, q_r, A_r, b_r, cones_r, settings_r = jax_json_io.load_problem(path)
-    assert (P != P_r).nnz == 0 and (A != A_r).nnz == 0
-    assert np.array_equal(q, q_r) and np.array_equal(b, b_r)
-    assert tuple(cones) == tp.port_cones(cones_r)
-    assert settings == tp.port_settings(settings_r)
-
-    jax_solver = ct.DefaultSolver.load_from_file(path)
-    jax_solver.solve()
-    port_solver = tt.DefaultSolver.load_from_file(path, device="cpu")
-    port_solver.solve()
-    assert jax_solver._presolver is None
-    pair = ("auto", "pallas")
-    tp.assert_lane_matches(tp.lane_of(jax_solver), tp.lane_of(port_solver),
-                           [tp.lane_of(tp.reference(name, m)) for m in pair],
-                           [tp.lane_of(tp.port(name, m)) for m in pair],
-                           optimum=tp.reference_optimum(name),
-                           pin_objective=name in tp.OBJECTIVE_PINNED_BY_TOLERANCE)
 
 
 @pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])

@@ -115,13 +115,22 @@ def _tol(K, ref, dtype):
     return 1e-4 * np.abs(ref).max()
 
 
-CASES = [(20, 20, "unrolled"), (80, 80, "unrolled"), (20, 20, "fori"),
-         (80, 80, "fori"), (80, 80, "blocked")]
+#: (80, 80, "unrolled") and (80, 80, "blocked") in test_torch_ldl_unrolled.py
+#: and test_torch_ldl_blocked.py, files of two tests (each its own JAX
+#: compiles), which pytest-xdist's loadfile scheduling runs beside
+#: tests/test_df_lu.py
+CASES = [(20, 20, "unrolled"), (20, 20, "fori"), (80, 80, "fori")]
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("n,m,variant", CASES)
 def test_factor_and_solve_match_pallas(n, m, variant, dtype):
+    check_factor_and_solve(n, m, variant, dtype)
+
+
+def check_factor_and_solve(n, m, variant, dtype):
+    """The kernel's plain version against the JAX package's Pallas kernel
+    on a batch of two KKT matrices: D, L's strict triangle and the solve."""
     settings = JaxSettings()
     K = _kkt_batch(2, n, m, dtype, seed=n + m)
     ref, ref_ok = _reference(K, n, m, settings, variant)

@@ -11,7 +11,9 @@ block) on a grid pattern, analyzed once by the JAX package's
   ``ldl_unblocked_kernel``), against the JAX package's: pivots, L and the
   solution within 1e-12 relative.  The scan repeats the JAX arithmetic; the
   kernel route forms each rank-1 update in another order ((K[j][r]/d)·K[j][c]
-  against (K[c][j]/d)·K[r][j]), so the two differ by rounding.
+  against (K[c][j]/d)·K[r][j]), so the two differ by rounding.  Held in
+  test_torch_multifrontal_factor.py, a file of two tests that
+  pytest-xdist's loadfile scheduling runs beside tests/test_df_lu.py.
 - the per-matrix-sign twin against JAX ``_diag_factor``, 1e-12 relative,
   and the regularization firing on the same pivots in both.
 - padded fronts: pad pivots regularize to delta and leave the solution of
@@ -66,29 +68,6 @@ def _setup(seed=0, **kw):
     tarrays = tmf.device_arrays(tplan, torch.float64, "cpu")
     kvals = K_low.data.copy()
     return plan, tplan, jarrays, tarrays, kvals, K
-
-
-@pytest.mark.parametrize("route", ["scan", "kernel_twin"])
-def test_factor_and_solve_match_reference(route):
-    plan, tplan, jarrays, tarrays, kvals, K = _setup()
-    assert any(B.asm for lvl in plan.levels for B in lvl)  # children extend-add
-    jf, jok = jmf.mf_factor(plan, jarrays, jnp.asarray(kvals), EPS, DELTA)
-    diag_fn = tmf._diag_factor_scan if route == "scan" else tmf._diag_factor_ldl
-    tf, tok = tmf.mf_factor(tplan, tarrays, torch.as_tensor(kvals), EPS, DELTA,
-                            diag_fn=diag_fn)
-    assert bool(jok) and bool(tok)
-    _close(tf["dvec"], jf["dvec"])
-    for jl, tl in zip(jf["levels"], tf["levels"]):
-        for (jLc, jd, jLinv), (tLc, td, tLinv) in zip(jl, tl):
-            _close(tLc, jLc)
-            _close(td, jd)
-            _close(tLinv, jLinv)
-    rng = np.random.default_rng(1)
-    for rhs in (rng.normal(size=K.shape[0]), rng.normal(size=(K.shape[0], 2))):
-        ref = jmf.mf_solve(plan, jarrays, jf, jnp.asarray(rhs))
-        got = tmf.mf_solve(tplan, tarrays, tf, torch.as_tensor(rhs))
-        _close(got, ref)
-        _close(got, np.linalg.solve(K, rhs), rel=1e-10)
 
 
 def _blocks(k=6, b=32, seed=4):

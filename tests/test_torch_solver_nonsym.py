@@ -211,3 +211,11 @@ def test_schur_methods_demote_to_lu(method):
         np.testing.assert_array_equal(got.x, lu.x)
     else:
         assert abs(got.obj_val - lu.obj_val) <= 1e-7
+
+
+@pytest.mark.parametrize("kind", ["exponential"])
+def test_jax_files_load_in_the_port(kind, tmp_path, monkeypatch):
+    """_torch_parity.check_jax_file_loads on this module's problem (a file
+    the JAX package writes loads in the port): its JAX reference solves are
+    this module's."""
+    tp.check_jax_file_loads(kind, tmp_path, monkeypatch)

@@ -41,3 +41,11 @@ def test_batch_lanes_match_reference(name, method):
         got = {m: _batch_lanes(name, m)[i] for m in pair}
         tp.assert_lane_matches(ref[method], got[method], [ref[m] for m in pair],
                                [got[m] for m in pair], optimum=tp.reference_optimum(name))
+
+
+@pytest.mark.parametrize("kind", ["power", "genpower"])
+def test_jax_files_load_in_the_port(kind, tmp_path, monkeypatch):
+    """_torch_parity.check_jax_file_loads on this module's problems (a file
+    the JAX package writes loads in the port): their JAX reference solves
+    are this module's."""
+    tp.check_jax_file_loads(kind, tmp_path, monkeypatch)

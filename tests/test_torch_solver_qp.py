@@ -19,3 +19,11 @@ def _interpret(monkeypatch):
 @pytest.mark.parametrize("name", NAMES)
 def test_port_matches_reference(name, method):
     tp.assert_port_matches_reference(name, method)
+
+
+@pytest.mark.parametrize("kind", ["nonnegative"])
+def test_jax_files_load_in_the_port(kind, tmp_path, monkeypatch):
+    """_torch_parity.check_jax_file_loads on this module's problem (a file
+    the JAX package writes loads in the port): its JAX reference solves are
+    this module's."""
+    tp.check_jax_file_loads(kind, tmp_path, monkeypatch)

@@ -5,7 +5,11 @@ PSD + SOC mixture) through ``direct_solve_method`` "auto" (pivoted LU at
 f64) and "pallas" (the quasidefinite LDLᵀ), both packages at f64 on the
 CPU, under the parity contract of tests/_torch_parity.py (the same status,
 iterations and KKT backend name; x, z and s within 1e-7; the objectives
-within 1e-9 relative).
+within 1e-9 relative).  Here the reference's SDP and the empty PSD cone
+(which share their JAX compiles) and the JAX-file check
+(``_torch_parity.check_jax_file_loads``) on the SDP (sharing its references); the other two each in a file of its own
+(test_torch_solver_sdp_infeasible.py, _soc.py), two tests each, which
+pytest-xdist's loadfile scheduling runs beside tests/test_df_lu.py.
 
 Then the routing of the auto backend: a large problem goes to the sparse
 multifrontal engine, where PSD blocks may send it only tentatively, to
@@ -29,16 +33,13 @@ import clarabel_tpu_torch as tt
 
 import test_psd_auto_route
 
-NAMES = ["sdp_feasible", "sdp_empty_cone", "sdp_primal_infeasible", "sdp_mixed_with_soc"]
-
-
 @pytest.fixture(autouse=True)
 def _interpret(monkeypatch):
     tp.interpret_pallas(monkeypatch)
 
 
 @pytest.mark.parametrize("method", ["auto", "pallas"])
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", ["sdp_feasible", "sdp_empty_cone"])
 def test_port_matches_reference(name, method):
     tp.assert_port_matches_reference(name, method)
 
@@ -175,3 +176,11 @@ def test_f32_with_psd_solves(method, batch):
     assert ref.status == tt.SolverStatus.Solved
     assert all(s == tt.SolverStatus.Solved for s in statuses), statuses
     assert np.all(np.abs(objs - ref.obj_val) <= 1e-3 * max(1.0, abs(ref.obj_val)))
+
+
+@pytest.mark.parametrize("kind", ["psd"])
+def test_jax_files_load_in_the_port(kind, tmp_path, monkeypatch):
+    """_torch_parity.check_jax_file_loads on this module's problem (a file
+    the JAX package writes loads in the port): its JAX reference solves are
+    this module's."""
+    tp.check_jax_file_loads(kind, tmp_path, monkeypatch)

@@ -18,8 +18,10 @@ row within 1e-6 relative (+1e-10) of the reference's.
   the dense path in both; the ``linear_solver`` fields and the cost model's
   inputs and decision are equal (constructions only).
 - CSC data updates (nzval vectors, (index, value) pairs, whole matrices of
-  the same structure) and a warm start, each solve against the reference's;
-  an update to zero values keeps the structure (the port alone: the JAX
+  the same structure) and a warm start, each solve against the reference's
+  (test_torch_solver_sparse_updates.py, a file of one test that
+  pytest-xdist's loadfile scheduling runs beside tests/test_df_lu.py); an
+  update to zero values keeps the structure (the port alone: the JAX
   package's sum drops the zeros from its structure there).
 - ``BatchSolver`` with "multifrontal" runs what the JAX BatchSolver runs
   there (pivoted LU on each lane), lane by lane.
@@ -124,43 +126,6 @@ def _box_qp(n=30, seed=2):
     A = sp.vstack([sp.eye(n), -sp.eye(n), sp.csr_matrix(np.ones((1, n)))], format="csc")
     b = np.concatenate([np.ones(2 * n), [1.0]])
     return P, rng.normal(size=n), A, b
-
-
-def test_data_updates_and_warm_start():
-    P, q, A, b = _box_qp()
-    n = q.size
-    solvers = {}
-    for pkg in (ct, tt):
-        settings = pkg.DefaultSettings(verbose=False, direct_solve_method=MF,
-                                       presolve_enable=False)
-        kw = dict(device="cpu") if pkg is tt else {}
-        solvers[pkg] = pkg.DefaultSolver(P, q, A, b, [pkg.NonnegativeConeT(2 * n),
-                                                      pkg.ZeroConeT(1)], settings, **kw)
-    P_up = sp.triu(P, format="csc")
-    updates = [
-        lambda s: s.update_q((np.arange(5), np.full(5, 0.3))),
-        lambda s: s.update_P(P_up.data * 1.01),
-        lambda s: s.update_A(A * 1.02),
-        lambda s: s.update_b((np.array([2 * n]), np.array([0.8]))),
-    ]
-    lanes = {pkg: [] for pkg in solvers}
-    for pkg, s in solvers.items():
-        first = s.solve()
-        lanes[pkg].append(tp.lane_of(s))
-        for up in updates:
-            up(s)
-            s.solve()
-            lanes[pkg].append(tp.lane_of(s))
-        s.update_q(q * 1.01)
-        s.solve(warm_start=first)
-        lanes[pkg].append(tp.lane_of(s))
-    for r, g in zip(lanes[ct], lanes[tt]):
-        assert g.status == tt.SolverStatus.Solved
-        tp.assert_lane_matches(r, g, [r, r], [g, g])
-    # the warm start saves iterations over the cold first solve
-    assert lanes[tt][-1].iterations < lanes[tt][0].iterations
-    with pytest.raises(ValueError, match="identical sparsity"):
-        solvers[tt].update_A(sp.eye(A.shape[0], n, format="csc"))
 
 
 def test_update_to_zero_keeps_the_structure():

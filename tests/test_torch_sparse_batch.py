@@ -7,7 +7,9 @@ one multifrontal plan, f64 on the CPU.
   1e-7, the objectives within 1e-9 relative): the banded QP batch of the
   JAX package's own tests (B = 3, n = 60, the fused DIA assembly) and its
   NN + SOC lane batch (B = 2, n = 12: the rank-2 SOC expansion, the
-  assembly through Kvals).  Two JAX constructions in all, made once.
+  assembly through Kvals).  Two JAX constructions in all, made once, in
+  test_torch_sparse_batch_reference.py (a file of two tests, which
+  pytest-xdist's loadfile scheduling runs beside tests/test_df_lu.py).
 - Against the port's own DefaultSolver "multifrontal" (held to the JAX
   package by test_torch_solver_sparse.py), lane by lane under the same
   contract: a feasible and a primal-infeasible lane in one batch, an
@@ -72,19 +74,6 @@ def _port(name):
     P, q, A, b, cones = BATCHES[name]()
     solver = tt.SparseBatchSolver(P, q, A, b, tp.port_cones(cones), _settings(tt), device="cpu")
     return solver, solver.solve()
-
-
-@pytest.mark.parametrize("name", BATCHES)
-def test_matches_reference(name):
-    ref = _reference(name)
-    solver, sol = _port(name)
-    got = tp.lanes_of(solver, sol, tt.SolverStatus)
-    assert len(got) == len(ref)
-    for r, g in zip(ref, got):
-        assert g.status == tt.SolverStatus.Solved
-        tp.assert_lane_matches(r, g, [r, r], [g, g])
-    # one plan for every lane: the JAX package's, bucket for bucket
-    assert solver.plan.nnzL > 0 and solver.iteration_history().shape == (len(got), 201, 9)
 
 
 def _alone(P, q, A, b, cones, warm_start=None, **settings):
